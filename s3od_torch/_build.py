@@ -1,0 +1,130 @@
+"""Builds and loads the port's CUDA kernels (K2, K3, K4).
+
+All `csrc/*.cu` files compile with `nvcc` into ONE shared library with a
+plain C interface, loaded through `ctypes` — no PyTorch headers, so the
+build takes seconds instead of minutes. The library lands in the build
+directory — `$S3OD_TORCH_BUILD_DIR` if set, else `build/s3od_torch_kernels/`
+beside the package (the checkout's git-ignored `build/`) — named by a hash
+of the sources and flags, and is rebuilt at first use whenever that hash
+changes. Each C entry point launches on the stream it is given and returns
+`cudaGetLastError()`; `check()` turns a nonzero code into an exception.
+
+The Triton kernel (K1) needs no build step; while it launches (and so
+compiles), `triton_cache()` points Triton's compile cache into the same
+build directory, and restores the caller's setting afterwards.
+
+Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+DEFAULT_BUILD_DIR = (Path(__file__).resolve().parent.parent / "build"
+                     / "s3od_torch_kernels")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C entry points: name -> argument types (every pointer and the stream as
+# c_void_p, or ctypes would cut them to 32 bits).
+_SIGNATURES = {
+    # x, w, b, cos, sin, q, k, v, rows, n, c, heads, head_dim, scale, stream
+    "s3od_qkv_project_rope": [_P] * 8 + [_I] * 5 + [_F, _P],
+    # q, k, v, o, lse, bh, n, head_dim, n_valid, stream
+    "s3od_flash_attention_fwd": [_P] * 5 + [_I] * 4 + [_P],
+    # a, wo, bo, x, ls, lw, lb, xn, h, batch, n, c, heads, head_dim, eps, stream
+    "s3od_attn_epilogue": [_P] * 9 + [_I] * 5 + [_F, _P],
+}
+
+
+def build_dir() -> Path:
+    return Path(os.environ.get("S3OD_TORCH_BUILD_DIR") or DEFAULT_BUILD_DIR)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return str(path)
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+@functools.lru_cache(maxsize=1)
+def load_library() -> ctypes.CDLL:
+    """Build (if the sources changed) and load the kernel library."""
+    out = build_dir()
+    out.mkdir(parents=True, exist_ok=True)
+    lib_path = out / f"libs3od_kernels_{source_hash()}.so"
+    if not lib_path.exists():
+        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        (out / "build.log").write_text(
+            " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        os.replace(tmp, lib_path)
+    lib = ctypes.CDLL(str(lib_path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(code: int, name: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA error {code} at launch")
+
+
+@contextlib.contextmanager
+def triton_cache():
+    """Point Triton's compile cache into the build directory for the span
+    of one launch of this package's kernel (Triton reads the variable when
+    it compiles); the caller's own setting is restored afterwards."""
+    old = os.environ.get("TRITON_CACHE_DIR")
+    os.environ["TRITON_CACHE_DIR"] = str(build_dir() / "triton")
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("TRITON_CACHE_DIR", None)
+        else:
+            os.environ["TRITON_CACHE_DIR"] = old
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    """The current CUDA stream of `t`'s device, for the C entry points."""
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,159 @@
+"""DPT decoder in PyTorch (counterpart of `s3od_tpu/models/dpt.py`).
+
+NCHW with cuDNN convolutions; parameter names follow the reference
+checkpoint (`seg_head.*` keys). The JAX package computes these convs
+outside Pallas, so there is no kernel to port here. Structure:
+
+  taps (B, N, C) x4 -> 1x1 project -> resize (convT x4, convT x2, id,
+  3x3 s2) -> 3x3 scratch convs -> refinenet4..1 (RCUs + 1x1 out_conv +
+  bilinear upsample) -> path1 -> IoU head (GAP -> 64 -> n) and mask head
+  (3x3 -> convT x2 -> 3x3 -> n branch convs).
+
+`fold_bn_` folds the eval-mode RCU BatchNorms into the preceding convs in
+float64, as `fold_bn_inference` does (`dpt.py:514-564`).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from s3od_torch.configs import SegmentationConfig
+from s3od_torch.ops.resize import resize_bilinear
+
+
+class ResidualConvUnit(nn.Module):
+    """ReLU -> conv -> [BN] -> ReLU -> conv -> [BN] -> + x."""
+
+    def __init__(self, features: int, use_bn: bool):
+        super().__init__()
+        self.conv1 = nn.Conv2d(features, features, 3, padding=1)
+        self.conv2 = nn.Conv2d(features, features, 3, padding=1)
+        bn = (lambda: nn.BatchNorm2d(features)) if use_bn else nn.Identity
+        self.bn1, self.bn2 = bn(), bn()
+
+    def forward(self, x):
+        out = self.bn1(self.conv1(F.relu(x)))
+        out = self.bn2(self.conv2(F.relu(out)))
+        return out + x
+
+
+class FeatureFusionBlock(nn.Module):
+    def __init__(self, features: int, use_bn: bool):
+        super().__init__()
+        self.out_conv = nn.Conv2d(features, features, 1)
+        self.resConfUnit1 = ResidualConvUnit(features, use_bn)
+        self.resConfUnit2 = ResidualConvUnit(features, use_bn)
+
+    def forward(self, x, res: Optional[torch.Tensor], out_hw):
+        if res is not None:
+            x = x + self.resConfUnit1(res)
+        x = self.resConfUnit2(x)
+        # 1x1 conv and bilinear resize commute; the conv runs on 4x fewer
+        # pixels first (as in the JAX package).
+        return resize_bilinear(self.out_conv(x), out_hw)
+
+
+class Scratch(nn.Module):
+    def __init__(self, neck: Tuple[int, ...], features: int, use_bn: bool):
+        super().__init__()
+        for i, c in enumerate(neck):
+            setattr(self, f"layer{i + 1}_rn",
+                    nn.Conv2d(c, features, 3, padding=1, bias=False))
+        for i in range(1, 5):
+            setattr(self, f"refinenet{i}", FeatureFusionBlock(features, use_bn))
+
+
+class MaskHead(nn.Module):
+    def __init__(self, features: int, inter: int, num_outputs: int):
+        super().__init__()
+        self.output_conv1 = nn.Conv2d(features, features // 2, 3, padding=1)
+        self.upsample_2x = nn.Sequential(
+            nn.ConvTranspose2d(features // 2, 2 * inter, 4, stride=2, padding=1),
+            nn.ReLU(),
+            nn.Conv2d(2 * inter, 2 * inter, 3, padding=1),
+        )
+        self.mask_heads = nn.ModuleList(
+            nn.Sequential(nn.Conv2d(2 * inter, inter, 3, padding=1), nn.ReLU(),
+                          nn.Conv2d(inter, 1, 1))
+            for _ in range(num_outputs)
+        )
+
+    def forward(self, path1, target_hw):
+        feat = self.output_conv1(path1)
+        feat = F.relu(self.upsample_2x(feat))
+        feat = resize_bilinear(feat, target_hw, antialias=True)  # no-op at 16p
+        # The branches' 3x3 convs run as ONE conv over the shared features
+        # and their 1x1 convs as one grouped (block-diagonal) conv.
+        heads = self.mask_heads
+        hidden = F.relu(F.conv2d(
+            feat, torch.cat([h[0].weight for h in heads]),
+            torch.cat([h[0].bias for h in heads]), padding=1))
+        return F.conv2d(hidden, torch.cat([h[2].weight for h in heads]),
+                        torch.cat([h[2].bias for h in heads]),
+                        groups=len(heads))
+
+
+class DPTHead(nn.Module):
+    def __init__(self, cfg: SegmentationConfig):
+        super().__init__()
+        c, neck, f = cfg.encoder.hidden_size, tuple(cfg.neck_channels), cfg.features
+        self.projects = nn.ModuleList(nn.Conv2d(c, oc, 1) for oc in neck)
+        self.resize_layers = nn.ModuleList([
+            nn.ConvTranspose2d(neck[0], neck[0], 4, stride=4),
+            nn.ConvTranspose2d(neck[1], neck[1], 2, stride=2),
+            nn.Identity(),
+            nn.Conv2d(neck[3], neck[3], 3, stride=2, padding=1),
+        ])
+        self.scratch = Scratch(neck, f, cfg.use_bn)
+        # Indices 2 and 4 hold the weights (reference layout); the pooling
+        # runs in forward() with an fp32 accumulator.
+        self.classifier_head = nn.Sequential(
+            nn.Identity(), nn.Identity(), nn.Linear(f, 64), nn.ReLU(),
+            nn.Linear(64, cfg.num_outputs))
+        self.mask_head = MaskHead(f, cfg.mask_inter_features, cfg.num_outputs)
+
+    def forward(self, taps: List[torch.Tensor], patch_hw, patch_size: int):
+        ph, pw = patch_hw
+        feats = []
+        for proj, resize, t in zip(self.projects, self.resize_layers, taps):
+            b, _, c = t.shape
+            x = t.transpose(1, 2).reshape(b, c, ph, pw)
+            feats.append(resize(proj(x)))
+        s = self.scratch
+        rn = [s.layer1_rn(feats[0]), s.layer2_rn(feats[1]),
+              s.layer3_rn(feats[2]), s.layer4_rn(feats[3])]
+        hw = lambda a: tuple(a.shape[-2:])
+        path = s.refinenet4(rn[3], None, hw(rn[2]))
+        path = s.refinenet3(path, rn[2], hw(rn[1]))
+        path = s.refinenet2(path, rn[1], hw(rn[0]))
+        path1 = s.refinenet1(path, rn[0], (2 * rn[0].shape[-2],
+                                           2 * rn[0].shape[-1]))
+
+        pooled = path1.float().mean(dim=(2, 3)).to(path1.dtype)
+        fc1, fc2 = self.classifier_head[2], self.classifier_head[4]
+        iou = fc2(F.relu(fc1(pooled)))
+        masks = self.mask_head(path1, (ph * patch_size, pw * patch_size))
+        return masks, iou
+
+
+@torch.no_grad()
+def fold_bn_(head: DPTHead) -> None:
+    """Fold every eval-mode RCU BatchNorm into its preceding conv, in
+    float64 (exact up to the final rounding); the BNs become Identity."""
+    for i in range(1, 5):
+        block = getattr(head.scratch, f"refinenet{i}")
+        for rcu in (block.resConfUnit1, block.resConfUnit2):
+            for conv_name, bn_name in (("conv1", "bn1"), ("conv2", "bn2")):
+                conv, bn = getattr(rcu, conv_name), getattr(rcu, bn_name)
+                if not isinstance(bn, nn.BatchNorm2d):
+                    continue
+                s = bn.weight.double() / torch.sqrt(bn.running_var.double() + bn.eps)
+                w = conv.weight.double() * s[:, None, None, None]
+                b = (conv.bias.double() - bn.running_mean.double()) * s + bn.bias.double()
+                conv.weight.copy_(w.to(conv.weight.dtype))
+                conv.bias.copy_(b.to(conv.bias.dtype))
+                setattr(rcu, bn_name, nn.Identity())

@@ -1,0 +1,319 @@
+"""s3od_torch kernels K1-K4: each plain PyTorch version against its JAX
+Pallas kernel in interpret mode (float32, CPU), the wrappers' dispatch and
+shape gates, and — on a CUDA card only — each kernel against its plain
+version in bf16.
+
+Tolerances (float32): the same math in the same order up to the
+summation order of the products and reductions, so 1e-5 (2e-5 for the
+attention, whose rows sum 256 exponentials)."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from s3od_torch.ops import attn_epilogue as ae
+from s3od_torch.ops import flash_attention as fa
+from s3od_torch.ops import layernorm as ln
+from s3od_torch.ops import qkv_project as qp
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _rel(got, ref):
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    return float(np.abs(got - ref).max() / (np.abs(ref).max() + 1e-12))
+
+
+# ----------------------------------------------------------------------------
+# K1 LayerNorm
+# ----------------------------------------------------------------------------
+
+
+def test_layer_norm_plain_matches_pallas_interpret():
+    from s3od_tpu.ops.layernorm import _pallas_forward, layer_norm
+
+    rng = np.random.default_rng(0)
+    b, n, c = 2, 128, 256
+    x = rng.standard_normal((b, n, c)).astype(np.float32) * 2 + 0.5
+    w = rng.standard_normal(c).astype(np.float32)
+    bias = rng.standard_normal(c).astype(np.float32)
+    ref = layer_norm(jnp.asarray(x), jnp.asarray(w), jnp.asarray(bias), 1e-5,
+                     impl="pallas", interpret=True)
+    _, mean_ref, rstd_ref = _pallas_forward(
+        jnp.asarray(x.reshape(-1, c)), jnp.asarray(w), jnp.asarray(bias),
+        1e-5, 128, interpret=True)
+    y, mean, rstd = ln.layer_norm(_t(x), _t(w), _t(bias), 1e-5)
+    np.testing.assert_allclose(y.numpy(), np.asarray(ref), atol=1e-5)
+    np.testing.assert_allclose(mean.reshape(-1, 1).numpy(),
+                               np.asarray(mean_ref), atol=1e-5)
+    np.testing.assert_allclose(rstd.reshape(-1, 1).numpy(),
+                               np.asarray(rstd_ref), rtol=1e-5)
+
+
+def test_layer_norm_exact_matches_xla_formula():
+    from s3od_tpu.ops.layernorm import _xla_layer_norm
+
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((3, 40, 64)).astype(np.float32) * 3 - 1
+    w = rng.standard_normal(64).astype(np.float32)
+    b = rng.standard_normal(64).astype(np.float32)
+    ref = _xla_layer_norm(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), 1e-5)
+    got = ln.layer_norm_exact(_t(x), _t(w), _t(b), 1e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
+
+
+# ----------------------------------------------------------------------------
+# K2 QKV projection + RoPE
+# ----------------------------------------------------------------------------
+
+
+def _rope_tables(rng, n, d, n_prefix=5):
+    theta = rng.uniform(0.1, 2.0, (n - n_prefix, d // 2))
+    cos = np.concatenate([np.ones((n_prefix, d // 2)), np.cos(theta)])
+    sin = np.concatenate([np.zeros((n_prefix, d // 2)), np.sin(theta)])
+    return (np.concatenate([cos, cos], 1).astype(np.float32),
+            np.concatenate([sin, sin], 1).astype(np.float32))
+
+
+@pytest.mark.parametrize("d", [32, 64])
+def test_qkv_project_rope_plain_matches_pallas_interpret(d):
+    from s3od_tpu.ops.qkv_project import qkv_project_rope
+
+    rng = np.random.default_rng(7)
+    b, n, h = 2, 128, 4
+    c = h * d
+    x = rng.standard_normal((b, n, c)).astype(np.float32) * 0.5
+    kernel = rng.standard_normal((c, 3 * c)).astype(np.float32) * 0.05
+    bias = rng.standard_normal(3 * c).astype(np.float32) * 0.1
+    cos, sin = _rope_tables(rng, n, d)
+    refs = qkv_project_rope(
+        jnp.asarray(x), jnp.asarray(kernel), jnp.asarray(bias),
+        jnp.asarray(cos), jnp.asarray(sin), num_heads=h, scale=d**-0.5,
+        block_n=64, interpret=True)
+    gots = qp.qkv_project_rope(_t(x), _t(kernel.T), _t(bias), _t(cos),
+                               _t(sin), h, d**-0.5)
+    for got, ref, name in zip(gots, refs, "qkv"):
+        assert got.shape == (b, h, n, d)
+        assert _rel(got.numpy(), ref) < 1e-5, name
+
+
+# ----------------------------------------------------------------------------
+# K3 static-bound attention forward
+# ----------------------------------------------------------------------------
+
+
+def _flash_case(kind):
+    rng = np.random.default_rng(3)
+    b, n, h, d = 1, 256, 2, 64
+    q = rng.standard_normal((b, n, h, d)).astype(np.float32) * 0.5
+    k = rng.standard_normal((b, n, h, d)).astype(np.float32) * 0.5
+    v = rng.standard_normal((b, n, h, d)).astype(np.float32)
+    n_valid = 200 if kind != "full" else n
+    if kind == "edge":  # row maxima pushed to ~35, inside the +-40 window
+        s = np.einsum("bnhd,bmhd->bhnm", q, k)[..., :n_valid] * d**-0.5
+        q = q * (35.0 / s.max())
+    return q, k, v, n_valid
+
+
+@pytest.mark.parametrize("kind", ["full", "masked", "edge"])
+def test_flash_attention_plain_matches_pallas_interpret(kind):
+    from s3od_tpu.ops.flash_attention import _flash_forward, flash_attention
+
+    q, k, v, n_valid = _flash_case(kind)
+    b, n, h, d = q.shape
+    scale = d**-0.5
+    ref = flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale=scale,
+        block_q=128, block_k=256, n_valid=n_valid, interpret=True,
+        static_softmax_bound=True)
+    bhnd = lambda t: np.ascontiguousarray(
+        t.transpose(0, 2, 1, 3).reshape(b * h, n, d))
+    qs = bhnd(q * np.float32(scale))
+    _, lse_ref = _flash_forward(
+        jnp.asarray(qs), jnp.asarray(bhnd(k)), jnp.asarray(bhnd(v)), 1.0,
+        128, 256, n_valid, want_lse=True, interpret=True, static_bound=True)
+    o, lse = fa.flash_attention(_t(qs), _t(bhnd(k)), _t(bhnd(v)), n_valid)
+    got = o.numpy().reshape(b, h, n, d).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(got, np.asarray(ref), atol=2e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_ref)[..., 0],
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("kind", ["hot", "cold"])
+def test_flash_attention_plain_adversarial_inputs_stay_finite(kind):
+    """Logits ~ +-8000, far outside the window: the two-sided clip keeps
+    the denominator >= N e^-80, so output and lse stay finite (as the JAX
+    kernel's do)."""
+    from s3od_tpu.ops.flash_attention import flash_attention
+
+    rng = np.random.default_rng(5)
+    q, k, v, n_valid = _flash_case("masked")
+    q = rng.standard_normal(q.shape).astype(np.float32) * 1000
+    if kind == "cold":
+        q, k = -np.abs(q), np.abs(k) + 1.0
+    b, n, h, d = q.shape
+    ref = flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale=d**-0.5,
+        block_q=128, block_k=256, n_valid=n_valid, interpret=True,
+        static_softmax_bound=True)
+    assert np.isfinite(np.asarray(ref)).all()
+    bhnd = lambda t: _t(t.transpose(0, 2, 1, 3).reshape(b * h, n, d))
+    o, lse = fa.flash_attention(bhnd(q * np.float32(d**-0.5)), bhnd(k),
+                                bhnd(v), n_valid)
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+
+
+def test_flash_seq_len_is_a_tile_multiple():
+    assert fa.flash_seq_len(4101) == 4160  # ViT-B at 1024^2
+    assert fa.flash_seq_len(69) == 128     # tiny model at 128 px
+    assert fa.flash_seq_len(128) == 128
+
+
+# ----------------------------------------------------------------------------
+# K4 attention epilogue
+# ----------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("d", [32, 64])
+def test_attn_epilogue_plain_matches_pallas_interpret(d):
+    from s3od_tpu.ops.attn_epilogue import attn_epilogue
+
+    rng = np.random.default_rng(11)
+    b, h, n = 2, 4, 96
+    c = h * d
+    a = rng.standard_normal((b * h, n, d)).astype(np.float32) * 0.5
+    x = rng.standard_normal((b, n, c)).astype(np.float32) * 0.5
+    kern = rng.standard_normal((c, c)).astype(np.float32) * 0.05
+    bo = rng.standard_normal(c).astype(np.float32) * 0.1
+    ls = rng.standard_normal(c).astype(np.float32) * 0.5 + 1.0
+    lw = rng.uniform(0.5, 2.0, c).astype(np.float32)
+    lb = rng.standard_normal(c).astype(np.float32) * 0.2
+    xn_ref, ln_ref = attn_epilogue(
+        jnp.asarray(a), {"kernel": jnp.asarray(kern), "bias": jnp.asarray(bo)},
+        jnp.asarray(x), jnp.asarray(ls),
+        {"weight": jnp.asarray(lw), "bias": jnp.asarray(lb)},
+        eps=1e-5, block_n=48, interpret=True)
+    xn, hn = ae.attn_epilogue(_t(a), _t(kern.T), _t(bo), _t(x), _t(ls),
+                              _t(lw), _t(lb), 1e-5)
+    assert _rel(xn.numpy(), xn_ref) < 1e-5
+    assert _rel(hn.numpy(), ln_ref) < 1e-5
+
+
+# ----------------------------------------------------------------------------
+# Wrapper dispatch: plain on CPU tensors, shape gates before any launch
+# ----------------------------------------------------------------------------
+
+
+def test_cpu_tensors_take_the_plain_versions_without_counting():
+    before = (ln.layer_norm.launches, qp.qkv_project_rope.launches,
+              fa.flash_attention.launches, ae.attn_epilogue.launches)
+    x = torch.randn(1, 64, 64)
+    y, _, _ = ln.layer_norm(x, torch.ones(64), torch.zeros(64), 1e-5)
+    y_plain, _, _ = ln.layer_norm_plain(x, torch.ones(64), torch.zeros(64), 1e-5)
+    assert torch.equal(y, y_plain)
+    q = torch.randn(2, 64, 32)
+    o, _ = fa.flash_attention(q, q, q, 64)
+    assert torch.equal(o, fa.flash_attention_plain(q, q, q, 64)[0])
+    after = (ln.layer_norm.launches, qp.qkv_project_rope.launches,
+             fa.flash_attention.launches, ae.attn_epilogue.launches)
+    assert after == before
+
+
+def _meta(*shape, dtype=torch.bfloat16):
+    return torch.empty(*shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("case", [
+    "ln_dtype", "ln_width", "qkv_seq", "qkv_head_dim", "qkv_dtype",
+    "flash_seq", "flash_head_dim", "flash_n_valid", "epi_width", "epi_shape",
+])
+def test_kernel_wrappers_raise_on_unsupported_device_inputs(case):
+    """Non-CPU tensors go to the kernels, which take only the shapes and
+    types the repo's configs use; anything else raises before a launch
+    (checked here on 'meta' tensors, which need no card)."""
+    vec = _meta(64)
+    calls = {
+        "ln_dtype": lambda: ln.layer_norm(_meta(4, 64, dtype=torch.float16),
+                                          vec, vec, 1e-5),
+        "ln_width": lambda: ln.layer_norm(_meta(4, 96), _meta(96),
+                                          _meta(96), 1e-5),
+        "qkv_seq": lambda: qp.qkv_project_rope(
+            _meta(1, 69, 64), _meta(192, 64), _meta(192),
+            _meta(69, 32, dtype=torch.float32),
+            _meta(69, 32, dtype=torch.float32), 2, 0.1),
+        "qkv_head_dim": lambda: qp.qkv_project_rope(
+            _meta(1, 64, 128), _meta(384, 128), _meta(384),
+            _meta(64, 128, dtype=torch.float32),
+            _meta(64, 128, dtype=torch.float32), 1, 0.1),
+        "qkv_dtype": lambda: qp.qkv_project_rope(
+            _meta(1, 64, 64, dtype=torch.float32), _meta(192, 64),
+            _meta(192), _meta(64, 32, dtype=torch.float32),
+            _meta(64, 32, dtype=torch.float32), 2, 0.1),
+        "flash_seq": lambda: fa.flash_attention(
+            _meta(2, 100, 64), _meta(2, 100, 64), _meta(2, 100, 64), 100),
+        "flash_head_dim": lambda: fa.flash_attention(
+            _meta(2, 64, 128), _meta(2, 64, 128), _meta(2, 64, 128), 64),
+        "flash_n_valid": lambda: fa.flash_attention(
+            _meta(2, 64, 64), _meta(2, 64, 64), _meta(2, 64, 64), 65),
+        "epi_width": lambda: ae.attn_epilogue(
+            _meta(1, 64, 96), _meta(96, 96), _meta(96), _meta(1, 64, 96),
+            _meta(96), _meta(96), _meta(96), 1e-5),
+        "epi_shape": lambda: ae.attn_epilogue(
+            _meta(2, 64, 32), _meta(64, 64), vec, _meta(1, 128, 64),
+            vec, vec, vec, 1e-5),
+    }
+    with pytest.raises(ValueError):
+        calls[case]()
+
+
+# ----------------------------------------------------------------------------
+# On the card: each kernel against its plain version in bf16
+# ----------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels compile and run on the card only)")
+    return torch.device("cuda")
+
+
+def _close(got, ref, rel=1e-2):
+    for g, r in zip(got, ref):
+        g, r = g.float(), r.float()
+        assert torch.isfinite(g).all()
+        assert float((g - r).abs().max()) <= rel * float(r.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64])
+def test_kernels_match_plain_on_cuda(cuda, d):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    bf = torch.bfloat16
+    b, n, h = 2, 192, 4
+    c = h * d
+    r = lambda *s, scale=1.0: (torch.randn(*s, generator=gen, device=cuda)
+                               * scale).to(bf)
+    x = r(b, n, c)
+    w, bvec = r(c, scale=0.5) + 1, r(c, scale=0.2)
+    _close(ln.layer_norm(x, w, bvec, 1e-5)[:1],
+           ln.layer_norm_plain(x, w, bvec, 1e-5)[:1])
+    wq, bq = r(3 * c, c, scale=0.05), r(3 * c, scale=0.1)
+    cos = torch.rand(n, d, generator=gen, device=cuda)
+    sin = torch.rand(n, d, generator=gen, device=cuda)
+    args = (x, wq, bq, cos, sin, h, d**-0.5)
+    _close(qp.qkv_project_rope(*args), qp.qkv_project_rope_plain(*args))
+    q, k, v = r(b * h, n, d, scale=0.1), r(b * h, n, d), r(b * h, n, d)
+    o, lse = fa.flash_attention(q, k, v, n - 7)
+    o_ref, lse_ref = fa.flash_attention_plain(q, k, v, n - 7)
+    _close([o], [o_ref])
+    assert float((lse - lse_ref).abs().max()) <= 1e-3
+    args = (r(b * h, n, d), r(c, c, scale=0.05), r(c, scale=0.1), x,
+            r(c, scale=0.5) + 1, w, bvec, 1e-5)
+    _close(ae.attn_epilogue(*args), ae.attn_epilogue_plain(*args))
+    torch.cuda.synchronize()

@@ -1,0 +1,120 @@
+"""s3od_torch package boundaries: no jax and no triton on import or on a
+CPU forward, no import of the jax modules of s3od_tpu, CUDA required for
+device="cuda", and the kernel build inputs."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+PKG = REPO / "s3od_torch"
+
+
+def test_import_and_cpu_forward_leave_jax_and_triton_out():
+    code = (
+        "import sys\n"
+        "import s3od_torch\n"
+        "from s3od_torch import BackgroundRemoval\n"
+        "import numpy as np\n"
+        "p = BackgroundRemoval('tests/fixture/tiny_s3od.npz', image_size=64,"
+        " device='cpu')\n"
+        "r = p.remove_background(np.zeros((48, 80, 3), np.uint8))\n"
+        "assert r.all_masks.shape == (3, 48, 80)\n"
+        "print('jax' in sys.modules, 'triton' in sys.modules)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["False", "False"]
+
+
+def test_no_source_imports_jax_or_jax_modules():
+    pattern = re.compile(
+        r"^\s*(import|from) (jax|s3od_tpu\.(ops|models|predictor))\b", re.M)
+    files = list(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    hits = [str(f) for f in files if pattern.search(f.read_text())]
+    assert not hits
+
+
+def test_chip_smoke_names_no_module_of_the_jax_package():
+    """The smoke script reaches configs through the port (s3od_torch.configs)
+    and imports nothing of jax or s3od_tpu itself."""
+    src = (REPO / "chip_smoke.py").read_text()
+    assert not re.search(r"^\s*(import|from) (jax|s3od_tpu)\b", src, re.M)
+    assert "from s3od_torch.configs import segmentation_config" in src
+
+
+def test_build_dir_can_be_overridden(tmp_path, monkeypatch):
+    from s3od_torch import _build
+
+    monkeypatch.delenv("S3OD_TORCH_BUILD_DIR", raising=False)
+    assert _build.build_dir() == REPO / "build" / "s3od_torch_kernels"
+    monkeypatch.setenv("S3OD_TORCH_BUILD_DIR", str(tmp_path))
+    assert _build.build_dir() == tmp_path
+
+
+@pytest.mark.parametrize("caller", [None, "/elsewhere/triton"])
+def test_triton_cache_is_scoped_to_the_launch(tmp_path, monkeypatch, caller):
+    """Triton's cache points into the build directory only while the
+    package's kernel launches; the caller's setting comes back after."""
+    from s3od_torch import _build
+
+    monkeypatch.setenv("S3OD_TORCH_BUILD_DIR", str(tmp_path))
+    if caller is None:
+        monkeypatch.delenv("TRITON_CACHE_DIR", raising=False)
+    else:
+        monkeypatch.setenv("TRITON_CACHE_DIR", caller)
+    with _build.triton_cache():
+        assert os.environ["TRITON_CACHE_DIR"] == str(tmp_path / "triton")
+    assert os.environ.get("TRITON_CACHE_DIR") == caller
+
+
+def test_cuda_device_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from s3od_torch import BackgroundRemoval
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BackgroundRemoval("tests/fixture/tiny_s3od.npz", device="cuda")
+
+
+def test_default_dtype_follows_the_device():
+    from s3od_torch.ops.precision import default_dtype
+
+    assert default_dtype(torch.device("cuda")) == torch.bfloat16
+    assert default_dtype(torch.device("cpu")) == torch.float32
+
+
+def test_kernel_build_hash_covers_every_source(tmp_path, monkeypatch):
+    """The library is rebuilt whenever a source changes: the hash reads
+    every csrc file, and the build directory is git-ignored."""
+    from s3od_torch import _build
+
+    srcs = {p.name for p in _build._sources()}
+    assert {"mma.cuh", "qkv_project.cu", "flash_attention.cu",
+            "attn_epilogue.cu"} <= srcs
+    h0 = _build.source_hash()
+    for src in _build._sources():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert _build.source_hash() == h0
+    (tmp_path / "mma.cuh").write_text("// changed\n")
+    assert _build.source_hash() != h0
+    assert "build/" in (REPO / ".gitignore").read_text().split()
+    assert set(_build._SIGNATURES) == {
+        "s3od_qkv_project_rope", "s3od_flash_attention_fwd",
+        "s3od_attn_epilogue"}
+
+
+def test_chip_smoke_refuses_to_run_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")],
+                         cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
