@@ -3,25 +3,37 @@
 
     python3 chip_smoke.py
 
-Builds the port's kernels from `s3od_torch/csrc` (and the Triton kernel),
-then:
-  1. checks each kernel (K1-K4) against its plain PyTorch version in bf16
-     at the main path's shapes (DINOv3-ViT-B/16 at 1024^2: 4101 tokens
-     padded to 4160, C = 768, 12 heads of 64; batch 1 and batch 16),
+Builds the port's kernels from `s3od_torch/csrc` (one nvcc per source,
+all started together) and the Triton kernel, then:
+  1. checks each kernel (K1-K6) against its plain PyTorch version in bf16
+     at the main paths' shapes (DINOv3-ViT-B/16 at 1024^2: 4101 tokens
+     padded to 4160, C = 768, F = 3072, 12 heads of 64; batch 1 and batch
+     16; at 2048^2: 16389 tokens padded to 16448, RoPE on the 128 x 128
+     grid, K1, K2, K4 and K5 at batch 1 and K6 at D = 64 and 32),
      including the flash kernel's +-40 edge and adversarial
      +-1000-scale inputs, and times both at batch 1 (device time from a
      profiler trace of 20 calls; CUDA events around single calls, median
      of 25, which include the host launch);
-  2. drives the main path — `BackgroundRemoval.remove_background` and
+  2. drives the 1024^2 path — `BackgroundRemoval.remove_background` and
      `remove_background_batch` (16 images) — at full ViT-B width with
-     seeded random weights in bf16, checks that every kernel launched 11
-     times per forward and that each batch result matches the single-image
-     call on the same image (results and encoder taps), reports img/s at batch 1 and 16 and the device
-     time of the forward by kernel, and compares against the port's
-     float32 exact mode on the card: encoder taps per image at batch 4,
-     and the masks and IoU scores;
+     seeded random weights in bf16, checks that every kernel (K1-K5)
+     launched 11 times per forward and that each batch result matches the
+     single-image call on the same image (results and encoder taps),
+     reports img/s at batch 1 and 16 and the device time of the forward by
+     kernel, and compares against the port's float32 exact mode on the
+     card: encoder taps per image at batch 4, and the masks and IoU scores;
   3. checks quality: the committed tiny checkpoint trained at 1024^2
-     reaches IoU >= 0.9 on the fixture through the kernels (D = 32).
+     reaches IoU >= 0.9 on the fixture through the kernels (D = 32);
+  4. drives the 2048^2 path — `remove_background_stream` (batch 1,
+     payload "best", bucketed upload) at full ViT-B width — checks 11
+     launches of K1-K5 per image and each result against
+     `remove_background(payload="full")`, compares the encoder taps with
+     float32 exact mode per image, runs the tiny checkpoint through
+     `SODPredictor` at 2048^2 in bf16 and float32, and reports the
+     forward's device time by kernel and the stream's img/s (also at
+     1024^2);
+  5. serves the 1024^2 predictor through `InferenceServer`: concurrent
+     requests, each answer equal to a direct call.
 
 Any failed check raises, so the run exits non-zero, as does a run that
 loaded jax. Without a CUDA device, or outside the repository, it exits
@@ -53,10 +65,16 @@ KERNELS = {
                            "s3od_tpu/ops/flash_attention.py:258"),
     "K4_attn_epilogue": ("cuda", "s3od_torch/csrc/attn_epilogue.cu",
                          "s3od_tpu/ops/attn_epilogue.py:69"),
+    "K5_mlp_fused": ("cuda", "s3od_torch/csrc/mlp_fused.cu",
+                     "s3od_tpu/ops/mlp_fused.py:119"),
+    "K6_flash_attention_stream": ("cuda", "s3od_torch/csrc/flash_attention.cu",
+                                  "s3od_tpu/ops/flash_attention.py:105"),
 }
 REL_TOL = 1e-2   # max|kernel - plain| / max|plain| per output, bf16
 LSE_TOL = 1e-3   # max|kernel - plain| of the fp32 lse
 TAP_TOL = 1.5e-2  # ||bf16 kernel-route tap - fp32 exact tap|| / ||fp32 tap||
+BEST_TOL = 1 / 510 + 2.0**-9 + 1e-6  # payload "best" vs "full": the uint8
+                  # step plus one bf16 rounding of a sigmoid in [0.5, 1)
 BATCH_TOL = 1e-2  # batch vs single image: max|d| of masks and IoU scores,
                   # ||d|| / ||single|| of the encoder taps
 B16 = 16          # remove_background_batch's chunk: the batch-16 shapes
@@ -103,31 +121,40 @@ def device_ms(fn, iters: int = 20) -> float:
 
 def kernel_breakdown(fn, iters: int):
     """[(kernel name, device ms per call, launches per call)], largest
-    first, from a torch.profiler trace of `iters` calls."""
+    first, from torch.profiler traces of `iters` calls. A trace can lose
+    events (one did on an H100: a kernel read half its time while the same
+    run's other traces showed it whole), and a lost event only lowers the
+    total, so three traces are taken and the one with the median total is
+    kept."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     cuda = torch.profiler.ProfilerActivity.CUDA
-    with torch.profiler.profile(activities=[cuda]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    rows = [(e.key, getattr(e, "device_time_total", 0.0) / 1e3 / iters,
-             round(e.count / iters))
-            for e in prof.key_averages()
-            if not e.key.startswith("Activity Buffer")]  # profiler bookkeeping
-    return sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
+    traces = []
+    for _ in range(3):
+        with torch.profiler.profile(activities=[cuda]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = [(e.key, e.device_time_total / 1e3 / iters,
+                 round(e.count / iters))
+                for e in prof.key_averages()
+                if getattr(e, "device_time_total", 0.0) > 0
+                and not e.key.startswith("Activity Buffer")]  # bookkeeping
+        traces.append(sorted(rows, key=lambda r: -r[1]))
+    traces.sort(key=lambda rows: sum(ms for _, ms, _ in rows))
+    return traces[1]
 
 
-def time_pair(name, kernel_fn, plain_fn, results):
+def time_pair(name, kernel_fn, plain_fn, results, iters: int = 20):
     """Kernel and plain version: device time (reported) and host-inclusive
     CUDA-event time (logged), measured in turns on the same inputs."""
     r = results[name]
-    r["ms"] = device_ms(kernel_fn)
-    r["plain_ms"] = device_ms(plain_fn)
-    r["event_ms"] = cuda_ms(kernel_fn)
-    r["plain_event_ms"] = cuda_ms(plain_fn)
+    r["ms"] = device_ms(kernel_fn, iters)
+    r["plain_ms"] = device_ms(plain_fn, iters)
+    r["event_ms"] = cuda_ms(kernel_fn, iters)
+    r["plain_event_ms"] = cuda_ms(plain_fn, iters)
 
 
 def compare(name, got, ref, results, lse=None):
@@ -158,7 +185,10 @@ def kernel_phases(results):
     from s3od_torch.models.dinov3 import _full_tables
     from s3od_torch.ops import attn_epilogue as ae
     from s3od_torch.ops import flash_attention as fa
+    import torch.nn.functional as F
+
     from s3od_torch.ops import layernorm as ln
+    from s3od_torch.ops import mlp_fused as mf
     from s3od_torch.ops import qkv_project as qp
 
     dev = torch.device("cuda")
@@ -252,28 +282,102 @@ def kernel_phases(results):
             ae.attn_epilogue_plain(*args16), results)
     time_pair("K4_attn_epilogue", lambda: ae.attn_epilogue(*args),
               lambda: ae.attn_epilogue_plain(*args), results)
+
+    # K5
+    f = 4 * c
+    log(f"phase K5 mlp_fused (1 x {n} x {c}, F {f})")
+    wu, bu = randn(f, c, scale=0.02), randn(f, scale=0.1)
+    wd, bd = randn(c, f, scale=0.02), randn(c, scale=0.1)
+    ls2 = randn(c, scale=0.5, shift=1.0)
+    args = (randn(1, n, c), wu, bu, wd, bd, randn(1, n, c), ls2)
+    compare("K5_mlp_fused", [mf.mlp_fused(*args)], [mf.mlp_fused_plain(*args)],
+            results)
+    args16 = (randn(B16, n, c), wu, bu, wd, bd, randn(B16, n, c), ls2)
+    log(f"  at the batch-16 shape ({B16} x {n} x {c})")
+    compare("K5_mlp_fused", [mf.mlp_fused(*args16)],
+            [mf.mlp_fused_plain(*args16)], results)
+    del args16
+    time_pair("K5_mlp_fused", lambda: mf.mlp_fused(*args),
+              lambda: mf.mlp_fused_plain(*args), results)
+    # the route K5 replaced: the unfused bf16 MLP on cuBLAS, each op rounded
+    x_ln, res_ = args[0], args[5]
+    unfused = lambda: res_ + F.linear(F.gelu(F.linear(x_ln, wu, bu)), wd, bd) * ls2
+    results["K5_mlp_fused"]["unfused_bf16_ms"] = device_ms(unfused)
+    log(f"  unfused bf16 MLP (cuBLAS, the route K5 replaced): device time "
+        f"{results['K5_mlp_fused']['unfused_bf16_ms']:.4f} ms")
+
+    # K1, K2, K4, K5 at the 2048^2 path's shapes: 16448 rows, RoPE on the
+    # 128 x 128 patch grid (K2 and K4 index by n and the RoPE tables)
+    n2_valid = 16389
+    n2 = fa.flash_seq_len(n2_valid)
+    log(f"phase K1, K2, K4, K5 at the 2048^2 shapes ({n2} tokens)")
+    x2 = randn(n2, c, scale=2.0, shift=0.5)
+    compare("K1_layer_norm", ln.layer_norm(x2, w, b, 1e-5),
+            ln.layer_norm_plain(x2, w, b, 1e-5), results)
+    cos2, sin2 = _full_tables(128, 128, d, 100.0, 5, n2, dev)
+    args2 = (randn(1, n2, c), wq, bq, cos2, sin2, h, d**-0.5)
+    compare("K2_qkv_project_rope", qp.qkv_project_rope(*args2),
+            qp.qkv_project_rope_plain(*args2), results)
+    args2 = (randn(h, n2, d, scale=0.5), wo, bo, randn(1, n2, c), ls, lw, lb,
+             1e-5)
+    compare("K4_attn_epilogue", ae.attn_epilogue(*args2),
+            ae.attn_epilogue_plain(*args2), results)
+    args2 = (randn(1, n2, c), wu, bu, wd, bd, randn(1, n2, c), ls2)
+    compare("K5_mlp_fused", [mf.mlp_fused(*args2)],
+            [mf.mlp_fused_plain(*args2)], results)
+    del x2, args2
+
+    # K6: the same kernel as K3 at the 2048^2 length
+    for d2 in (64, 32):
+        log(f"phase K6 flash_attention at 2048^2 ({h} x {n2} x {d2}, "
+            f"n_valid {n2_valid}, {n2 // 64} key tiles)")
+        q2, k2, v2 = (randn(h, n2, d2, scale=s_) for s_ in
+                      (0.5 * d2**-0.5, 0.5, 1.0))
+        compare("K6_flash_attention_stream",
+                fa.flash_attention(q2, k2, v2, n2_valid),
+                fa.flash_attention_plain(q2, k2, v2, n2_valid), results, lse=1)
+        q_hot = randn(h, n2, d2, scale=1000.0)
+        o_hot, lse_hot = fa.flash_attention(q_hot, k2, v2, n2_valid)
+        o_cold, lse_cold = fa.flash_attention(
+            (-q_hot.float().abs()).to(bf), (k2.float().abs() + 1.0).to(bf),
+            v2, n2_valid)
+        check(all(bool(t.isfinite().all())
+                  for t in (o_hot, lse_hot, o_cold, lse_cold)),
+              "K6 adversarial output not finite")
+        log("  adversarial +-1000-scale inputs: finite")
+        if d2 == 64:
+            time_pair("K6_flash_attention_stream",
+                      lambda: fa.flash_attention(q2, k2, v2, n2_valid),
+                      lambda: fa.flash_attention_plain(q2, k2, v2, n2_valid),
+                      results, iters=5)
+        del q2, k2, v2, q_hot, o_hot, o_cold
     for name, r in results.items():
         log(f"  {name}: device time kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms; with host launch (CUDA events) kernel "
             f"{r['event_ms']:.4f} ms, plain {r['plain_event_ms']:.4f} ms")
 
 
-def launch_counts():
-    from s3od_torch.ops import attn_epilogue, flash_attention, layernorm, qkv_project
+def wrappers():
+    """Kernel wrapper per kernel of the main path; K3 and K6 are one CUDA
+    kernel behind one wrapper, told apart by the path that runs it."""
+    from s3od_torch.ops import (attn_epilogue, flash_attention, layernorm,
+                                mlp_fused, qkv_project)
 
     return {
-        "K1_layer_norm": layernorm.layer_norm.launches,
-        "K2_qkv_project_rope": qkv_project.qkv_project_rope.launches,
-        "K3_flash_attention": flash_attention.flash_attention.launches,
-        "K4_attn_epilogue": attn_epilogue.attn_epilogue.launches,
+        "K1_layer_norm": layernorm.layer_norm,
+        "K2_qkv_project_rope": qkv_project.qkv_project_rope,
+        "K3_flash_attention": flash_attention.flash_attention,
+        "K4_attn_epilogue": attn_epilogue.attn_epilogue,
+        "K5_mlp_fused": mlp_fused.mlp_fused,
     }
 
 
-def reset_counts():
-    from s3od_torch.ops import attn_epilogue, flash_attention, layernorm, qkv_project
+def launch_counts():
+    return {name: fn.launches for name, fn in wrappers().items()}
 
-    for fn in (layernorm.layer_norm, qkv_project.qkv_project_rope,
-               flash_attention.flash_attention, attn_epilogue.attn_epilogue):
+
+def reset_counts():
+    for fn in wrappers().values():
         fn.launches = 0
 
 
@@ -365,36 +469,15 @@ def slice_phase(results):
     for _ in range(n16):
         pred.remove_background_batch(imgs)
     b16 = 16 * n16 / (time.perf_counter() - t0)
-    # device time of the forward alone (normalize -> sigmoid, on canvases)
-    canvas = pred._preprocess(image)[0]
-    c16 = np.stack([pred._preprocess(im)[0] for im in imgs])
-    x1 = torch.from_numpy(canvas[None]).cuda()
-    x16 = torch.from_numpy(c16).cuda()
-
-    def fwd(x):
-        with torch.inference_mode():
-            xx = ((x.float() - pred._mean) * pred._inv_std).to(pred.compute_dtype)
-            out = pred.model(xx)
-            torch.sigmoid(out["pred_masks"])
-
-    f1 = cuda_ms(lambda: fwd(x1), iters=20)
-    f16 = cuda_ms(lambda: fwd(x16), iters=5)
-    torch.cuda.reset_peak_memory_stats()
-    fwd(x16)
-    peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"  throughput end to end: batch 1 {b1:.3f} img/s, batch 16 {b16:.3f} img/s")
-    log(f"  device forward: batch 1 {f1:.3f} ms, batch 16 {f16:.3f} ms "
-        f"({f16 / 16:.3f} ms/img); peak memory at batch 16 {peak:.2f} GiB")
-    results["_slice"] = {"img_s_b1": b1, "img_s_b16": b16, "fwd_ms_b1": f1,
-                         "fwd_ms_b16": f16}
-    for tag, x, span in (("b1", x1, f1), ("b16", x16, f16)):
-        rows = kernel_breakdown(lambda: fwd(x), iters=3)
-        busy = sum(ms for _, ms, _ in rows)
-        log(f"  forward {tag} by kernel (device ms per forward; busy {busy:.3f} "
-            f"of {span:.3f} ms between events):")
-        for key, ms, count in rows[:12]:
-            log(f"    {ms:8.3f} ms x{count:3d}  {key[:100]}")
-        results["_slice"][f"busy_ms_{tag}"] = busy
+    results["_slice"] = {"img_s_b1": b1, "img_s_b16": b16}
+    # device time of the forward alone (normalize -> sigmoid, on canvases)
+    c16 = np.stack([pred._preprocess(im)[0] for im in imgs])
+    forward_profile(pred, pred._preprocess(image)[0][None], "b1",
+                    results["_slice"], iters=20)
+    forward_profile(pred, c16, "b16", results["_slice"])
+    results["_slice"]["peak_gib_b16"] = peak_gib(pred, c16)
+    log(f"  peak memory at batch 16: {results['_slice']['peak_gib_b16']:.2f} GiB")
 
     # agreement with the port's float32 exact mode on the card
     pred32 = BackgroundRemoval.from_model(model32, image_size=1024,
@@ -424,6 +507,192 @@ def slice_phase(results):
     results["_slice"].update(agreement=agree, d_iou=d_iou, d_mask=d_mask,
                              near_half=near[1e-2], tap_rel_err=tap_err,
                              batch_vs_single=d_bm, batch_vs_single_taps=tap_b)
+    return pred
+
+
+def stream_img_s(pred, images, **kwargs) -> float:
+    """End-to-end img/s of `remove_background_stream` over `images`, after
+    one warm-up image (host clock; the stream ends in readbacks)."""
+    import torch
+
+    list(pred.remove_background_stream(images[:1], **kwargs))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = list(pred.remove_background_stream(images, **kwargs))
+    rate = len(out) / (time.perf_counter() - t0)
+    check(len(out) == len(images), "stream lost results")
+    return rate
+
+
+def peak_gib(pred, canvas) -> float:
+    """Peak device memory (GiB) of one forward on a uint8 canvas batch."""
+    import torch
+
+    x = torch.from_numpy(canvas).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pred._forward_device(x, "full")
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def forward_profile(pred, canvas, tag, results_slot, iters=5):
+    """Device time of one forward (normalize -> sigmoid) on a uint8 canvas
+    batch: CUDA events around it, and the profiler's kernel breakdown."""
+    import torch
+
+    x = torch.from_numpy(canvas).cuda()
+    fwd = lambda: pred._forward_device(x, "full")
+    span = cuda_ms(fwd, iters=iters)
+    rows = kernel_breakdown(fwd, iters=3)
+    busy = sum(ms for _, ms, _ in rows)
+    log(f"  forward {tag}: {span:.3f} ms between CUDA events, device busy "
+        f"{busy:.3f} ms (idle {100 * (1 - busy / span):.1f}%); by kernel "
+        f"(device ms per forward):")
+    for key, ms, count in rows[:12]:
+        log(f"    {ms:8.3f} ms x{count:3d}  {key[:100]}")
+    results_slot.update({f"fwd_ms_{tag}": span, f"busy_ms_{tag}": busy,
+                         f"top_{tag}": [(k[:60], ms) for k, ms, _ in rows[:8]]})
+
+
+def highres_phase(results):
+    """The 2048^2 path: the stream API at full ViT-B width, K1-K5 per
+    image, payload agreement, fp32 taps, and the tiny checkpoint through
+    SODPredictor."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from s3od_torch import BackgroundRemoval
+    from s3od_torch.configs import segmentation_config
+    from s3od_torch.evaluation.predictor import SODPredictor
+    from s3od_torch.models.segmentation import S3ODSegmentation, init_weights_
+
+    image = np.array(Image.open(IMAGE).convert("RGB"))
+    cfg = segmentation_config("dinov3_base")
+    per_image = cfg.num_encoder_layers_used
+    log("phase high-res: DINOv3-ViT-B/16 + DPT, seeded weights, 2048^2 "
+        "(16389 tokens), remove_background_stream(batch=1, payload='best', "
+        "upload='bucket')")
+    model = init_weights_(S3ODSegmentation(cfg), torch.Generator().manual_seed(0))
+    model32 = copy.deepcopy(model)
+    pred = BackgroundRemoval.from_model(model, image_size=2048, device="cuda")
+    imgs = test_images(image)[:4]
+
+    reset_counts()
+    streamed = list(pred.remove_background_stream(
+        imgs, batch=1, payload="best", upload="bucket"))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log(f"  stream of {len(imgs)} images, launches: {counts}")
+    check(len(streamed) == len(imgs), "stream result count")
+    want = per_image * len(imgs)
+    for name, cnt in counts.items():
+        check(cnt == want, f"2048 stream: {name} launched {cnt}, want {want}")
+    results["K6_flash_attention_stream"]["launches"] = counts["K3_flash_attention"]
+
+    d_best = d_iou = 0.0
+    for im, res in zip(imgs, streamed):
+        full = pred.remove_background(im)
+        check(res.all_masks.shape == (1,) + im.shape[:2], "best payload shape")
+        check(bool(np.isfinite(res.predicted_mask).all()), "2048 mask not finite")
+        d_best = max(d_best, float(np.abs(res.predicted_mask
+                                          - full.predicted_mask).max()))
+        d_iou = max(d_iou, float(np.abs(res.all_ious - full.all_ious).max()))
+    log(f"  stream payload 'best' vs remove_background(payload='full'): "
+        f"max|d best mask| {d_best:.3e} (bound {BEST_TOL:.3e}), "
+        f"max|d iou score| {d_iou:.3e}")
+    check(d_best <= BEST_TOL, f"2048 best vs full mask diff {d_best}")
+    check(d_iou <= 1e-5, f"2048 stream IoU scores differ by {d_iou}")
+
+    hr = results["_highres"] = {"best_vs_full": d_best, "iou_vs_full": d_iou}
+    hr["stream_img_s_b1"] = stream_img_s(pred, imgs * 2, batch=1,
+                                         payload="best", upload="bucket")
+    log(f"  remove_background_stream 2048^2 end to end: "
+        f"{hr['stream_img_s_b1']:.3f} img/s (8 images, batch 1, 'best', bucket)")
+    canvas = pred._preprocess(image)[0][None]
+    forward_profile(pred, canvas, "2048_b1", hr)
+    hr["peak_gib_b1"] = peak_gib(pred, canvas)
+    log(f"  peak memory of a 2048^2 forward: {hr['peak_gib_b1']:.2f} GiB")
+
+    pred32 = BackgroundRemoval.from_model(model32, image_size=2048,
+                                          device="cuda", dtype="float32")
+    canvases = [pred._preprocess(im)[0][None] for im in imgs[:2]]
+    got = [encoder_taps(pred, c, "kernel") for c in canvases]
+    ref = [encoder_taps(pred32, c, "exact") for c in canvases]
+    hr["tap_rel_err"] = tap_errors(
+        "2048^2 bf16 kernel route vs fp32 exact", cfg.tap_layers,
+        [torch.cat(t) for t in zip(*got)], [torch.cat(t) for t in zip(*ref)],
+        TAP_TOL)
+    del pred, pred32, model32, got, ref
+    torch.cuda.empty_cache()
+
+    log("  tiny checkpoint (D = 32) through SODPredictor at 2048^2")
+    sod = SODPredictor(str(TINY_1024), image_size=2048, device="cuda")
+    sod32 = SODPredictor(str(TINY_1024), image_size=2048, device="cuda",
+                         dtype="float32")
+    check(sod.compute_dtype == torch.bfloat16, "SODPredictor bf16 on CUDA")
+    reset_counts()
+    res = sod.predict(image)
+    counts = launch_counts()
+    want = sod.cfg.num_encoder_layers_used
+    check(all(v == want for v in counts.values()), f"SODPredictor launches {counts}")
+    res32 = sod32.predict(image)
+    gt = np.array(Image.open(MASK).convert("L")) > 128
+    check(res.soft_mask.shape == image.shape[:2] and res.num_masks == 3,
+          "SODPredictor result shape")
+    check(bool(np.isfinite(res.soft_mask).all()), "SODPredictor mask not finite")
+    canvas = sod._letterbox(image)[0][None]
+    hr["tiny_tap_rel_err"] = tap_errors(
+        "tiny 2048^2 SODPredictor bf16 vs fp32", sod.cfg.tap_layers,
+        encoder_taps(sod.predictor, canvas, "kernel"),
+        encoder_taps(sod32.predictor, canvas, "exact"), TAP_TOL)
+    hr["tiny_iou_bf16"] = iou(res.soft_mask, gt)
+    hr["tiny_iou_fp32"] = iou(res32.soft_mask, gt)
+    hr["tiny_binary_agree"] = float((res.binary_mask == res32.binary_mask).mean())
+    log(f"  tiny SODPredictor 2048^2: IoU vs fixture mask bf16 "
+        f"{hr['tiny_iou_bf16']:.4f}, fp32 {hr['tiny_iou_fp32']:.4f}; binary "
+        f"agreement {hr['tiny_binary_agree']:.6f}; launches {counts}")
+
+
+def serving_phase(results, pred):
+    """InferenceServer over the 1024^2 ViT-B predictor, and the 1024^2
+    stream's end-to-end rate."""
+    import numpy as np
+    from PIL import Image
+
+    from s3od_torch.serving import InferenceServer
+
+    image = np.array(Image.open(IMAGE).convert("RGB"))
+    imgs = test_images(image)
+    log("phase serving: InferenceServer over the 1024^2 ViT-B predictor, "
+        "8 concurrent requests")
+    server = InferenceServer(pred, max_batch=4, max_wait_ms=50).start()
+    try:
+        futures = [server.submit_async(imgs[i]) for i in range(8)]
+        answers = [f.result(timeout=300) for f in futures]
+    finally:
+        server.stop()
+    d_mask = d_iou = 0.0
+    for i, r in enumerate(answers):
+        single = pred.remove_background(imgs[i])
+        d_mask = max(d_mask, float(np.abs(r.all_masks - single.all_masks).max()))
+        d_iou = max(d_iou, float(np.abs(r.all_ious - single.all_ious).max()))
+    sv = results["_serving"] = {
+        "requests": server.stats["requests"],
+        "mean_batch": server.mean_batch_size, "d_mask": d_mask, "d_iou": d_iou}
+    log(f"  {sv['requests']} requests, mean batch {sv['mean_batch']:.2f}; vs "
+        f"direct calls: max|d soft mask| {d_mask:.3e}, max|d iou| {d_iou:.3e}")
+    check(sv["requests"] == 8, "server answered every request")
+    check(sv["mean_batch"] > 1.0, "server batched concurrent requests")
+    check(d_mask <= BATCH_TOL and d_iou <= BATCH_TOL,
+          f"server answers differ from direct calls ({d_mask}, {d_iou})")
+    for batch in (1, 16):
+        rate = stream_img_s(pred, imgs, batch=batch, payload="best",
+                            upload="bucket")
+        sv[f"stream_img_s_1024_b{batch}"] = rate
+        log(f"  remove_background_stream 1024^2 end to end: {rate:.3f} img/s "
+            f"(16 images, batch {batch}, 'best', bucket)")
 
 
 def encoder_taps(pred, canvases, route):
@@ -522,8 +791,10 @@ def main() -> int:
 
     results: dict = {}
     kernel_phases(results)
-    slice_phase(results)
+    pred = slice_phase(results)
     quality_phase(results)
+    highres_phase(results)
+    serving_phase(results, pred)
     loaded = sorted(m for m in sys.modules if m.split(".")[0] == "s3od_tpu")
     log(f"jax loaded: {'jax' in sys.modules}; modules of s3od_tpu loaded "
         f"through s3od_torch: {loaded}")
@@ -536,7 +807,9 @@ def main() -> int:
                         "replaces": replaces, "launches": r["launches"],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"]})
-    log(json.dumps({"slice": results["_slice"], "quality": results["_quality"]}))
+    log(json.dumps({"slice": results["_slice"], "quality": results["_quality"],
+                    "highres": results["_highres"],
+                    "serving": results["_serving"]}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

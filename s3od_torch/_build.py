@@ -1,8 +1,9 @@
-"""Builds and loads the port's CUDA kernels (K2, K3, K4).
+"""Builds and loads the port's CUDA kernels (K2-K5).
 
-All `csrc/*.cu` files compile with `nvcc` into ONE shared library with a
-plain C interface, loaded through `ctypes` — no PyTorch headers, so the
-build takes seconds instead of minutes. The library lands in the build
+Each `csrc/*.cu` file compiles with its own `nvcc` process, all started
+together, and the objects link into ONE shared library with a plain C
+interface, loaded through `ctypes` — no PyTorch headers, so the build
+takes seconds instead of minutes. The library lands in the build
 directory — `$S3OD_TORCH_BUILD_DIR` if set, else `build/s3od_torch_kernels/`
 beside the package (the checkout's git-ignored `build/`) — named by a hash
 of the sources and flags, and is rebuilt at first use whenever that hash
@@ -13,6 +14,10 @@ The Triton kernel (K1) needs no build step; while it launches (and so
 compiles), `triton_cache()` points Triton's compile cache into the same
 build directory, and restores the caller's setting afterwards.
 
+The stream API launches from several threads at once, so the build runs
+under a lock, and every wrapper counts its launches with `count_launch`,
+under another.
+
 Nothing here runs at import time.
 """
 
@@ -20,11 +25,11 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -34,7 +39,7 @@ DEFAULT_BUILD_DIR = (Path(__file__).resolve().parent.parent / "build"
                      / "s3od_torch_kernels")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -49,7 +54,13 @@ _SIGNATURES = {
     "s3od_flash_attention_fwd": [_P] * 5 + [_I] * 4 + [_P],
     # a, wo, bo, x, ls, lw, lb, xn, h, batch, n, c, heads, head_dim, eps, stream
     "s3od_attn_epilogue": [_P] * 9 + [_I] * 5 + [_F, _P],
+    # x, wu, bu, wd, bd, res, ls, out, rows, c, f, stream
+    "s3od_mlp_fused": [_P] * 8 + [_I] * 3 + [_P],
 }
+_COUNT_LOCK = threading.Lock()
+_TRITON_ENV_LOCK = threading.RLock()
+_BUILD_LOCK = threading.Lock()
+_LIBRARY: ctypes.CDLL | None = None
 
 
 def build_dir() -> Path:
@@ -79,22 +90,56 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-@functools.lru_cache(maxsize=1)
 def load_library() -> ctypes.CDLL:
-    """Build (if the sources changed) and load the kernel library."""
+    """Build (if the sources changed) and load the kernel library, once
+    per process. The first launches may come from several stream workers
+    at once; the lock makes one of them build while the others wait, so
+    no two builds share the object files and the temporary library."""
+    global _LIBRARY
+    if _LIBRARY is None:
+        with _BUILD_LOCK:
+            if _LIBRARY is None:
+                _LIBRARY = _build_and_load()
+    return _LIBRARY
+
+
+def _build_and_load() -> ctypes.CDLL:
+    """One `nvcc -c` per source, run in parallel, then one link; each
+    compile's output (with `-Xptxas -v`: registers, shared memory, spills)
+    goes to `build.log`. Object and temporary names carry the pid, so
+    processes building at once do not collide either."""
     out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
     lib_path = out / f"libs3od_kernels_{source_hash()}.so"
     if not lib_path.exists():
+        tag = f"{source_hash()}.{os.getpid()}"
+        nvcc = _nvcc()
+        jobs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = out / f"{src.stem}.{tag}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log, failed = [], []
+        for cmd, _, proc in jobs:
+            text = proc.communicate()[0]
+            log.append(" ".join(cmd) + "\n" + text)
+            if proc.returncode != 0:
+                failed.append(text[-4000:])
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        (out / "build.log").write_text(
-            " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        if not failed:
+            cmd = [nvcc, "-shared", "-o", str(tmp),
+                   *[str(obj) for _, obj, _ in jobs]]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(proc.stderr[-4000:])
+        (out / "build.log").write_text("\n".join(log))
+        for _, obj, _ in jobs:
+            obj.unlink(missing_ok=True)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in _SIGNATURES.items():
@@ -102,6 +147,12 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def count_launch(wrapper) -> None:
+    """Add one to a kernel wrapper's launch count (thread-safe)."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def check(code: int, name: str) -> None:
@@ -113,16 +164,19 @@ def check(code: int, name: str) -> None:
 def triton_cache():
     """Point Triton's compile cache into the build directory for the span
     of one launch of this package's kernel (Triton reads the variable when
-    it compiles); the caller's own setting is restored afterwards."""
-    old = os.environ.get("TRITON_CACHE_DIR")
-    os.environ["TRITON_CACHE_DIR"] = str(build_dir() / "triton")
-    try:
-        yield
-    finally:
-        if old is None:
-            os.environ.pop("TRITON_CACHE_DIR", None)
-        else:
-            os.environ["TRITON_CACHE_DIR"] = old
+    it compiles); the caller's own setting is restored afterwards. The
+    scope is held under a lock, so launches from several threads cannot
+    leave the variable set."""
+    with _TRITON_ENV_LOCK:
+        old = os.environ.get("TRITON_CACHE_DIR")
+        os.environ["TRITON_CACHE_DIR"] = str(build_dir() / "triton")
+        try:
+            yield
+        finally:
+            if old is None:
+                os.environ.pop("TRITON_CACHE_DIR", None)
+            else:
+                os.environ["TRITON_CACHE_DIR"] = old
 
 
 def stream_ptr(t: torch.Tensor) -> int:

@@ -1,10 +1,19 @@
-// K3: attention forward under the static softmax bound.
+// K3 and K6: attention forward under the static softmax bound.
 //
-// Replaces the TPU kernel `s3od_tpu/ops/flash_attention.py:_fwd_kernel_single`
-// (via `_flash_forward(static_bound=True)` <- `_flash_attention_bhnd`). The
-// TPU kernel holds ALL keys of a row in one VMEM block; that is a VMEM rule
-// and is not ported. Here a block of 4 warps owns 64 query rows and streams
-// over 64-key tiles of K and V through a two-stage cp.async pipeline.
+// Replaces two TPU kernels of `s3od_tpu/ops/flash_attention.py`, both via
+// `_flash_forward(static_bound=True)` <- `_flash_attention_bhnd`:
+//   K3 `_fwd_kernel_single` (1024^2: all 4104 keys of a row in one VMEM
+//      block), and
+//   K6 `_fwd_kernel_stream_static` (2048^2: 16389 tokens streamed over 33
+//      K blocks of 512, q blocks raised to 2112 rows).
+// Which of the two the TPU runs is a VMEM rule (`_pick_blocks`) and is not
+// ported. Here a block of 4 warps owns 64 query rows and streams over
+// 64-key tiles of K and V through a two-stage cp.async pipeline at every
+// length: 65 tiles at 1024^2 (N = 4160), 257 at 2048^2 (N = 16448). Each
+// thread's share of a row denominator l is a sequential fp32 sum of at most
+// N / 4 terms in [0, 1] (4112 at 2048^2), so its relative rounding error
+// stays below ~2.5e-4 even in the worst case, and lse = 40 + log l
+// below ~2.5e-4 in absolute terms. All offsets are formed in size_t.
 //
 // Semantics, kept to the letter:
 //   - the softmax scale is already folded into q (K2), so s = q @ k^T;
@@ -18,8 +27,9 @@
 // maxima sit inside the window).
 //
 // Bound on the H100: at ViT-B, 1024^2 (BH = 12, N = 4160, D = 64) it is
-// 2 x 2 x 12 x 4160^2 x 64 = 53 GFLOP over ~20 MB: compute-bound on the
-// tensor cores, with the exp of every logit on the SFU as the second limit.
+// 2 x 2 x 12 x 4160^2 x 64 = 53 GFLOP over ~20 MB, at 2048^2 (N = 16448)
+// 831 GFLOP over ~76 MB: compute-bound on the tensor cores, with the exp
+// of every logit on the SFU as the second limit.
 // This first version keeps S and P in registers (FA2 style: the S
 // accumulator fragment is re-packed as the A operand of P @ V) and uses
 // mma.sync; wgmma and exp2 with a folded log2(e) are the next steps.

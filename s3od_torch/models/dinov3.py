@@ -6,8 +6,9 @@ dict loads with `strict=True`. Only blocks 0..max(taps)-1 run; the final
 block and final LayerNorm exist for the checkpoint layout only.
 
 A block runs one of two routes:
-- "kernel" (bf16): K1 LayerNorm -> K2 QKV + RoPE -> K3 static-bound
-  attention -> K4 o_proj + residual + norm2 -> plain MLP; the sequence is
+- "kernel" (bf16): K1 LayerNorm -> K2 QKV + RoPE -> K3/K6 static-bound
+  attention -> K4 o_proj + residual + norm2 -> K5 fused MLP + residual,
+  the JAX block's fused route (`dinov3.py:244-267`); the sequence is
   padded once to `flash_seq_len` (a multiple of 64). On CPU tensors every
   kernel wrapper takes its plain version, so this route also runs there.
 - "exact" (float32): LayerNorm -> fused qkv matmul -> RoPE -> exact
@@ -31,6 +32,7 @@ from s3od_torch.ops.attention import attention
 from s3od_torch.ops.attn_epilogue import attn_epilogue
 from s3od_torch.ops.flash_attention import flash_attention, flash_seq_len
 from s3od_torch.ops.layernorm import layer_norm, layer_norm_exact
+from s3od_torch.ops.mlp_fused import mlp_fused
 from s3od_torch.ops.qkv_project import qkv_project_rope, rotate_half
 
 ROUTES = ("kernel", "exact")
@@ -165,8 +167,10 @@ class Block(nn.Module):
     def forward(self, x, cos, sin, n_valid: int, route: str):
         if route == "kernel":
             x, h = self._attention_kernels(x, cos, sin, n_valid)
-        else:
-            x, h = self._attention_exact(x, cos, sin, n_valid)
+            up, down = self.mlp.up_proj, self.mlp.down_proj
+            return mlp_fused(h, up.weight, _bias(up), down.weight, _bias(down),
+                             x, self.layer_scale2.lambda1)
+        x, h = self._attention_exact(x, cos, sin, n_valid)
         return x + self.mlp(h) * self.layer_scale2.lambda1
 
     def _attention_kernels(self, x, cos, sin, n_valid):
@@ -180,10 +184,7 @@ class Block(nn.Module):
         o, _ = flash_attention(q.reshape(b * heads, n, d),
                                k.reshape(b * heads, n, d),
                                v.reshape(b * heads, n, d), n_valid)
-        bo = att.o_proj.bias
-        if bo is None:
-            bo = torch.zeros_like(self.norm2.bias)
-        return attn_epilogue(o, att.o_proj.weight, bo, x,
+        return attn_epilogue(o, att.o_proj.weight, _bias(att.o_proj), x,
                              self.layer_scale1.lambda1, self.norm2.weight,
                              self.norm2.bias, self.eps)
 
@@ -202,6 +203,13 @@ class Block(nn.Module):
         x = x + att.o_proj(o) * self.layer_scale1.lambda1
         return x, layer_norm_exact(x, self.norm2.weight, self.norm2.bias,
                                    self.eps)
+
+
+def _bias(linear: nn.Linear):
+    """A Linear's bias, or zeros of its output width when it has none."""
+    if linear.bias is not None:
+        return linear.bias
+    return linear.weight.new_zeros(linear.out_features)
 
 
 class DINOv3Encoder(nn.Module):

@@ -59,7 +59,7 @@ def attn_epilogue(a, wo, bo, x, ls, lw, lb, eps: float):
         hn.data_ptr(), b, n, c, h, d, float(eps), _build.stream_ptr(x),
     )
     _build.check(code, "attn_epilogue")
-    attn_epilogue.launches += 1
+    _build.count_launch(attn_epilogue)
     return xn, hn
 
 

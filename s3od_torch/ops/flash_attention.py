@@ -1,9 +1,15 @@
-"""K3: attention forward under the static softmax bound (CUDA) and its plain
-version.
+"""K3 and K6: attention forward under the static softmax bound (CUDA) and
+its plain version.
 
-Replaces the TPU kernel `s3od_tpu/ops/flash_attention.py:_fwd_kernel_single`
-(via `_flash_forward(static_bound=True)`). The kernel source and its design
-note are in `s3od_torch/csrc/flash_attention.cu`.
+One CUDA kernel replaces two TPU kernels of `s3od_tpu/ops/flash_attention.py`
+(both via `_flash_forward(static_bound=True)`):
+- K3 `_fwd_kernel_single`, all keys in one VMEM block — the 1024^2 path
+  (4101 tokens, padded to 4160 here);
+- K6 `_fwd_kernel_stream_static`, streaming over K blocks — the 2048^2
+  path (16389 tokens, padded to 16448 here; 16896 on the TPU).
+Under the static bound the two compute the same thing: the kernel streams
+64-key tiles with no running max and no rescale at every length. The
+kernel source and its design note are in `s3od_torch/csrc/flash_attention.cu`.
 
 The softmax subtracts the constant SOFTMAX_BOUND_HI instead of the row max
 after clipping the logits to [LO, HI]: exact by shift invariance while the
@@ -34,20 +40,52 @@ def flash_seq_len(n: int) -> int:
     return -(-n // SEQ_MULTIPLE) * SEQ_MULTIPLE
 
 
-def flash_attention_plain(q, k, v, n_valid: int):
-    """Plain version of K3. q, k, v (BH, N, D) -> (o (BH, N, D) in q's
-    dtype, lse (BH, N) fp32). Keys at or past n_valid are masked."""
-    n = k.shape[1]
-    s = torch.matmul(q.float(), k.float().transpose(1, 2))
-    if n_valid < n:
-        bias = torch.zeros(n, device=s.device, dtype=torch.float32)
+# Elements of one fp32 (BH, rows, N) logit chunk in the plain versions:
+# 2^27 (512 MiB) keeps the 2048^2 shape (12 x 16448^2, 13 GB a tensor
+# unchunked) inside device memory.
+CHUNK_ELEMS = 1 << 27
+
+
+def query_chunk(bh: int, n: int, chunk_elems: int = CHUNK_ELEMS) -> int:
+    """Query rows per chunk so that one (bh, rows, n) tensor holds at most
+    `chunk_elems` elements (at least one row)."""
+    return max(1, chunk_elems // max(1, bh * n))
+
+
+def row_chunks(n: int, chunk: int):
+    """Split n rows into equal chunks of at most `chunk` rows. Equal
+    chunks leave no one-row tail, which a CPU BLAS would run as a
+    matrix-vector product with another summation order."""
+    parts = -(-n // chunk)
+    size = -(-n // parts)
+    return [(i, min(n, i + size)) for i in range(0, n, size)]
+
+
+def flash_attention_plain(q, k, v, n_valid: int, chunk: int = 0):
+    """Plain version of K3/K6. q, k, v (BH, N, D) -> (o (BH, N, D) in q's
+    dtype, lse (BH, N) fp32). Keys at or past n_valid are masked. Query
+    rows are independent, so they run in chunks of at most `chunk` rows
+    (default `query_chunk`): the numbers do not depend on the chunking."""
+    bh, n = q.shape[:2]
+    chunk = chunk or query_chunk(bh, k.shape[1])
+    kt, vf = k.float().transpose(1, 2), v.float()
+    bias = None
+    if n_valid < k.shape[1]:
+        bias = torch.zeros(k.shape[1], device=q.device, dtype=torch.float32)
         bias[n_valid:] = NEG_INF
-        s = s + bias
-    p = torch.exp(s.clamp(SOFTMAX_BOUND_LO, SOFTMAX_BOUND_HI)
-                  - SOFTMAX_BOUND_HI)
-    l = p.sum(-1, keepdim=True)
-    o = torch.matmul(p.to(v.dtype).float(), v.float()) / l
-    return o.to(q.dtype), SOFTMAX_BOUND_HI + torch.log(l[..., 0])
+    outs, lses = [], []
+    for i, j in row_chunks(n, chunk):
+        s = torch.matmul(q[:, i: j].float(), kt)
+        if bias is not None:
+            s = s + bias
+        p = torch.exp(s.clamp(SOFTMAX_BOUND_LO, SOFTMAX_BOUND_HI)
+                      - SOFTMAX_BOUND_HI)
+        del s
+        l = p.sum(-1, keepdim=True)
+        o = torch.matmul(p.to(v.dtype).float(), vf) / l
+        outs.append(o.to(q.dtype))
+        lses.append(SOFTMAX_BOUND_HI + torch.log(l[..., 0]))
+    return torch.cat(outs, 1), torch.cat(lses, 1)
 
 
 def flash_attention(q, k, v, n_valid: int):
@@ -75,7 +113,7 @@ def flash_attention(q, k, v, n_valid: int):
         lse.data_ptr(), bh, n, d, n_valid, _build.stream_ptr(q),
     )
     _build.check(code, "flash_attention")
-    flash_attention.launches += 1
+    _build.count_launch(flash_attention)
     return o, lse
 
 

@@ -95,7 +95,7 @@ def layer_norm(x, weight, bias, eps: float):
             x2, weight.contiguous(), bias.contiguous(), y, mean, rstd, c, eps,
             BLOCK=triton.next_power_of_2(c), num_warps=4,
         )
-    layer_norm.launches += 1
+    _build.count_launch(layer_norm)
     lead = x.shape[:-1]
     return y.view(x.shape), mean.view(*lead, 1), rstd.view(*lead, 1)
 

@@ -77,7 +77,7 @@ def qkv_project_rope(x, weight, bias, cos, sin, num_heads: int, scale: float):
         b * n, n, c, num_heads, d, float(scale), _build.stream_ptr(x),
     )
     _build.check(code, "qkv_project_rope")
-    qkv_project_rope.launches += 1
+    _build.count_launch(qkv_project_rope)
     return q, k, v
 
 

@@ -1,11 +1,12 @@
-"""s3od_torch kernels K1-K4: each plain PyTorch version against its JAX
-Pallas kernel in interpret mode (float32, CPU), the wrappers' dispatch and
-shape gates, and — on a CUDA card only — each kernel against its plain
-version in bf16.
+"""s3od_torch kernels K1-K6: each plain PyTorch version against its JAX
+Pallas kernel in interpret mode (float32, CPU; K5 also in bf16), the
+wrappers' dispatch and shape gates, and — on a CUDA card only — each
+kernel against its plain version in bf16.
 
 Tolerances (float32): the same math in the same order up to the
 summation order of the products and reductions, so 1e-5 (2e-5 for the
-attention, whose rows sum 256 exponentials)."""
+attention, whose rows sum up to 384 exponentials, and for K5, the JAX
+test's own tolerance, `tests/test_ops.py:699-730`)."""
 
 import numpy as np
 import pytest
@@ -16,7 +17,9 @@ import jax.numpy as jnp
 
 from s3od_torch.ops import attn_epilogue as ae
 from s3od_torch.ops import flash_attention as fa
+from s3od_torch.ops import attention as xa
 from s3od_torch.ops import layernorm as ln
+from s3od_torch.ops import mlp_fused as mf
 from s3od_torch.ops import qkv_project as qp
 
 
@@ -168,8 +171,57 @@ def test_flash_attention_plain_adversarial_inputs_stay_finite(kind):
     assert torch.isfinite(o).all() and torch.isfinite(lse).all()
 
 
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("kind", ["full", "masked"])
+def test_flash_attention_plain_matches_streaming_kernel(kind, d, monkeypatch):
+    """K6: the plain version against the JAX streaming static-bound kernel
+    (`_fwd_kernel_stream_static`): 300 tokens padded to 384 = 3 K blocks
+    of 128, the shape `tests/test_ops.py:376-405` streams at."""
+    from s3od_tpu.ops import flash_attention as jfa
+
+    calls = []
+    stream = jfa._fwd_kernel_stream_static
+    monkeypatch.setattr(jfa, "_fwd_kernel_stream_static",
+                        lambda *a, **k: calls.append(1) or stream(*a, **k))
+    rng = np.random.default_rng(17)
+    bh, n = 4, 300
+    n_valid = n if kind == "full" else 250
+    q = rng.standard_normal((bh, n, d)).astype(np.float32) * 0.5 * d**-0.5
+    k = rng.standard_normal((bh, n, d)).astype(np.float32) * 0.5
+    v = rng.standard_normal((bh, n, d)).astype(np.float32)
+    o_ref, lse_ref = jfa._flash_forward(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 1.0, 128, 128,
+        n_valid, want_lse=True, interpret=True, static_bound=True)
+    assert calls, "the JAX side did not reach the streaming kernel"
+    o, lse = fa.flash_attention(_t(q), _t(k), _t(v), n_valid)
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_ref)[:, :n], atol=2e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_ref)[:, :n, 0],
+                               atol=2e-5)
+
+
+def test_plain_attention_chunking_is_bit_exact():
+    """Both plain attentions run in chunks of query rows (the 2048^2 logits
+    would not fit the card whole); rows are independent, so any chunking
+    gives the unchunked numbers bit for bit."""
+    rng = np.random.default_rng(19)
+    bh, n, d = 3, 200, 32
+    q, k, v = (_t(rng.standard_normal((bh, n, d)) * s) for s in (0.2, 1, 1))
+    whole = fa.flash_attention_plain(q, k, v, 190, chunk=n)
+    for chunk in (7, 64, 199):
+        parts = fa.flash_attention_plain(q, k, v, 190, chunk=chunk)
+        assert all(torch.equal(a, b) for a, b in zip(parts, whole))
+    assert fa.query_chunk(12, 16448) * 12 * 16448 <= fa.CHUNK_ELEMS
+    assert fa.row_chunks(200, 199) == [(0, 100), (100, 200)]
+    q4, k4, v4 = (t.reshape(1, bh, n, d).transpose(1, 2) for t in (q, k, v))
+    whole = xa.attention(q4, k4, v4, 0.125, 190, chunk=n)
+    for chunk in (7, 64, 199):
+        assert torch.equal(xa.attention(q4, k4, v4, 0.125, 190, chunk=chunk),
+                           whole)
+
+
 def test_flash_seq_len_is_a_tile_multiple():
     assert fa.flash_seq_len(4101) == 4160  # ViT-B at 1024^2
+    assert fa.flash_seq_len(16389) == 16448  # ViT-B at 2048^2 (K6)
     assert fa.flash_seq_len(69) == 128     # tiny model at 128 px
     assert fa.flash_seq_len(128) == 128
 
@@ -205,6 +257,65 @@ def test_attn_epilogue_plain_matches_pallas_interpret(d):
 
 
 # ----------------------------------------------------------------------------
+# K5 fused MLP
+# ----------------------------------------------------------------------------
+
+
+def _mlp_case(scale_x=0.5):
+    rng = np.random.default_rng(13)
+    b, n, c, f = 2, 96, 128, 512
+    h = rng.standard_normal((b, n, c)).astype(np.float32) * scale_x
+    x = rng.standard_normal((b, n, c)).astype(np.float32) * scale_x
+    wu = rng.standard_normal((c, f)).astype(np.float32) * 0.05
+    bu = rng.standard_normal(f).astype(np.float32) * 0.1
+    wd = rng.standard_normal((f, c)).astype(np.float32) * 0.05
+    bd = rng.standard_normal(c).astype(np.float32) * 0.1
+    ls = rng.standard_normal(c).astype(np.float32) * 0.5 + 1.0
+    return h, x, wu, bu, wd, bd, ls
+
+
+def _jax_mlp_fused(h, x, wu, bu, wd, bd, ls, dtype):
+    from s3od_tpu.ops.mlp_fused import mlp_fused
+
+    j = lambda a: jnp.asarray(a).astype(dtype)
+    mlp = {"up_proj": {"kernel": j(wu), "bias": j(bu)},
+           "down_proj": {"kernel": j(wd), "bias": j(bd)}}
+    out = mlp_fused(j(h), mlp, j(x), j(ls), block_n=48, interpret=True)
+    return np.asarray(out.astype(jnp.float32))
+
+
+def _port_mlp_fused(h, x, wu, bu, wd, bd, ls, dtype):
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
+    return mf.mlp_fused(t(h), t(wu.T), t(bu), t(wd.T), t(bd), t(x), t(ls))
+
+
+def test_mlp_fused_plain_matches_pallas_interpret():
+    case = _mlp_case()
+    ref = _jax_mlp_fused(*case, jnp.float32)
+    got = _port_mlp_fused(*case, torch.float32)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, atol=2e-5)
+
+
+def test_mlp_fused_plain_bf16_within_one_rounding():
+    """bf16 in and out: the port's rounding points are the TPU kernel's
+    (GELU on the fp32 accumulator, one rounding of the hidden, fp32
+    residual add, one final rounding), so the two agree to the last bit
+    but for rare ties of the fp32 sums' order (a tie flips one hidden
+    element, which moves its row's outputs by a fraction of a bf16 step
+    of the output scale). The unfused bf16 MLP (`x + mlp(h) * ls2`,
+    rounding after each op) differs from the JAX kernel in over a third
+    of the elements at this shape."""
+    case = _mlp_case(scale_x=1.0)
+    ref = _jax_mlp_fused(*case, jnp.bfloat16)
+    got = _port_mlp_fused(*case, torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    assert np.abs(got - ref).max() <= 2.0**-8 * np.abs(ref).max()
+    assert (got != ref).mean() < 1e-2
+
+
+# ----------------------------------------------------------------------------
 # Wrapper dispatch: plain on CPU tensors, shape gates before any launch
 # ----------------------------------------------------------------------------
 
@@ -219,9 +330,14 @@ def test_cpu_tensors_take_the_plain_versions_without_counting():
     q = torch.randn(2, 64, 32)
     o, _ = fa.flash_attention(q, q, q, 64)
     assert torch.equal(o, fa.flash_attention_plain(q, q, q, 64)[0])
+    w, vec = torch.randn(128, 64), torch.randn(128)
+    args = (x, w, vec, w.t().contiguous(), torch.randn(64), x,
+            torch.randn(64))
+    assert torch.equal(mf.mlp_fused(*args), mf.mlp_fused_plain(*args))
     after = (ln.layer_norm.launches, qp.qkv_project_rope.launches,
              fa.flash_attention.launches, ae.attn_epilogue.launches)
     assert after == before
+    assert mf.mlp_fused.launches == 0
 
 
 def _meta(*shape, dtype=torch.bfloat16):
@@ -231,6 +347,7 @@ def _meta(*shape, dtype=torch.bfloat16):
 @pytest.mark.parametrize("case", [
     "ln_dtype", "ln_width", "qkv_seq", "qkv_head_dim", "qkv_dtype",
     "flash_seq", "flash_head_dim", "flash_n_valid", "epi_width", "epi_shape",
+    "mlp_dtype", "mlp_rows", "mlp_width", "mlp_hidden", "mlp_shape",
 ])
 def test_kernel_wrappers_raise_on_unsupported_device_inputs(case):
     """Non-CPU tensors go to the kernels, which take only the shapes and
@@ -266,6 +383,21 @@ def test_kernel_wrappers_raise_on_unsupported_device_inputs(case):
         "epi_shape": lambda: ae.attn_epilogue(
             _meta(2, 64, 32), _meta(64, 64), vec, _meta(1, 128, 64),
             vec, vec, vec, 1e-5),
+        "mlp_dtype": lambda: mf.mlp_fused(
+            _meta(1, 64, 64, dtype=torch.float32), _meta(256, 64),
+            _meta(256), _meta(64, 256), vec, _meta(1, 64, 64), vec),
+        "mlp_rows": lambda: mf.mlp_fused(
+            _meta(1, 48, 64), _meta(256, 64), _meta(256), _meta(64, 256),
+            vec, _meta(1, 48, 64), vec),
+        "mlp_width": lambda: mf.mlp_fused(
+            _meta(1, 64, 1088), _meta(256, 1088), _meta(256),
+            _meta(1088, 256), _meta(1088), _meta(1, 64, 1088), _meta(1088)),
+        "mlp_hidden": lambda: mf.mlp_fused(
+            _meta(1, 64, 64), _meta(240, 64), _meta(240), _meta(64, 240),
+            vec, _meta(1, 64, 64), vec),
+        "mlp_shape": lambda: mf.mlp_fused(
+            _meta(1, 64, 64), _meta(256, 64), _meta(256), _meta(256, 64),
+            vec, _meta(1, 64, 64), vec),
     }
     with pytest.raises(ValueError):
         calls[case]()
@@ -316,4 +448,23 @@ def test_kernels_match_plain_on_cuda(cuda, d):
     args = (r(b * h, n, d), r(c, c, scale=0.05), r(c, scale=0.1), x,
             r(c, scale=0.5) + 1, w, bvec, 1e-5)
     _close(ae.attn_epilogue(*args), ae.attn_epilogue_plain(*args))
+    f = 4 * c
+    args = (x, r(f, c, scale=0.05), r(f, scale=0.1), r(c, f, scale=0.05),
+            r(c, scale=0.1), r(b, n, c), r(c, scale=0.5) + 1)
+    _close([mf.mlp_fused(*args)], [mf.mlp_fused_plain(*args)])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64])
+def test_flash_attention_long_sequence_on_cuda(cuda, d):
+    """K6's shape: 16389 tokens padded to 16448 (257 key tiles)."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    n, n_valid = fa.flash_seq_len(16389), 16389
+    q, k, v = ((torch.randn(2, n, d, generator=gen, device=cuda) * s)
+               .to(torch.bfloat16) for s in (0.5 * d**-0.5, 0.5, 1.0))
+    o, lse = fa.flash_attention(q, k, v, n_valid)
+    o_ref, lse_ref = fa.flash_attention_plain(q, k, v, n_valid)
+    _close([o], [o_ref])
+    assert float((lse - lse_ref).abs().max()) <= 1e-3
     torch.cuda.synchronize()

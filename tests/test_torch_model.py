@@ -77,25 +77,72 @@ def test_encoder_exact_route_matches_xla_encoder(tiny):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=5e-5)
 
 
-def test_encoder_kernel_route_matches_jax_fused_route(tiny, monkeypatch):
-    """The port's K1 -> K2 -> K3 -> K4 -> plain-MLP block order (plain
-    kernel versions, float32) against the JAX fused route with its Pallas
-    kernels in interpret mode and the MLP unfused (S3OD_MLP_FUSED=0's
-    configuration, forced here through `fits_vmem`)."""
+def _jax_fused_route_taps(tiny, monkeypatch, streaming=False):
+    """Taps of the JAX block's default fused route (K1 -> K2 -> K3 -> K4 ->
+    K5, `_MLP_FUSED_ENABLED` as shipped) with its Pallas kernels in
+    interpret mode; `streaming` forces 64-row blocks so the attention
+    streams over K blocks (`_fwd_kernel_stream_static`, the 2048^2 kernel
+    stack, as tests/test_highres_surface.py forces it)."""
     from s3od_tpu.models import dinov3
     from s3od_tpu.models.dinov3 import encoder_forward
 
-    cfg, params, _, model, x = tiny
+    cfg, params, _, _, x = tiny
     monkeypatch.setattr(dinov3, "_QKV_FUSED_INTERPRET", True)
     monkeypatch.setattr("s3od_tpu.ops.attention.resolve_attn_impl",
                         lambda n, dtype, impl="auto": "flash")
-    monkeypatch.setattr("s3od_tpu.ops.mlp_fused.fits_vmem",
-                        lambda *a, **k: False)
-    ref = encoder_forward(params["encoder"], jnp.asarray(x), cfg.encoder,
-                          cfg.tap_layers, attn_impl="flash")
+    if streaming:
+        monkeypatch.setattr("s3od_tpu.ops.flash_attention._pick_blocks",
+                            lambda n, d: (64, 64))
+    return encoder_forward(params["encoder"], jnp.asarray(x), cfg.encoder,
+                           cfg.tap_layers, attn_impl="flash")
+
+
+def test_encoder_kernel_route_matches_jax_fused_route(tiny, monkeypatch):
+    """The port's K1 -> K2 -> K3 -> K4 -> K5 block order (plain kernel
+    versions, float32) against the JAX default fused route, fused MLP
+    included (no `fits_vmem` override)."""
+    _, _, _, model, x = tiny
+    ref = _jax_fused_route_taps(tiny, monkeypatch)
     got = _taps(model, x, "kernel")
     for g, r in zip(got, ref):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=5e-5)
+
+
+def test_encoder_kernel_route_matches_jax_streaming_route(tiny, monkeypatch):
+    """The same route against the JAX stack that streams over K blocks
+    (69 tokens padded to 128 = 2 K blocks of 64): K6's semantics."""
+    from s3od_tpu.ops import flash_attention as jfa
+
+    _, _, _, model, x = tiny
+    calls = []
+    stream = jfa._fwd_kernel_stream_static
+    monkeypatch.setattr(jfa, "_fwd_kernel_stream_static",
+                        lambda *a, **k: calls.append(1) or stream(*a, **k))
+    ref = _jax_fused_route_taps(tiny, monkeypatch, streaming=True)
+    assert calls, "the JAX side did not reach the streaming kernel"
+    got = _taps(model, x, "kernel")
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=5e-5)
+
+
+def test_kernel_route_runs_the_fused_mlp(tiny, monkeypatch):
+    """Every block of the kernel route goes through `mlp_fused` and never
+    through the unfused `MLP.forward`; the exact route keeps the plain MLP."""
+    from s3od_torch.ops import mlp_fused as mf
+
+    cfg, _, _, model, x = tiny
+    fused, plain = [], []
+    real = tdinov3.mlp_fused
+    monkeypatch.setattr(tdinov3, "mlp_fused",
+                        lambda *a: fused.append(1) or real(*a))
+    for blk in model.encoder.layer:
+        monkeypatch.setattr(blk.mlp, "forward",
+                            lambda h, f=blk.mlp.forward: plain.append(1) or f(h))
+    _taps(model, x, "kernel")
+    assert len(fused) == max(cfg.tap_layers) and not plain
+    _taps(model, x, "exact")
+    assert len(plain) == max(cfg.tap_layers)
+    assert mf.mlp_fused.launches == 0  # CPU tensors: plain version
 
 
 def test_segmentation_forward_matches_jax(tiny):

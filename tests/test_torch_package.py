@@ -33,9 +33,41 @@ def test_import_and_cpu_forward_leave_jax_and_triton_out():
     assert out.stdout.split() == ["False", "False"]
 
 
+def test_new_modules_and_cpu_stream_leave_jax_and_triton_out():
+    """The fused MLP, the evaluation modules and a CPU run of the stream
+    API, SODPredictor and InferenceServer import neither jax nor triton
+    (the reused `s3od_tpu` modules are jax-free)."""
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "import s3od_torch.ops.mlp_fused\n"
+        "from s3od_torch.evaluation.compute_metrics import evaluate_datasets\n"
+        "from s3od_torch.evaluation.predictor import SODPredictor\n"
+        "from s3od_torch import BackgroundRemoval\n"
+        "from s3od_torch.serving import InferenceServer\n"
+        "p = BackgroundRemoval('tests/fixture/tiny_s3od.npz', image_size=64,"
+        " device='cpu')\n"
+        "ims = [np.zeros((48, 80, 3), np.uint8)] * 3\n"
+        "r = list(p.remove_background_stream(ims, batch=2, payload='best'))\n"
+        "assert len(r) == 3 and r[0].all_masks.shape == (1, 48, 80)\n"
+        "s = SODPredictor('tests/fixture/tiny_s3od.npz', image_size=64,"
+        " device='cpu').predict(ims[0])\n"
+        "assert s.soft_mask.shape == (48, 80)\n"
+        "srv = InferenceServer(p, max_batch=2).start()\n"
+        "assert srv.submit(ims[0]).all_masks.shape == (3, 48, 80)\n"
+        "srv.stop()\n"
+        "print('jax' in sys.modules, 'triton' in sys.modules)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["False", "False"]
+
+
 def test_no_source_imports_jax_or_jax_modules():
     pattern = re.compile(
-        r"^\s*(import|from) (jax|s3od_tpu\.(ops|models|predictor))\b", re.M)
+        r"^\s*(import|from) (jax|s3od_tpu\.(ops|models|predictor"
+        r"|evaluation\.predictor))\b", re.M)
     files = list(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     hits = [str(f) for f in files if pattern.search(f.read_text())]
     assert not hits
@@ -97,7 +129,7 @@ def test_kernel_build_hash_covers_every_source(tmp_path, monkeypatch):
 
     srcs = {p.name for p in _build._sources()}
     assert {"mma.cuh", "qkv_project.cu", "flash_attention.cu",
-            "attn_epilogue.cu"} <= srcs
+            "attn_epilogue.cu", "mlp_fused.cu"} <= srcs
     h0 = _build.source_hash()
     for src in _build._sources():
         (tmp_path / src.name).write_bytes(src.read_bytes())
@@ -108,7 +140,74 @@ def test_kernel_build_hash_covers_every_source(tmp_path, monkeypatch):
     assert "build/" in (REPO / ".gitignore").read_text().split()
     assert set(_build._SIGNATURES) == {
         "s3od_qkv_project_rope", "s3od_flash_attention_fwd",
-        "s3od_attn_epilogue"}
+        "s3od_attn_epilogue", "s3od_mlp_fused"}
+
+
+FAKE_NVCC = """\
+import sys, time
+from pathlib import Path
+args = sys.argv[1:]
+out = Path(args[args.index("-o") + 1])
+with open(Path(sys.argv[0]).parent / "calls.log", "a") as log:
+    log.write(("link" if "-shared" in args else "compile") + "\\n")
+if "-shared" in args:
+    objs = [Path(a) for a in args if a.endswith(".o")]
+    missing = [str(o) for o in objs if not o.exists()]
+    if missing:
+        sys.exit("missing objects: " + " ".join(missing))
+else:
+    time.sleep(0.3)
+out.write_bytes(b"fake")
+"""
+
+
+def test_concurrent_first_loads_build_the_library_once(tmp_path, monkeypatch):
+    """Stream workers may make the first launches together: every thread
+    gets the one library, built by one nvcc per source and one link, with
+    nvcc replaced by a stand-in that writes its output file."""
+    import threading
+
+    from s3od_torch import _build
+
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text(f"#!{sys.executable}\n" + FAKE_NVCC)
+    nvcc.chmod(0o755)
+    loaded = []
+
+    class FakeLibrary:
+        def __init__(self, path):
+            loaded.append(path)
+            for name in _build._SIGNATURES:
+                setattr(self, name, type("Fn", (), {})())
+
+    monkeypatch.setenv("S3OD_TORCH_BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(_build.ctypes, "CDLL", FakeLibrary)
+    monkeypatch.setattr(_build, "_LIBRARY", None)
+    start = threading.Barrier(4)
+    libs, errors = [], []
+
+    def first_launch():
+        start.wait()
+        try:
+            libs.append(_build.load_library())
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=first_launch) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not errors
+    assert len(libs) == 4 and all(lib is libs[0] for lib in libs)
+    calls = (nvcc.parent / "calls.log").read_text().split()
+    assert calls.count("compile") == len(list(_build.CSRC.glob("*.cu")))
+    assert calls.count("link") == 1 and len(loaded) == 1
+    built = tmp_path / "build" / f"libs3od_kernels_{_build.source_hash()}.so"
+    assert loaded == [str(built)] and built.read_bytes() == b"fake"
+    assert not list((tmp_path / "build").glob("*.o"))
 
 
 def test_chip_smoke_refuses_to_run_without_cuda():
