@@ -33,12 +33,26 @@ all started together) and the Triton kernel, then:
      forward's device time by kernel and the stream's img/s (also at
      1024^2);
   5. serves the 1024^2 predictor through `InferenceServer`: concurrent
-     requests, each answer equal to a direct call.
+     requests, each answer equal to a direct call;
+  6. checks K8, the attention backward, against its plain version at the
+     training shapes (12 and 48 x 4160 tokens, D = 64 and 32) and at
+     2048^2, with +-1000-scale inputs, and times it beside the SDPA
+     backward;
+  7. trains through the entry point, `s3od_torch.training.train.train`:
+     ViT-B at 1024^2, batch 4, bf16, on PNG variants of the fixture pair
+     (one epoch + validation, 11 x 2 launches of K1-K5 and 11 of K8 per
+     step), resumes for one more epoch, serves the exported `.npz`, and
+     fine-tunes the tiny checkpoint (D = 32) keeping IoU >= 0.9;
+  8. times `train_step` (median ms, img/s, peak memory, device time by
+     kernel) and checks that the loss falls over 8 steps on one batch;
+  9. holds the bf16 kernel route's gradients against fp32 exact mode and
+     against K8's plain version, and shows that a planted K8 fault
+     (dk x 1.01) fails the second check; then one 2048^2 train step.
 
 Any failed check raises, so the run exits non-zero, as does a run that
-loaded jax. Without a CUDA device, or outside the repository, it exits
-non-zero before printing a result. The last two lines are the kernel
-summary and the device result as JSON.
+loaded jax or any module of s3od_tpu. Without a CUDA device, or outside
+the repository, it exits non-zero before printing a result. The last
+lines are the kernel summary and the device result as JSON.
 """
 
 from __future__ import annotations
@@ -69,7 +83,16 @@ KERNELS = {
                      "s3od_tpu/ops/mlp_fused.py:119"),
     "K6_flash_attention_stream": ("cuda", "s3od_torch/csrc/flash_attention.cu",
                                   "s3od_tpu/ops/flash_attention.py:105"),
+    "K8_flash_attention_bwd": ("cuda", "s3od_torch/csrc/flash_attention_bwd.cu",
+                               "s3od_tpu/ops/flash_attention.py:492"),
 }
+# Published dense peaks of one H100 SXM at 700 W (bf16 tensor cores, fp32
+# outside them) and its HBM rate: the bound of a kernel is the larger of
+# its operations over the peak of their type and its bytes (each input
+# read once, each output written once) over the memory rate.
+PEAK_BF16 = 989e12
+PEAK_FP32 = 67e12
+HBM = 3.35e12
 REL_TOL = 1e-2   # max|kernel - plain| / max|plain| per output, bf16
 LSE_TOL = 1e-3   # max|kernel - plain| of the fp32 lse
 TAP_TOL = 1.5e-2  # ||bf16 kernel-route tap - fp32 exact tap|| / ||fp32 tap||
@@ -157,6 +180,54 @@ def time_pair(name, kernel_fn, plain_fn, results, iters: int = 20):
     r["plain_event_ms"] = cuda_ms(plain_fn, iters)
 
 
+def set_bound(results, name, bf16_ops, nbytes, fp32_ops=0.0):
+    """The least time the card could take for one call: the larger of the
+    operations over their peak rate and the bytes over HBM's rate."""
+    t_ops = bf16_ops / PEAK_BF16 + fp32_ops / PEAK_FP32
+    t_mem = nbytes / HBM
+    r = results[name]
+    r["bound_ms"] = max(t_ops, t_mem) * 1e3
+    r["bound_by"] = "operations" if t_ops >= t_mem else "bytes"
+
+
+def sdpa_inputs(q, k, v, n_valid):
+    """(1, BH, N, D) views and the key mask, for the SDPA yardstick (the
+    scale is already folded into q)."""
+    import torch
+
+    n = q.shape[1]
+    mask = torch.zeros(n, dtype=torch.bool, device=q.device)
+    mask[:n_valid] = True
+    return [t[None] for t in (q, k, v)], mask[None, None, None]
+
+
+def row_max_window(q, k, n_valid):
+    """Smallest and largest row maximum of the logits over the valid keys:
+    SDPA computes the static-bound function only while every row maximum
+    lies inside [-40, 40]."""
+    import torch
+
+    from s3od_torch.ops import flash_attention as fa
+
+    lo, hi = float("inf"), -float("inf")
+    kt = k[:, :n_valid].float().transpose(1, 2)
+    for i, j in fa.row_chunks(q.shape[1], fa.query_chunk(*q.shape[:2])):
+        m = torch.matmul(q[:, i: j].float(), kt).amax(-1)
+        lo, hi = min(lo, float(m.min())), max(hi, float(m.max()))
+    return lo, hi
+
+
+def library_time(results, name, fn, q, k, n_valid):
+    """Device time of the SDPA yardstick, with the check that it computes
+    the same function on these inputs."""
+    lo, hi = row_max_window(q, k, n_valid)
+    same = -40.0 <= lo and hi <= 40.0
+    results[name]["library_ms"] = device_ms(fn)
+    results[name]["library_same_function"] = same
+    log(f"  SDPA yardstick: {results[name]['library_ms']:.4f} ms; row maxima "
+        f"in [{lo:.2f}, {hi:.2f}], inside +-40 (same function): {same}")
+
+
 def compare(name, got, ref, results, lse=None):
     """Relative max error per output; lse (index into the tuples) is
     checked in absolute terms. Returns the largest absolute error."""
@@ -214,6 +285,10 @@ def kernel_phases(results):
             ln.layer_norm_plain(x16, w, b, 1e-5), results)
     time_pair("K1_layer_norm", lambda: ln.layer_norm(x, w, b, 1e-5),
               lambda: ln.layer_norm_plain(x, w, b, 1e-5), results)
+    results["K1_layer_norm"]["library_ms"] = device_ms(
+        lambda: F.layer_norm(x, (c,), w, b, 1e-5))
+    set_bound(results, "K1_layer_norm", 0.0, 2 * 2 * n * c + 2 * 2 * c + 8 * n,
+              fp32_ops=8.0 * n * c)
 
     # K2
     log("phase K2 qkv_project_rope (1 x 4160 x 768 -> 3 x (1, 12, 4160, 64))")
@@ -230,6 +305,10 @@ def kernel_phases(results):
             qp.qkv_project_rope_plain(*args16), results)
     time_pair("K2_qkv_project_rope", lambda: qp.qkv_project_rope(*args),
               lambda: qp.qkv_project_rope_plain(*args), results)
+    results["K2_qkv_project_rope"]["library_ms"] = None  # no one call ropes
+    set_bound(results, "K2_qkv_project_rope", 2.0 * n * c * 3 * c,
+              2 * n * c + 2 * 3 * c * c + 2 * 3 * c + 2 * 4 * n * d
+              + 3 * 2 * n * c)
 
     # K3
     log("phase K3 flash_attention (12 x 4160 x 64, n_valid 4101)")
@@ -265,6 +344,11 @@ def kernel_phases(results):
     del q16, k16, v16, plain16
     time_pair("K3_flash_attention", lambda: fa.flash_attention(q, k, v, n_valid),
               lambda: fa.flash_attention_plain(q, k, v, n_valid), results)
+    (qs, ks, vs), mask = sdpa_inputs(q, k, v, n_valid)
+    library_time(results, "K3_flash_attention", lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=mask, scale=1.0), q, k, n_valid)
+    set_bound(results, "K3_flash_attention", 4.0 * h * n * n * d,
+              4 * 2 * h * n * d + 4 * h * n)
 
     # K4
     log("phase K4 attn_epilogue (12 x 4160 x 64 -> 2 x (1, 4160, 768))")
@@ -282,6 +366,9 @@ def kernel_phases(results):
             ae.attn_epilogue_plain(*args16), results)
     time_pair("K4_attn_epilogue", lambda: ae.attn_epilogue(*args),
               lambda: ae.attn_epilogue_plain(*args), results)
+    results["K4_attn_epilogue"]["library_ms"] = None  # no one call fuses it
+    set_bound(results, "K4_attn_epilogue", 2.0 * n * c * c,
+              2 * h * n * d + 2 * c * c + 3 * 2 * n * c + 4 * 2 * c)
 
     # K5
     f = 4 * c
@@ -303,6 +390,9 @@ def kernel_phases(results):
     x_ln, res_ = args[0], args[5]
     unfused = lambda: res_ + F.linear(F.gelu(F.linear(x_ln, wu, bu)), wd, bd) * ls2
     results["K5_mlp_fused"]["unfused_bf16_ms"] = device_ms(unfused)
+    results["K5_mlp_fused"]["library_ms"] = None  # no one call: see unfused
+    set_bound(results, "K5_mlp_fused", 4.0 * n * c * f,
+              3 * 2 * n * c + 2 * 2 * c * f + 2 * (f + 2 * c))
     log(f"  unfused bf16 MLP (cuBLAS, the route K5 replaced): device time "
         f"{results['K5_mlp_fused']['unfused_bf16_ms']:.4f} ms")
 
@@ -350,11 +440,82 @@ def kernel_phases(results):
                       lambda: fa.flash_attention(q2, k2, v2, n2_valid),
                       lambda: fa.flash_attention_plain(q2, k2, v2, n2_valid),
                       results, iters=5)
+            (qs, ks, vs), mask = sdpa_inputs(q2, k2, v2, n2_valid)
+            library_time(results, "K6_flash_attention_stream",
+                         lambda: F.scaled_dot_product_attention(
+                             qs, ks, vs, attn_mask=mask, scale=1.0),
+                         q2, k2, n2_valid)
+            set_bound(results, "K6_flash_attention_stream",
+                      4.0 * h * n2 * n2 * d2, 4 * 2 * h * n2 * d2 + 4 * h * n2)
         del q2, k2, v2, q_hot, o_hot, o_cold
+
+    k8_phase(results, randn, n, n_valid, n2, n2_valid)
     for name, r in results.items():
         log(f"  {name}: device time kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms; with host launch (CUDA events) kernel "
             f"{r['event_ms']:.4f} ms, plain {r['plain_event_ms']:.4f} ms")
+
+
+def k8_phase(results, randn, n, n_valid, n2, n2_valid):
+    """K8 against its plain version: the training shapes (ViT-B at 1024^2,
+    batch 1 and 4; the tiny checkpoint's D = 32) and the 2048^2 length,
+    n_valid < N, the padded rows' cotangent zero as the tap slice makes
+    it, and +-1000-scale inputs (finite: the clamp); timed with the
+    plain version, the SDPA backward and the bound at batch 4."""
+    import torch
+    import torch.nn.functional as F
+
+    from s3od_torch.ops import flash_attention as fa
+
+    name = "K8_flash_attention_bwd"
+
+    def case(bh, nn_, nv, d):
+        q, k, v, g = (randn(bh, nn_, d, scale=s_)
+                      for s_ in (0.5 * d**-0.5, 0.5, 1.0, 1.0))
+        g[:, nv:] = 0
+        o, lse = fa.flash_attention(q, k, v, nv)
+        return q, k, v, o, lse, g
+
+    for bh, nn_, nv, d in ((12, n, n_valid, 64), (48, n, n_valid, 64),
+                           (12, n, n_valid, 32), (12, n2, n2_valid, 64)):
+        log(f"phase K8 flash_attention_bwd ({bh} x {nn_} x {d}, n_valid {nv})")
+        q, k, v, o, lse, g = case(bh, nn_, nv, d)
+        compare(name, fa.flash_attention_bwd(q, k, v, o, lse, g, nv),
+                fa.flash_attention_bwd_plain(q, k, v, o, lse, g, nv), results)
+        q_hot = randn(bh, nn_, d, scale=1000.0)
+        o_hot, lse_hot = fa.flash_attention(q_hot, k, v, nv)
+        q_cold = (-q_hot.float().abs()).to(torch.bfloat16)
+        k_pos = (k.float().abs() + 1.0).to(torch.bfloat16)
+        o_cold, lse_cold = fa.flash_attention(q_cold, k_pos, v, nv)
+        grads = (fa.flash_attention_bwd(q_hot, k, v, o_hot, lse_hot, g, nv)
+                 + fa.flash_attention_bwd(q_cold, k_pos, v, o_cold, lse_cold,
+                                          g, nv))
+        check(all(bool(t.isfinite().all()) for t in grads),
+              "K8 adversarial gradients not finite")
+        log("  adversarial +-1000-scale inputs: finite gradients")
+        if bh == 48:
+            time_pair(name, lambda: fa.flash_attention_bwd(q, k, v, o, lse, g, nv),
+                      lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, g, nv),
+                      results, iters=5)
+            (qs, ks, vs), mask = sdpa_inputs(q, k, v, nv)
+            qs, ks, vs = (t.detach().requires_grad_() for t in (qs, ks, vs))
+            out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                                 scale=1.0)
+            library_time(results, name, lambda: torch.autograd.grad(
+                out, (qs, ks, vs), g[None], retain_graph=True), q, k, nv)
+            set_bound(results, name, 5 * 2.0 * bh * nn_ * nn_ * d,
+                      8 * 2 * bh * nn_ * d + 4 * bh * nn_)
+            del qs, ks, vs, out
+        elif nn_ == n2:
+            results[name]["ms_2048"] = device_ms(
+                lambda: fa.flash_attention_bwd(q, k, v, o, lse, g, nv), 3)
+            log(f"  K8 at 2048^2: {results[name]['ms_2048']:.4f} ms")
+        elif d == 64:
+            results[name]["ms_b1"] = device_ms(
+                lambda: fa.flash_attention_bwd(q, k, v, o, lse, g, nv))
+            log(f"  K8 at batch 1: {results[name]['ms_b1']:.4f} ms")
+        del q, k, v, o, lse, g, q_hot, o_hot, q_cold, o_cold, grads
+        torch.cuda.empty_cache()
 
 
 def wrappers():
@@ -376,9 +537,18 @@ def launch_counts():
     return {name: fn.launches for name, fn in wrappers().items()}
 
 
+def k8_launches() -> int:
+    from s3od_torch.ops.flash_attention import flash_attention_bwd
+
+    return flash_attention_bwd.launches
+
+
 def reset_counts():
+    from s3od_torch.ops.flash_attention import flash_attention_bwd
+
     for fn in wrappers().values():
         fn.launches = 0
+    flash_attention_bwd.launches = 0
 
 
 def iou(a, b) -> float:
@@ -771,6 +941,412 @@ def quality_phase(results):
     results["_quality"] = {"iou": score}
 
 
+# ----------------------------------------------------------------------------
+# Training (python -m s3od_torch.training.train and its train step)
+# ----------------------------------------------------------------------------
+
+# Gradient agreement at ViT-B, 1024^2, batch 2 (grad_agreement_phase).
+# GRAD_TOL: ||g - g_ref|| / ||g_ref|| per parameter group and of the
+# training loss, bf16 kernel route against fp32 exact mode; 1.5x the
+# largest value measured by this script on an H100 80GB HBM3 at 700 W in
+# five runs: loss 1.444e-5, encoder 4.128e-2, head 7.87e-3.
+# K8_GRAD_TOL: a loss on the encoder taps, K8 against its plain version
+# as the backward of the same forward; "qkv_k_norm" is the largest
+# |norm ratio - 1| over the blocks of the gradient's key rows of the
+# fused qkv weight (the product with K8's dk). This backward is
+# deterministic (a repeat reads exactly 0); measured encoder 5.969e-3,
+# qkv_k_norm 9.267e-4, bounds 1.5x. A planted dk x 1.01 reads qkv_k_norm
+# 1.189e-2 and is caught; against fp32 it reads encoder 4.120e-2, inside
+# GRAD_TOL (the bf16 forward's rounding hides it there).
+GRAD_TOL = {"loss": 2.2e-5, "encoder": 6.2e-2, "head": 1.2e-2}
+K8_GRAD_TOL = {"encoder": 9.0e-3, "qkv_k_norm": 1.4e-3}
+TRAIN_ROOT = REPO / "build" / "chip_smoke_train"
+
+
+def write_fixture_dataset(root: Path, n: int = 20) -> Path:
+    """images/ + masks/ PNG pairs made from the fixture pair with numpy:
+    flips and cyclic shifts."""
+    import numpy as np
+    from PIL import Image
+
+    image = np.array(Image.open(IMAGE).convert("RGB"))
+    mask = np.array(Image.open(MASK).convert("L"))
+    h, w = mask.shape
+    ds = root / "fixture"
+    (ds / "images").mkdir(parents=True)
+    (ds / "masks").mkdir(parents=True)
+    for i in range(n):
+        im, m = image, mask
+        if i % 2:
+            im, m = im[:, ::-1], m[:, ::-1]
+        if i % 4 >= 2:
+            im, m = im[::-1], m[::-1]
+        shift = ((i * 37) % (h // 4) - h // 8, (i * 53) % (w // 4) - w // 8)
+        im, m = np.roll(im, shift, (0, 1)), np.roll(m, shift, (0, 1))
+        Image.fromarray(np.ascontiguousarray(im)).save(ds / "images" / f"f{i:02d}.png")
+        Image.fromarray(np.ascontiguousarray(m)).save(ds / "masks" / f"f{i:02d}.png")
+    return ds
+
+
+def train_args(root: Path, base: str, *extra):
+    """The entry point's arguments: dinob-sized by default, the paper's
+    1024^2 canvas at batch 4 (config/dataset/synth.yaml) on the fixture
+    dataset with the test-mode transform, bf16 on one card."""
+    return ["model=dinob", "backend=1chip", "dataset=synth",
+            "dataset.paths=[fixture]", "dataset.transform_mode=test",
+            "dataset.val_split=0.2", "dataset.test_datasets=[]",
+            "loss=focal_iou", "optimizer=adamw", "scheduler=cosine",
+            "train_stage=dev_train", "backend.num_threads=8",
+            f"data_dir={root}", f"base_dir={root / base}", *extra]
+
+
+def only_run(base: Path) -> Path:
+    runs = list((base / "checkpoints").iterdir())
+    check(len(runs) == 1, f"one run directory under {base}, got {runs}")
+    return runs[0]
+
+
+def train_entry_phase(results):
+    """`train()` at ViT-B width, 1024^2, batch 4, bf16: one epoch of 4
+    steps and its validation batch, checkpoints, a resume that trains only
+    the new epoch, and the export served by BackgroundRemoval; then the
+    committed tiny checkpoint fine-tuned through the same entry point
+    (D = 32) still segments the fixture."""
+    import json as json_
+    import shutil
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from s3od_torch import BackgroundRemoval
+    from s3od_torch.configs import segmentation_config
+    from s3od_torch.training.train import train
+
+    if TRAIN_ROOT.exists():
+        shutil.rmtree(TRAIN_ROOT)
+    write_fixture_dataset(TRAIN_ROOT)
+    blocks = segmentation_config("dinov3_base").num_encoder_layers_used
+    steps, val_batches = 16 // 4, 4 // 4
+    log(f"phase train: python -m s3od_torch.training.train model=dinob "
+        f"1024^2 batch 4 bf16, {steps} steps + {val_batches} val batch")
+    tr = results["_train"] = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    metrics = train(train_args(TRAIN_ROOT, "a", "backend.max_epochs=1"))
+    torch.cuda.synchronize()
+    tr["entry_s"] = time.perf_counter() - t0
+    counts, k8 = launch_counts(), k8_launches()
+    log(f"  train() {tr['entry_s']:.1f} s; launches {counts}, K8 {k8}; "
+        f"train_loss {metrics['train_loss']:.4f} val_loss "
+        f"{metrics['val_loss']:.4f}")
+    for name, cnt in counts.items():
+        want = steps * 2 * blocks + val_batches * blocks
+        check(cnt == want, f"train(): {name} launched {cnt}, want {want} "
+              f"({steps} steps x {blocks} blocks x 2 with the remat "
+              f"recompute + {val_batches} val forward)")
+    check(k8 == steps * blocks, f"train(): K8 launched {k8}, want {steps * blocks}")
+    results["K8_flash_attention_bwd"]["launches"] = k8
+    check(all(np.isfinite(v) for v in metrics.values()), "train metrics finite")
+    run = only_run(TRAIN_ROOT / "a")
+    index = json_.loads((run / "index.json").read_text())
+    check(index["last"]["epoch"] == 0 and (run / "last" / "state.pt").exists(),
+          "last checkpoint of epoch 0")
+    check(bool(index["best"]) and (run / index["best"][0]["path"]).exists(),
+          "a top-k checkpoint")
+
+    reset_counts()
+    train(train_args(TRAIN_ROOT, "b", "backend.max_epochs=2",
+                     f"checkpoint_path={run / 'last'}"))
+    k8 = k8_launches()
+    run2 = only_run(TRAIN_ROOT / "b")
+    index2 = json_.loads((run2 / "index.json").read_text())
+    tree = torch.load(run2 / "last" / "state.pt", map_location="cpu",
+                      weights_only=False)
+    log(f"  resume with backend.max_epochs=2: K8 launched {k8}, last epoch "
+        f"{index2['last']['epoch']}, step {tree['step']}")
+    check(k8 == steps * blocks and index2["last"]["epoch"] == 1
+          and [e["epoch"] for e in index2["best"]] == [1]
+          and tree["step"] == 2 * steps, "resume trains only the new epoch")
+
+    image = np.array(Image.open(IMAGE).convert("RGB"))
+    pred = BackgroundRemoval(str(run2 / "s3od_final.npz"), image_size=1024,
+                             device="cuda")
+    res = pred.remove_background(image)
+    check(res.predicted_mask.shape == image.shape[:2]
+          and bool(np.isfinite(res.all_masks).all()), "exported ViT-B serves")
+    log("  s3od_final.npz (ViT-B) served by BackgroundRemoval on the card")
+    del pred, tree
+
+    log("phase train (tiny): fine-tune tests/fixture/tiny_s3od_1024.npz "
+        "through the entry point (D = 32), then IoU on the fixture")
+    reset_counts()
+    train(train_args(TRAIN_ROOT, "tiny", "model=tiny", "backend.max_epochs=1",
+                     f"init_checkpoint={TINY_1024}"))
+    k8_tiny = k8_launches()
+    check(k8_tiny == steps * 4, f"tiny fine-tune: K8 launched {k8_tiny}")
+    pred = BackgroundRemoval(str(only_run(TRAIN_ROOT / "tiny") / "s3od_final.npz"),
+                             image_size=1024, device="cuda")
+    gt = np.array(Image.open(MASK).convert("L")) > 128
+    tr["tiny_finetuned_iou"] = iou(pred.remove_background(image).predicted_mask, gt)
+    log(f"  fine-tuned tiny checkpoint: IoU vs fixture mask "
+        f"{tr['tiny_finetuned_iou']:.4f} (K8 launches at D = 32: {k8_tiny})")
+    check(tr["tiny_finetuned_iou"] >= 0.9,
+          f"fine-tuned tiny IoU {tr['tiny_finetuned_iou']} < 0.9")
+    shutil.rmtree(TRAIN_ROOT)
+
+
+def vit_b_model(seed: int):
+    import torch
+
+    from s3od_torch.configs import segmentation_config
+    from s3od_torch.models.segmentation import S3ODSegmentation, init_weights_
+
+    model = S3ODSegmentation(segmentation_config("dinov3_base"))
+    return init_weights_(model, torch.Generator().manual_seed(seed)).cuda()
+
+
+def fixture_batch(n: int, size: int):
+    """A device batch of n letterboxed fixture variants (uint8 images and
+    masks), as the loader and its upload produce it."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from s3od_torch.training.data import letterbox
+
+    image = np.array(Image.open(IMAGE).convert("RGB"))
+    mask = np.array(Image.open(MASK).convert("L"))
+    ims, ms = [], []
+    for i in range(n):
+        im, m = (image, mask) if i % 2 == 0 else (image[:, ::-1], mask[:, ::-1])
+        a, b = letterbox(np.ascontiguousarray(im), np.ascontiguousarray(m), size)
+        ims.append(a)
+        ms.append(b)
+    return {"images": torch.from_numpy(np.stack(ims)).cuda(),
+            "masks": torch.from_numpy(np.stack(ms)).cuda()}
+
+
+def train_step_phase(results):
+    """`train_step` at ViT-B, 1024^2, batch 4, bf16 on one repeated batch:
+    launches per step, median step time, img/s, peak memory, device time
+    by kernel (forward kernels, K8, the rest), and learning (8 steps)."""
+    import torch
+
+    from s3od_torch.training.loss import LOSS_PRESETS, LossModule
+    from s3od_torch.training.optim import Optimizer
+    from s3od_torch.training.train_step import train_step
+
+    log("phase train step: ViT-B 1024^2 batch 4 bf16, one repeated batch")
+    model = vit_b_model(2)
+    opt = Optimizer(model, 1e-4, steps_per_epoch=100)
+    loss_module = LossModule(LOSS_PRESETS["focal_iou"])
+    batch = fixture_batch(4, 1024)
+    blocks = model.cfg.num_encoder_layers_used
+    state = {"step": 0}
+
+    def step():
+        out = train_step(model, opt, loss_module, batch, 0, state["step"],
+                         generator=torch.Generator().manual_seed(state["step"]),
+                         compute_dtype=torch.bfloat16)
+        state["step"] += 1
+        return out
+
+    losses = []
+    for i in range(8):
+        if i == 1:
+            reset_counts()
+        losses.append(float(step()["loss"]))
+        if i == 1:
+            counts, k8 = launch_counts(), k8_launches()
+            log(f"  launches in one step: {counts}, K8 {k8}")
+            for name, cnt in counts.items():
+                check(cnt == 2 * blocks, f"step: {name} launched {cnt}, "
+                      f"want {2 * blocks} (forward + remat recompute)")
+            check(k8 == blocks, f"step: K8 launched {k8}, want {blocks}")
+    log("  losses over 8 steps: " + " ".join(f"{v:.4f}" for v in losses))
+    check(all(v == v and abs(v) < 1e6 for v in losses), "losses finite")
+    check(losses[-1] < losses[0], "the loss falls on a repeated batch")
+    tr = results["_train"]
+    tr["losses_8_steps"] = losses
+    tr["step_ms"] = cuda_ms(step, iters=5)
+    tr["img_s"] = 4 / (tr["step_ms"] / 1e3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    tr["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    rows = kernel_breakdown(step, iters=1)
+    groups = {"forward kernels K1-K5": ("_ln_fwd", "qkv_rope", "flash_fwd",
+                                        "attn_epilogue", "mlp_fused"),
+              "K8 backward": ("flash_bwd",)}
+    split = {g: 0.0 for g in groups}
+    split["everything else"] = 0.0
+    for key, ms, _ in rows:
+        g = next((g for g, keys in groups.items()
+                  if any(k in key for k in keys)), "everything else")
+        split[g] += ms
+    busy = sum(split.values())
+    tr.update(busy_ms=busy, split_ms=split,
+              top=[(k[:60], ms, cnt) for k, ms, cnt in rows[:12]])
+    log(f"  step {tr['step_ms']:.2f} ms (CUDA events, median of 5), "
+        f"{tr['img_s']:.2f} img/s, peak {tr['peak_gib']:.2f} GiB, device busy "
+        f"{busy:.2f} ms; " + ", ".join(f"{g} {v:.2f} ms" for g, v in split.items()))
+    for key, ms, count in rows[:16]:
+        log(f"    {ms:8.3f} ms x{count:3d}  {key[:100]}")
+    del model, opt
+    torch.cuda.empty_cache()
+
+
+def grad_agreement_phase(results):
+    """Gradients of the bf16 kernel route at ViT-B, 1024^2, batch 2.
+    (1) The training loss against fp32 exact mode: relative norms per
+    parameter group (encoder, head) and of the loss (GRAD_TOL). (2) K8
+    alone: a loss on the encoder's taps (no decoder, so the backward is
+    deterministic) with K8 against K8's plain version as the backward,
+    same forward (K8_GRAD_TOL). Then both with a planted K8 fault (dk x
+    1.01 and x 1.1), which the second must catch."""
+    import contextlib
+
+    import torch
+
+    from s3od_torch.ops import flash_attention as fa
+    from s3od_torch.training.loss import LOSS_PRESETS, LossModule
+    from s3od_torch.training.train_step import preprocess
+
+    log("phase gradient agreement: ViT-B 1024^2 batch 2, bf16 kernels vs fp32")
+    model = vit_b_model(3)
+    cfg = model.cfg
+    blocks = cfg.num_encoder_layers_used
+    c = cfg.encoder.hidden_size
+    loss_module = LossModule(LOSS_PRESETS["focal_iou"])
+    batch = preprocess(fixture_batch(2, 1024))
+    bn = {k: v.clone() for k, v in model.state_dict().items() if "running" in k}
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    tap_w = [torch.randn(2, 4096, c, generator=gen, device="cuda")
+             for _ in cfg.tap_layers]
+
+    def group_grads(module):
+        return torch.cat([p.grad.flatten().float() for p in
+                          module.parameters() if p.grad is not None])
+
+    def model_grads(dtype):
+        model.zero_grad()
+        out = model(batch["images"].to(dtype), training=True)
+        loss, _ = loss_module(out, batch, 0)
+        loss.backward()
+        model.load_state_dict(bn, strict=False)  # undo the running-stat step
+        return {"loss": loss.detach().reshape(1),
+                "encoder": group_grads(model.encoder),
+                "head": group_grads(model.seg_head)}
+
+    def tap_grads():
+        model.zero_grad()
+        taps = model.encoder(batch["images"].to(torch.bfloat16),
+                             cfg.tap_layers, "kernel", remat=True)
+        sum((t.float() * w).sum() for t, w in zip(taps, tap_w)).backward()
+        # per block, the key rows of the fused qkv weight's gradient: the
+        # product of the block's input with K8's dk
+        return {"encoder": group_grads(model.encoder), "qkv_k": torch.stack([
+            blk.attention.qkv.weight.grad[c: 2 * c].float().norm()
+            for blk in model.encoder.layer[:blocks]])}
+
+    def rel(got, ref):
+        out = {k: float((got[k] - ref[k]).norm() / ref[k].norm())
+               for k in ref if k != "qkv_k"}
+        if "qkv_k" in ref:
+            out["qkv_k_norm"] = float((got["qkv_k"] / ref["qkv_k"] - 1)
+                                      .abs().max())
+        return out
+
+    @contextlib.contextmanager
+    def k8_as(fn):
+        real = fa.flash_attention_bwd
+        fn.launches = 0
+        fa.flash_attention_bwd = fn
+        try:
+            yield
+        finally:
+            fa.flash_attention_bwd = real
+
+    def show(tag, err, tol):
+        bad = [k for k in tol if err[k] > tol[k]]
+        log(f"  {tag}: " + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
+            + f" -> {'outside' if bad else 'inside'} the bounds {tol}")
+        return bad
+
+    def plain_bwd(*args):
+        return fa.flash_attention_bwd_plain(*args)
+
+    g32 = model_grads(torch.float32)
+    err = rel(model_grads(torch.bfloat16), g32)
+    t_kernel = tap_grads()
+    with k8_as(plain_bwd):
+        t_plain = tap_grads()
+    err_k8 = rel(t_kernel, t_plain)
+    err_repeat = rel(tap_grads(), t_kernel)
+    tr = results["_train"]
+    tr.update(grad_rel_err=err, grad_rel_err_k8_vs_plain=err_k8,
+              grad_k8_repeat=err_repeat)
+    check(not show("bf16 kernel route vs fp32 exact (training loss)", err,
+                   GRAD_TOL), f"gradient agreement with fp32 {err}")
+    check(not show("tap loss: K8 vs its plain version", err_k8, K8_GRAD_TOL),
+          f"K8 gradient agreement {err_k8}")
+    show("tap loss: K8 vs itself (run-to-run)", err_repeat, K8_GRAD_TOL)
+    real = fa.flash_attention_bwd
+    planted = {}
+    for factor in (1.01, 1.1):
+        def faulty(*args, _f=factor):
+            dq, dk, dv = real(*args)
+            return dq, dk * _f, dv
+        with k8_as(faulty):
+            e32 = rel(model_grads(torch.bfloat16), g32)
+            ek8 = rel(tap_grads(), t_plain)
+        show(f"planted dk x {factor}, training loss vs fp32", e32, GRAD_TOL)
+        bad = show(f"planted dk x {factor}, tap loss vs plain K8", ek8,
+                   K8_GRAD_TOL)
+        planted[str(factor)] = {"vs_fp32": e32, "vs_plain_k8": ek8,
+                                "caught": bool(bad)}
+        check(bool(bad), f"the planted K8 fault dk x {factor} went unnoticed")
+    tr["planted"] = planted
+    del model, tap_w
+    torch.cuda.empty_cache()
+
+
+def highres_train_phase(results):
+    """One `train_step` at 2048^2, batch 1 (config/dataset/dis2048.yaml's
+    canvas): K6 forward and K8 at 16448 tokens; loss and gradients
+    finite."""
+    import torch
+
+    from s3od_torch.training.loss import LOSS_PRESETS, LossModule
+    from s3od_torch.training.optim import Optimizer
+    from s3od_torch.training.train_step import train_step
+
+    log("phase train step at 2048^2, batch 1 (16389 tokens)")
+    model = vit_b_model(4)
+    opt = Optimizer(model, 1e-5, steps_per_epoch=1)
+    batch = fixture_batch(1, 2048)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = train_step(model, opt, LossModule(LOSS_PRESETS["focal_iou"]), batch,
+                     0, 0, generator=torch.Generator().manual_seed(0),
+                     compute_dtype=torch.bfloat16)
+    loss = float(out["loss"])
+    dt = time.perf_counter() - t0
+    blocks = model.cfg.num_encoder_layers_used
+    k8 = k8_launches()
+    finite = all(bool(p.grad.isfinite().all()) for p in model.parameters()
+                 if p.grad is not None)
+    log(f"  loss {loss:.4f}, gradients finite {finite}, K8 launches {k8}, "
+        f"{dt:.2f} s with the first-call set-up")
+    check(loss == loss and finite, "2048^2 train step not finite")
+    check(k8 == blocks, f"2048^2 step: K8 launched {k8}, want {blocks}")
+    results["_train"]["step_2048_loss"] = loss
+    del model, opt
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -795,10 +1371,15 @@ def main() -> int:
     quality_phase(results)
     highres_phase(results)
     serving_phase(results, pred)
-    loaded = sorted(m for m in sys.modules if m.split(".")[0] == "s3od_tpu")
-    log(f"jax loaded: {'jax' in sys.modules}; modules of s3od_tpu loaded "
-        f"through s3od_torch: {loaded}")
-    check("jax" not in sys.modules, "the port's path must not load jax")
+    del pred
+    train_entry_phase(results)
+    train_step_phase(results)
+    grad_agreement_phase(results)
+    highres_train_phase(results)
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "s3od_tpu"))
+    log(f"modules of jax or s3od_tpu loaded: {loaded}")
+    check(not loaded, "the port's paths must load neither jax nor s3od_tpu")
 
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
@@ -806,10 +1387,17 @@ def main() -> int:
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces, "launches": r["launches"],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"]})
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"]})
     log(json.dumps({"slice": results["_slice"], "quality": results["_quality"],
                     "highres": results["_highres"],
-                    "serving": results["_serving"]}))
+                    "serving": results["_serving"],
+                    "train": results["_train"],
+                    "kernel_extra": {k: {x: y for x, y in v.items()
+                                         if x not in ("launches",)}
+                                     for k, v in results.items()
+                                     if not k.startswith("_")}}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,4 @@
-"""Evaluation on PyTorch: `SODPredictor` and the `compute_metrics` CLI.
-
-The metrics and the dataset loop are the JAX package's jax-free
-`s3od_tpu.evaluation.metrics` and `s3od_tpu.evaluation.compute_metrics`,
-reused as they are.
+"""Evaluation on PyTorch: `SODPredictor`, the metrics and the
+`compute_metrics` CLI (the port's own copies of the JAX package's
+`s3od_tpu.evaluation` modules of the same names).
 """

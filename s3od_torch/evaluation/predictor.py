@@ -25,7 +25,7 @@ import numpy as np
 
 from s3od_torch.configs import SegmentationConfig
 from s3od_torch.predictor import BackgroundRemoval, _masks_to_original
-from s3od_tpu.utils import as_rgb_uint8, remove_padding
+from s3od_torch.utils import as_rgb_uint8, remove_padding
 
 
 @dataclass

@@ -14,33 +14,45 @@ A block runs one of two routes:
 - "exact" (float32): LayerNorm -> fused qkv matmul -> RoPE -> exact
   softmax attention -> o_proj -> residual -> LayerNorm -> MLP, unpadded —
   the JAX package's exact mode (`dinov3.py:174-204, 268-273`).
+
+Training runs the same routes under autograd: every kernel is wrapped in
+a `torch.autograd.Function` (K3/K6 with the K8 backward kernel, K1, K2,
+K4 and K5 with the vjp of their plain versions), parameters are cast to
+the compute dtype at use by a differentiable `.to()` (fp32 master weights,
+as JAX's `.astype(x.dtype)`), each block is checkpointed
+(`torch.utils.checkpoint`, the JAX `remat`), and the RoPE coordinates may
+be rescaled per step (`sample_rope_coord_scale`, `pos_embed_rescale`).
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from s3od_torch.configs import EncoderConfig
 from s3od_torch.ops.attention import attention
-from s3od_torch.ops.attn_epilogue import attn_epilogue
-from s3od_torch.ops.flash_attention import flash_attention, flash_seq_len
-from s3od_torch.ops.layernorm import layer_norm, layer_norm_exact
-from s3od_torch.ops.mlp_fused import mlp_fused
-from s3od_torch.ops.qkv_project import qkv_project_rope, rotate_half
+from s3od_torch.ops.attn_epilogue import attn_epilogue_autograd
+from s3od_torch.ops.flash_attention import flash_attention_autograd, flash_seq_len
+from s3od_torch.ops.layernorm import layer_norm_autograd, layer_norm_exact
+from s3od_torch.ops.mlp_fused import mlp_fused_autograd
+from s3od_torch.ops.qkv_project import qkv_project_rope_autograd, rotate_half
 
 ROUTES = ("kernel", "exact")
 
 
-def rope_cos_sin(nh: int, nw: int, head_dim: int, theta: float):
+def rope_cos_sin(nh: int, nw: int, head_dim: int, theta: float,
+                 coord_scale: Optional[torch.Tensor] = None):
     """fp32 (nh*nw, head_dim) RoPE tables over patch centres in [-1, 1],
-    in the same fp32 operation order as `s3od_tpu` `rope_cos_sin`."""
+    in the same fp32 operation order as `s3od_tpu` `rope_cos_sin`.
+    `coord_scale` (an fp32 scalar) rescales the coordinates: the training
+    augmentation `pos_embed_rescale`."""
     dim4 = head_dim // 4
     inv_freq = 1.0 / theta ** np.arange(0, 1, 1.0 / dim4, dtype=np.float64)
     coords_h = (np.arange(0.5, nh, dtype=np.float64) / nh) * 2 - 1
@@ -48,17 +60,48 @@ def rope_cos_sin(nh: int, nw: int, head_dim: int, theta: float):
     hh, ww = np.meshgrid(coords_h, coords_w, indexing="ij")
     coords = np.stack([hh.reshape(-1), ww.reshape(-1)], axis=-1)
     coords = torch.tensor(coords, dtype=torch.float32)
+    if coord_scale is not None:
+        coords = coords * coord_scale
     inv = torch.tensor(inv_freq, dtype=torch.float32)
     angles = 2.0 * math.pi * coords[:, :, None] * inv[None, None, :]
     angles = angles.reshape(angles.shape[0], -1).repeat(1, 2)
     return torch.cos(angles), torch.sin(angles)
 
 
+def sample_rope_coord_scale(generator: torch.Generator,
+                            rescale: float) -> torch.Tensor:
+    """Log-uniform coordinate rescale in [1/rescale, rescale], an fp32
+    scalar (training augmentation; `s3od_tpu` `sample_rope_coord_scale`
+    draws it from a JAX key, this from `generator`)."""
+    log_r = math.log(rescale)
+    u = torch.empty((), dtype=torch.float32).uniform_(-log_r, log_r,
+                                                      generator=generator)
+    return torch.exp(u)
+
+
 @functools.lru_cache(maxsize=16)
 def _full_tables(nh, nw, head_dim, theta, n_prefix, n_run, device):
     """Tables over the whole (padded) sequence: identity rows (cos 1,
-    sin 0) for the CLS/register prefix and the padding tail."""
-    cos, sin = rope_cos_sin(nh, nw, head_dim, theta)
+    sin 0) for the CLS/register prefix and the padding tail. Cached:
+    unscaled tables only (see `rope_tables`). Built outside inference
+    mode, so that a table first made by a serving call can still be saved
+    for backward by a training forward."""
+    with torch.inference_mode(False):
+        return _tables(nh, nw, head_dim, theta, n_prefix, n_run, device)
+
+
+def rope_tables(nh, nw, head_dim, theta, n_prefix, n_run, device,
+                coord_scale: Optional[torch.Tensor] = None):
+    """`_full_tables`, or tables built anew for a rescaled step."""
+    if coord_scale is None:
+        return _full_tables(nh, nw, head_dim, theta, n_prefix, n_run, device)
+    return _tables(nh, nw, head_dim, theta, n_prefix, n_run, device,
+                   coord_scale)
+
+
+def _tables(nh, nw, head_dim, theta, n_prefix, n_run, device,
+            coord_scale=None):
+    cos, sin = rope_cos_sin(nh, nw, head_dim, theta, coord_scale)
     tail = n_run - n_prefix - cos.shape[0]
     ones = lambda k: torch.ones(k, head_dim)
     zeros = lambda k: torch.zeros(k, head_dim)
@@ -168,25 +211,31 @@ class Block(nn.Module):
         if route == "kernel":
             x, h = self._attention_kernels(x, cos, sin, n_valid)
             up, down = self.mlp.up_proj, self.mlp.down_proj
-            return mlp_fused(h, up.weight, _bias(up), down.weight, _bias(down),
-                             x, self.layer_scale2.lambda1)
+            dt = x.dtype
+            return mlp_fused_autograd(
+                h, up.weight.to(dt), _bias(up, dt), down.weight.to(dt),
+                _bias(down, dt), x, self.layer_scale2.lambda1.to(dt))
         x, h = self._attention_exact(x, cos, sin, n_valid)
         return x + self.mlp(h) * self.layer_scale2.lambda1
 
     def _attention_kernels(self, x, cos, sin, n_valid):
         b, n, c = x.shape
+        dt = x.dtype
         att = self.attention
         heads = att.num_heads
         d = c // heads
-        h, _, _ = layer_norm(x, self.norm1.weight, self.norm1.bias, self.eps)
-        q, k, v = qkv_project_rope(h, att.qkv.weight, att.qkv.bias, cos, sin,
-                                   heads, d**-0.5)
-        o, _ = flash_attention(q.reshape(b * heads, n, d),
-                               k.reshape(b * heads, n, d),
-                               v.reshape(b * heads, n, d), n_valid)
-        return attn_epilogue(o, att.o_proj.weight, _bias(att.o_proj), x,
-                             self.layer_scale1.lambda1, self.norm2.weight,
-                             self.norm2.bias, self.eps)
+        h = layer_norm_autograd(x, self.norm1.weight.to(dt),
+                                self.norm1.bias.to(dt), self.eps)
+        q, k, v = qkv_project_rope_autograd(
+            h, att.qkv.weight.to(dt), att.qkv.bias.to(dt), cos, sin, heads,
+            d**-0.5)
+        o = flash_attention_autograd(q.reshape(b * heads, n, d),
+                                     k.reshape(b * heads, n, d),
+                                     v.reshape(b * heads, n, d), n_valid)
+        return attn_epilogue_autograd(
+            o, att.o_proj.weight.to(dt), _bias(att.o_proj, dt), x,
+            self.layer_scale1.lambda1.to(dt), self.norm2.weight.to(dt),
+            self.norm2.bias.to(dt), self.eps)
 
     def _attention_exact(self, x, cos, sin, n_valid):
         b, n, c = x.shape
@@ -205,11 +254,12 @@ class Block(nn.Module):
                                    self.eps)
 
 
-def _bias(linear: nn.Linear):
-    """A Linear's bias, or zeros of its output width when it has none."""
+def _bias(linear: nn.Linear, dtype: torch.dtype):
+    """A Linear's bias in `dtype`, or zeros of its output width when it
+    has none."""
     if linear.bias is not None:
-        return linear.bias
-    return linear.weight.new_zeros(linear.out_features)
+        return linear.bias.to(dtype)
+    return linear.weight.new_zeros(linear.out_features, dtype=dtype)
 
 
 class DINOv3Encoder(nn.Module):
@@ -221,32 +271,51 @@ class DINOv3Encoder(nn.Module):
         # Final LayerNorm: dead for the DPT taps, kept for the checkpoint.
         self.norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
 
-    def forward(self, images, tap_layers: Sequence[int],
-                route: str) -> List[torch.Tensor]:
+    def forward(self, images, tap_layers: Sequence[int], route: str, *,
+                rope_coord_scale: Optional[torch.Tensor] = None,
+                remat: bool = False,
+                remat_policy: Optional[str] = None) -> List[torch.Tensor]:
         """images (B, H, W, 3) normalized, in the compute dtype -> one
         (B, h*w, C) patch-token tensor per tap (prefix tokens stripped).
-        Tap t is the output of block t - 1."""
+        Tap t is the output of block t - 1.
+
+        `remat=True` checkpoints each block while gradients are recorded:
+        the backward recomputes the block, its kernels included. Only the
+        JAX default policy (save nothing) is ported."""
         if route not in ROUTES:
             raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+        if remat_policy not in (None, "none"):
+            raise NotImplementedError(
+                f"remat_policy {remat_policy!r}: the flash / dots_flash "
+                "policies are not ported yet (ROADMAP, Queue 1, item 8)")
         cfg = self.cfg
         b, hh, ww, _ = images.shape
         p = cfg.patch_size
         nh, nw = hh // p, ww // p
         x = images[:, : nh * p, : nw * p].permute(0, 3, 1, 2)
-        x = self.embeddings.patch_embeddings(x).flatten(2).transpose(1, 2)
         emb = self.embeddings
-        x = torch.cat([emb.cls_token.expand(b, -1, -1),
-                       emb.register_tokens.expand(b, -1, -1), x], dim=1)
+        pe = emb.patch_embeddings
+        x = F.conv2d(x, pe.weight.to(x.dtype), pe.bias.to(x.dtype),
+                     stride=pe.stride)
+        x = x.flatten(2).transpose(1, 2)
+        x = torch.cat([emb.cls_token.to(x.dtype).expand(b, -1, -1),
+                       emb.register_tokens.to(x.dtype).expand(b, -1, -1), x],
+                      dim=1)
         n_prefix = cfg.num_prefix_tokens
         n_valid = x.shape[1]
         n_run = attn_seq_len(n_valid, route)
         if n_run != n_valid:
             x = F.pad(x, (0, 0, 0, n_run - n_valid))
-        cos, sin = _full_tables(nh, nw, cfg.head_dim, cfg.rope_theta,
-                                n_prefix, n_run, x.device)
+        cos, sin = rope_tables(nh, nw, cfg.head_dim, cfg.rope_theta,
+                               n_prefix, n_run, x.device, rope_coord_scale)
+        remat = remat and torch.is_grad_enabled()
         taps = {}
         for i in range(max(tap_layers)):
-            x = self.layer[i](x, cos, sin, n_valid, route)
+            if remat:
+                x = checkpoint(self.layer[i], x, cos, sin, n_valid, route,
+                               use_reentrant=False)
+            else:
+                x = self.layer[i](x, cos, sin, n_valid, route)
             if i + 1 in tap_layers:
                 taps[i + 1] = x
         return [taps[t][:, n_prefix: n_prefix + nh * nw] for t in tap_layers]

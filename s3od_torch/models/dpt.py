@@ -11,6 +11,13 @@ outside Pallas, so there is no kernel to port here. Structure:
 
 `fold_bn_` folds the eval-mode RCU BatchNorms into the preceding convs in
 float64, as `fold_bn_inference` does (`dpt.py:514-564`).
+
+Weights are cast to the input's dtype at use (`_conv`, `_linear`), so fp32
+master weights train in bf16 as in the JAX package. The BatchNorms run
+`batch_norm` (`s3od_tpu/ops/conv.py:batch_norm`): batch statistics in
+training, with torch's running-stat convention. The decoder is not
+checkpointed: at ViT-B, 1024^2, batch 4 its activations fit, and a
+recompute would update the running statistics twice.
 """
 
 from __future__ import annotations
@@ -25,6 +32,51 @@ from s3od_torch.configs import SegmentationConfig
 from s3od_torch.ops.resize import resize_bilinear
 
 
+def _conv(mod: nn.Module, x):
+    """`mod` (Conv2d, ConvTranspose2d or Identity) on x, its weights cast
+    to x's dtype at use."""
+    if isinstance(mod, nn.Identity):
+        return x
+    w = mod.weight.to(x.dtype)
+    b = mod.bias.to(x.dtype) if mod.bias is not None else None
+    if isinstance(mod, nn.ConvTranspose2d):
+        return F.conv_transpose2d(x, w, b, mod.stride, mod.padding,
+                                  mod.output_padding, mod.groups, mod.dilation)
+    return mod._conv_forward(x, w, b)
+
+
+def _linear(mod: nn.Linear, x):
+    return F.linear(x, mod.weight.to(x.dtype), mod.bias.to(x.dtype))
+
+
+def batch_norm(bn: nn.Module, x, training: bool):
+    """BatchNorm2d over NCHW as `s3od_tpu/ops/conv.py:batch_norm` computes
+    it: fp32 statistics (E[x^2] - E[x]^2 over the batch in training, the
+    running ones otherwise), then y = x * scale + shift with scale and
+    shift rounded to x's dtype. Training updates the running statistics
+    in place with torch's convention: momentum 0.1, unbiased variance in
+    the running statistics, biased in the normalization."""
+    if isinstance(bn, nn.Identity):
+        return x
+    if training:
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = (xf * xf).mean(dim=(0, 2, 3)) - mean * mean
+        n = x.numel() // x.shape[1]
+        m = bn.momentum
+        with torch.no_grad():
+            unbiased = var * (n / max(n - 1, 1))
+            bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean)
+            bn.running_var.copy_((1 - m) * bn.running_var + m * unbiased)
+            bn.num_batches_tracked += 1
+    else:
+        mean, var = bn.running_mean.float(), bn.running_var.float()
+    scale = bn.weight.float() * torch.rsqrt(var + bn.eps)
+    shift = bn.bias.float() - mean * scale
+    return (x * scale.to(x.dtype)[:, None, None]
+            + shift.to(x.dtype)[:, None, None])
+
+
 class ResidualConvUnit(nn.Module):
     """ReLU -> conv -> [BN] -> ReLU -> conv -> [BN] -> + x."""
 
@@ -35,9 +87,9 @@ class ResidualConvUnit(nn.Module):
         bn = (lambda: nn.BatchNorm2d(features)) if use_bn else nn.Identity
         self.bn1, self.bn2 = bn(), bn()
 
-    def forward(self, x):
-        out = self.bn1(self.conv1(F.relu(x)))
-        out = self.bn2(self.conv2(F.relu(out)))
+    def forward(self, x, training: bool = False):
+        out = batch_norm(self.bn1, _conv(self.conv1, F.relu(x)), training)
+        out = batch_norm(self.bn2, _conv(self.conv2, F.relu(out)), training)
         return out + x
 
 
@@ -48,13 +100,14 @@ class FeatureFusionBlock(nn.Module):
         self.resConfUnit1 = ResidualConvUnit(features, use_bn)
         self.resConfUnit2 = ResidualConvUnit(features, use_bn)
 
-    def forward(self, x, res: Optional[torch.Tensor], out_hw):
+    def forward(self, x, res: Optional[torch.Tensor], out_hw,
+                training: bool = False):
         if res is not None:
-            x = x + self.resConfUnit1(res)
-        x = self.resConfUnit2(x)
+            x = x + self.resConfUnit1(res, training)
+        x = self.resConfUnit2(x, training)
         # 1x1 conv and bilinear resize commute; the conv runs on 4x fewer
         # pixels first (as in the JAX package).
-        return resize_bilinear(self.out_conv(x), out_hw)
+        return resize_bilinear(_conv(self.out_conv, x), out_hw)
 
 
 class Scratch(nn.Module):
@@ -83,17 +136,19 @@ class MaskHead(nn.Module):
         )
 
     def forward(self, path1, target_hw):
-        feat = self.output_conv1(path1)
-        feat = F.relu(self.upsample_2x(feat))
+        feat = _conv(self.output_conv1, path1)
+        up = self.upsample_2x
+        feat = F.relu(_conv(up[2], F.relu(_conv(up[0], feat))))
         feat = resize_bilinear(feat, target_hw, antialias=True)  # no-op at 16p
         # The branches' 3x3 convs run as ONE conv over the shared features
         # and their 1x1 convs as one grouped (block-diagonal) conv.
         heads = self.mask_heads
+        dt = feat.dtype
         hidden = F.relu(F.conv2d(
-            feat, torch.cat([h[0].weight for h in heads]),
-            torch.cat([h[0].bias for h in heads]), padding=1))
-        return F.conv2d(hidden, torch.cat([h[2].weight for h in heads]),
-                        torch.cat([h[2].bias for h in heads]),
+            feat, torch.cat([h[0].weight for h in heads]).to(dt),
+            torch.cat([h[0].bias for h in heads]).to(dt), padding=1))
+        return F.conv2d(hidden, torch.cat([h[2].weight for h in heads]).to(dt),
+                        torch.cat([h[2].bias for h in heads]).to(dt),
                         groups=len(heads))
 
 
@@ -116,26 +171,29 @@ class DPTHead(nn.Module):
             nn.Linear(64, cfg.num_outputs))
         self.mask_head = MaskHead(f, cfg.mask_inter_features, cfg.num_outputs)
 
-    def forward(self, taps: List[torch.Tensor], patch_hw, patch_size: int):
+    def forward(self, taps: List[torch.Tensor], patch_hw, patch_size: int,
+                training: bool = False):
+        """`training` normalizes with batch statistics and updates the
+        BatchNorms' running statistics."""
         ph, pw = patch_hw
         feats = []
         for proj, resize, t in zip(self.projects, self.resize_layers, taps):
             b, _, c = t.shape
             x = t.transpose(1, 2).reshape(b, c, ph, pw)
-            feats.append(resize(proj(x)))
+            feats.append(_conv(resize, _conv(proj, x)))
         s = self.scratch
-        rn = [s.layer1_rn(feats[0]), s.layer2_rn(feats[1]),
-              s.layer3_rn(feats[2]), s.layer4_rn(feats[3])]
+        rn = [_conv(getattr(s, f"layer{i + 1}_rn"), f)
+              for i, f in enumerate(feats)]
         hw = lambda a: tuple(a.shape[-2:])
-        path = s.refinenet4(rn[3], None, hw(rn[2]))
-        path = s.refinenet3(path, rn[2], hw(rn[1]))
-        path = s.refinenet2(path, rn[1], hw(rn[0]))
+        path = s.refinenet4(rn[3], None, hw(rn[2]), training)
+        path = s.refinenet3(path, rn[2], hw(rn[1]), training)
+        path = s.refinenet2(path, rn[1], hw(rn[0]), training)
         path1 = s.refinenet1(path, rn[0], (2 * rn[0].shape[-2],
-                                           2 * rn[0].shape[-1]))
+                                           2 * rn[0].shape[-1]), training)
 
         pooled = path1.float().mean(dim=(2, 3)).to(path1.dtype)
         fc1, fc2 = self.classifier_head[2], self.classifier_head[4]
-        iou = fc2(F.relu(fc1(pooled)))
+        iou = _linear(fc2, F.relu(_linear(fc1, pooled)))
         masks = self.mask_head(path1, (ph * patch_size, pw * patch_size))
         return masks, iou
 

@@ -9,6 +9,7 @@
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -25,18 +26,30 @@ class S3ODSegmentation(nn.Module):
         self.encoder = DINOv3Encoder(cfg.encoder)
         self.seg_head = DPTHead(cfg)
 
-    def forward(self, images):
+    def forward(self, images, training: bool = False,
+                rope_coord_scale: Optional[torch.Tensor] = None,
+                remat_policy: Optional[str] = None):
         """images (B, H, W, 3) normalized, in the compute dtype.
 
-        Returns {"pred_masks": (B, n, H, W) logits in the compute dtype,
-        "pred_iou": (B, n) fp32 logits}. bf16 input takes the encoder's
-        "kernel" route, any other dtype the "exact" one (models/dinov3.py)."""
+        Returns {"pred_masks": (B, n, H, W) logits, "pred_iou": (B, n) fp32
+        logits}. bf16 input takes the encoder's "kernel" route, any other
+        dtype the "exact" one (models/dinov3.py). Serving keeps the masks in
+        the compute dtype; `training=True` returns them in fp32 (the JAX
+        public contract, `segmentation.py:78-83`), normalizes the decoder
+        with batch statistics (updating the BatchNorms' running ones) and
+        checkpoints every encoder block (`remat_policy`: models/dinov3.py).
+        `rope_coord_scale` rescales the RoPE coordinates."""
         route = "kernel" if images.dtype == torch.bfloat16 else "exact"
         cfg = self.cfg
         p = cfg.encoder.patch_size
-        taps = self.encoder(images, cfg.tap_layers, route)
+        taps = self.encoder(images, cfg.tap_layers, route,
+                            rope_coord_scale=rope_coord_scale,
+                            remat=training,
+                            remat_policy=remat_policy)
         masks, iou = self.seg_head(
-            taps, (images.shape[1] // p, images.shape[2] // p), p)
+            taps, (images.shape[1] // p, images.shape[2] // p), p, training)
+        if training:
+            masks = masks.float()
         return {"pred_masks": masks, "pred_iou": iou.float()}
 
     @torch.no_grad()

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from s3od_torch import _build
+from s3od_torch.ops.autograd import plain_vjp
 from s3od_torch.ops.layernorm import layer_norm_plain
 
 
@@ -64,3 +65,22 @@ def attn_epilogue(a, wo, bo, x, ls, lw, lb, eps: float):
 
 
 attn_epilogue.launches = 0
+
+
+class _AttnEpilogue(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, wo, bo, x, ls, lw, lb, eps):
+        ctx.save_for_backward(a, wo, bo, x, ls, lw, lb)
+        ctx.eps = eps
+        return attn_epilogue(a, wo, bo, x, ls, lw, lb, eps)
+
+    @staticmethod
+    def backward(ctx, gx, gh):
+        fn = lambda *args: attn_epilogue_plain(*args, ctx.eps)
+        return (*plain_vjp(fn, ctx.saved_tensors, ctx.needs_input_grad[:7],
+                           (gx, gh)), None)
+
+
+# Differentiable `attn_epilogue` -> (x', h): K4 forward, the plain
+# version's vjp backward (`_bwd_rule`).
+attn_epilogue_autograd = _AttnEpilogue.apply

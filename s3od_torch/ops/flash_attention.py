@@ -1,5 +1,6 @@
 """K3 and K6: attention forward under the static softmax bound (CUDA) and
-its plain version.
+its plain version; K8: its backward (CUDA, `csrc/flash_attention_bwd.cu`)
+and its plain version; and the `autograd.Function` that joins them.
 
 One CUDA kernel replaces two TPU kernels of `s3od_tpu/ops/flash_attention.py`
 (both via `_flash_forward(static_bound=True)`):
@@ -118,3 +119,99 @@ def flash_attention(q, k, v, n_valid: int):
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, g, n_valid: int):
+    """Plain version of K8: the gradients (dq, dk, dv) of `o` from
+    `flash_attention` against its cotangent g, in q's dtype.
+
+    The semantics of `_bwd_*_kernel` (`s3od_tpu/ops/flash_attention.py`,
+    scale 1): delta = rowsum(o g) in fp32; p = exp(min(s - lse, 0)) with
+    keys at or past n_valid masked; ds = p (g v^T - delta); p and ds are
+    rounded to q's dtype before the products dv = p^T g, dk = ds^T q and
+    dq = ds k, which sum in fp32. Query rows run in chunks of
+    `query_chunk` rows, so dk and dv sum over chunks."""
+    bh, n = q.shape[:2]
+    dt = q.dtype
+    chunk = query_chunk(bh, k.shape[1])
+    delta = (o.float() * g.float()).sum(-1, keepdim=True)
+    kf, vf = k.float(), v.float()
+    bias = None
+    if n_valid < k.shape[1]:
+        bias = torch.zeros(k.shape[1], device=q.device, dtype=torch.float32)
+        bias[n_valid:] = NEG_INF
+    dk = torch.zeros(k.shape, device=q.device, dtype=torch.float32)
+    dv = torch.zeros(v.shape, device=q.device, dtype=torch.float32)
+    dqs = []
+    for i, j in row_chunks(n, chunk):
+        qi, gi = q[:, i: j].float(), g[:, i: j].float()
+        s = torch.matmul(qi, kf.transpose(1, 2))
+        if bias is not None:
+            s = s + bias
+        p = torch.exp((s - lse[:, i: j, None]).clamp_max(0.0))
+        del s
+        dv += torch.matmul(p.to(dt).float().transpose(1, 2), gi)
+        ds = p * (torch.matmul(gi, vf.transpose(1, 2)) - delta[:, i: j])
+        del p
+        ds = ds.to(dt).float()
+        dqs.append(torch.matmul(ds, kf).to(dt))
+        dk += torch.matmul(ds.transpose(1, 2), qi)
+    return torch.cat(dqs, 1), dk.to(dt), dv.to(dt)
+
+
+def flash_attention_bwd(q, k, v, o, lse, g, n_valid: int):
+    """K8: (dq, dk, dv) of the static-bound attention forward.
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel or
+    raise: bf16 (BH, N, D) q, k, v, o, g with N a multiple of 64 and D in
+    {32, 64}, fp32 (BH, N) lse. delta = rowsum(o g) is computed here in
+    fp32, as the JAX package computes it outside its kernels."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, g, n_valid)
+    bh, n, d = q.shape
+    if any(t.dtype != torch.bfloat16 for t in (q, k, v, o, g)):
+        raise ValueError("flash_attention_bwd kernel: bf16 q, k, v, o, g only")
+    if any(t.shape != q.shape for t in (k, v, o, g)):
+        raise ValueError("flash_attention_bwd kernel: shapes differ")
+    if lse.shape != (bh, n) or lse.dtype != torch.float32:
+        raise ValueError("flash_attention_bwd kernel: fp32 (BH, N) lse")
+    if n % SEQ_MULTIPLE or d not in (32, 64) or not 0 < n_valid <= n:
+        raise ValueError(
+            f"flash_attention_bwd kernel: unsupported N={n} D={d} "
+            f"n_valid={n_valid}")
+    q, k, v, g, lse = (t.contiguous() for t in (q, k, v, g, lse))
+    delta = (o.float() * g.float()).sum(-1)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    lib = _build.load_library()
+    code = lib.s3od_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), bh, n, d, n_valid, _build.stream_ptr(q),
+    )
+    _build.check(code, "flash_attention_bwd")
+    _build.count_launch(flash_attention_bwd)
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K3/K6 forward, K8 backward; saves (q, k, v, o, lse) as the JAX
+    forward rule does (`flash_attention.py:652-667`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, n_valid):
+        o, lse = flash_attention(q, k, v, n_valid)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.n_valid = n_valid
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, o, lse = ctx.saved_tensors
+        return (*flash_attention_bwd(q, k, v, o, lse, g, ctx.n_valid), None)
+
+
+# Differentiable `flash_attention` -> o (the lse stays internal).
+flash_attention_autograd = _FlashAttention.apply

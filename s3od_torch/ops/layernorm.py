@@ -25,6 +25,7 @@ import functools
 import torch
 
 from s3od_torch import _build
+from s3od_torch.ops.autograd import plain_vjp
 
 def layer_norm_plain(x, weight, bias, eps: float):
     """Plain version of K1: returns (y, mean, rstd); mean/rstd (..., 1)."""
@@ -101,3 +102,22 @@ def layer_norm(x, weight, bias, eps: float):
 
 
 layer_norm.launches = 0
+
+
+class _LayerNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        ctx.save_for_backward(x, weight, bias)
+        ctx.eps = eps
+        return layer_norm(x, weight, bias, eps)[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        fn = lambda x, w, b: layer_norm_plain(x, w, b, ctx.eps)[0]
+        return (*plain_vjp(fn, ctx.saved_tensors, ctx.needs_input_grad[:3],
+                           (g,)), None)
+
+
+# Differentiable `layer_norm` -> y: K1 forward, the plain version's vjp
+# backward (`_ln_bwd_rule`).
+layer_norm_autograd = _LayerNorm.apply

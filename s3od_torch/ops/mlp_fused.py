@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from s3od_torch import _build
+from s3od_torch.ops.autograd import plain_vjp
 
 ROW_TILE = 32       # rows per block
 HIDDEN_CHUNK = 32  # hidden columns per step of the F loop
@@ -88,3 +89,20 @@ def mlp_fused(x_ln, wu, bu, wd, bd, res, ls):
 
 
 mlp_fused.launches = 0
+
+
+class _MLPFused(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x_ln, wu, bu, wd, bd, res, ls):
+        ctx.save_for_backward(x_ln, wu, bu, wd, bd, res, ls)
+        return mlp_fused(x_ln, wu, bu, wd, bd, res, ls)
+
+    @staticmethod
+    def backward(ctx, g):
+        return plain_vjp(mlp_fused_plain, ctx.saved_tensors,
+                         ctx.needs_input_grad, (g,))
+
+
+# Differentiable `mlp_fused`: K5 forward, the plain version's vjp backward
+# (`_bwd_rule`).
+mlp_fused_autograd = _MLPFused.apply

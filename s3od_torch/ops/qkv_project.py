@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from s3od_torch import _build
+from s3od_torch.ops.autograd import plain_vjp
 
 
 def rotate_half(t):
@@ -82,3 +83,22 @@ def qkv_project_rope(x, weight, bias, cos, sin, num_heads: int, scale: float):
 
 
 qkv_project_rope.launches = 0
+
+
+class _QKVProjectRope(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, cos, sin, num_heads, scale):
+        ctx.save_for_backward(x, weight, bias, cos, sin)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return qkv_project_rope(x, weight, bias, cos, sin, num_heads, scale)
+
+    @staticmethod
+    def backward(ctx, gq, gk, gv):
+        fn = lambda *a: qkv_project_rope_plain(*a, ctx.num_heads, ctx.scale)
+        return (*plain_vjp(fn, ctx.saved_tensors, ctx.needs_input_grad[:5],
+                           (gq, gk, gv)), None, None)
+
+
+# Differentiable `qkv_project_rope`: K2 forward, the plain version's vjp
+# backward (linear, `_bwd_rule`); the q pre-scale reaches dq.
+qkv_project_rope_autograd = _QKVProjectRope.apply

@@ -12,10 +12,10 @@ Entry points: `remove_background` (one image), `remove_background_batch`
 host pre- and postprocess overlap the device), each with a readback
 `payload` of "full" (all soft masks), "best" (the best mask, chosen and
 quantized to uint8 on the device) or "best_small" ("best" pooled 2x2).
-`s3od_tpu.serving.InferenceServer` serves this predictor as it is.
+`s3od_torch.serving.InferenceServer` serves this predictor.
 
-`RemovalResult` and the host resize helpers are carried over rather than
-imported: `s3od_tpu.predictor` imports jax.
+`RemovalResult` and the host resize helpers are the port's own copies of
+the JAX package's.
 """
 
 from __future__ import annotations
@@ -31,11 +31,11 @@ import torch
 from PIL import Image
 
 from s3od_torch.configs import SegmentationConfig
-from s3od_tpu.utils import as_rgb_uint8, get_pad_info, place_on_canvas, remove_padding
 from s3od_torch.convert import load_checkpoint, state_dict_from_jax
 from s3od_torch.models.segmentation import S3ODSegmentation
 from s3od_torch.ops.precision import default_dtype, set_exact_float32
 from s3od_torch.ops.resize import resize_bilinear_numpy
+from s3od_torch.utils import as_rgb_uint8, get_pad_info, place_on_canvas, remove_padding
 
 # ImageNet statistics (reference `src/s3od/predictor.py:42-43`).
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)

@@ -1,0 +1,341 @@
+"""Training entry point on PyTorch (counterpart of
+`s3od_tpu/training/train.py:155-611`, for one device).
+
+    python -m s3od_torch.training.train model=dinob dataset=synth \\
+        dataset.transform_mode=test backend=1chip data_dir=/data
+
+The same config groups and overrides as the JAX package
+(`training/config/`). The loop: per epoch, the training steps
+(`train_step`, uploads overlapped by `device_prefetch`, results summed on
+the device and read once), the validation pass, the scalars (TensorBoard
+when it is installed), top-k and `last` checkpoints by val dice, early
+stopping on val_iou_loss_full; after the fit, the optional evaluation of
+the test datasets and the export of `s3od_final.npz`.
+
+The run is on the CUDA card unless `backend.accelerator` is `cpu`; it
+never falls back. Not ported yet, each raising `NotImplementedError`
+(ROADMAP, Queue 1): `dataset.transform_mode` other than `test` (the
+augmentation), `backend.devices` / `backend.fsdp` above 1 (DDP/FSDP),
+teacher training, `train_stage.enable_image_logging`,
+`backend.split_augment`, `pretrained_encoder`, and the `flash` /
+`dots_flash` remat policies.
+"""
+
+from __future__ import annotations
+
+import logging
+import sys
+import time
+import types
+from datetime import datetime
+from pathlib import Path
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+logger = logging.getLogger("s3od_torch.train")
+
+
+def micro_dice_iou(sums: Dict[str, float]) -> Dict[str, float]:
+    tp, fp, fn = sums.get("tp", 0.0), sums.get("fp", 0.0), sums.get("fn", 0.0)
+    iou = tp / max(tp + fp + fn, 1.0)
+    dice = 2 * tp / max(2 * tp + fp + fn, 1.0)
+    return {"iou": iou, "dice": dice}
+
+
+def get_experiment_name(cfg) -> str:
+    """Reference naming: model_dataset_loss_timestamp (`train.py:58-69`)."""
+    stamp = datetime.now().strftime("%Y%m%d_%H%M%S")
+    return (
+        f"{cfg.experiment_name}_{cfg.model.get('_name', 'model')}"
+        f"_{cfg.dataset.get('_name', 'data')}_{cfg.loss.get('_name', 'loss')}"
+        f"_{stamp}"
+    )
+
+
+def _not_ported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to s3od_torch yet (ROADMAP, Queue 1, item "
+        f"{item})")
+
+
+def check_supported(cfg, config_name: str) -> None:
+    """Raise for the parts of the JAX entry point the port lacks."""
+    if config_name != "train" or cfg.model.get("use_flux_features"):
+        raise _not_ported("teacher training", 10)
+    if cfg.dataset.transform_mode != "test":
+        raise _not_ported(
+            f"dataset.transform_mode={cfg.dataset.transform_mode!r} "
+            "(on-device augmentation; use dataset.transform_mode=test)", 8)
+    if int(cfg.backend.devices) > 1 or int(cfg.backend.fsdp) > 1:
+        raise _not_ported("backend.devices / backend.fsdp > 1 (DDP, FSDP)", 9)
+    if cfg.train_stage.get("enable_image_logging"):
+        raise _not_ported("train_stage.enable_image_logging", 8)
+    if cfg.backend.get("split_augment"):
+        raise _not_ported("backend.split_augment", 8)
+    if cfg.get("pretrained_encoder"):
+        raise _not_ported("pretrained_encoder (HF DINOv3 weights)", 8)
+
+
+def device_of(cfg) -> torch.device:
+    """`backend.accelerator: cpu` -> the CPU; anything else -> the CUDA
+    card, which must be present."""
+    if str(cfg.backend.get("accelerator", "cuda")).lower() == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "training runs on the CUDA card unless backend.accelerator=cpu, "
+            "and no CUDA device is present")
+    return torch.device("cuda")
+
+
+def build_model(cfg, device: torch.device, seed: int):
+    from s3od_torch.configs import segmentation_config
+    from s3od_torch.convert import load_checkpoint
+    from s3od_torch.models.segmentation import S3ODSegmentation, init_weights_
+
+    mcfg = segmentation_config(
+        cfg.model.encoder_name,
+        num_outputs=cfg.model.num_outputs,
+        features=cfg.model.features,
+        use_bn=cfg.model.use_bn,
+        use_clstoken=cfg.model.use_clstoken,
+    )
+    model = S3ODSegmentation(mcfg)
+    if cfg.get("init_checkpoint"):
+        sd, _ = load_checkpoint(str(cfg.init_checkpoint))
+        model.load_state_dict(sd, strict=True)
+        logger.info("initialized weights from %s", cfg.init_checkpoint)
+    else:
+        init_weights_(model, torch.Generator().manual_seed(seed))
+        logger.warning("no init_checkpoint: fully random init (the reference "
+                       "starts from a pretrained DINOv3 encoder)")
+    return model.to(device)
+
+
+def step_generator(seed: int, epoch: int, step: int) -> torch.Generator:
+    """The RoPE-scale stream of one step, a function of (seed, epoch,
+    step): a resumed run draws what a continuous run would."""
+    return torch.Generator().manual_seed(
+        ((seed + 1) * 1_000_003 + epoch) * 1_000_003 + step)
+
+
+def train(argv: Optional[list] = None) -> Dict[str, float]:
+    from s3od_torch.evaluation.compute_metrics import evaluate_datasets
+    from s3od_torch.ops.precision import set_exact_float32
+    from s3od_torch.training.checkpoint import (
+        CheckpointManager,
+        EarlyStopping,
+        export_inference,
+        restore_external,
+    )
+    from s3od_torch.training.config import load_config
+    from s3od_torch.training.data import (
+        PrefetchLoader,
+        build_dataset,
+        device_prefetch,
+    )
+    from s3od_torch.training.loss import LossModule, compose_loss_config
+    from s3od_torch.training.optim import Optimizer
+    from s3od_torch.training.train_step import eval_step, train_step
+
+    args = list(argv if argv is not None else sys.argv[1:])
+    config_name = "train"
+    for a in list(args):
+        if a.startswith("config_name="):
+            config_name = a.split("=", 1)[1]
+            args.remove(a)
+    cfg = load_config(args, config_name=config_name)
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
+    check_supported(cfg, config_name)
+    device = device_of(cfg)
+
+    seed = int(cfg.backend.seed)
+    np.random.seed(seed)
+    exp_name = get_experiment_name(cfg)
+    save_dir = Path(cfg.base_dir) / "checkpoints" / exp_name
+    log_dir = Path(cfg.base_dir) / "logs" / exp_name
+
+    # --- data -----------------------------------------------------------
+    data_dir = Path(cfg.data_dir)
+    paths = [str(data_dir / p) for p in cfg.dataset.paths]
+    image_size = int(cfg.dataset.image_size)
+    accum = int(cfg.backend.accumulate_grad_batches)
+    global_batch = int(cfg.dataset.train_batch_size) * accum
+    use_cache = bool(cfg.dataset.get("cache"))
+    train_ds = build_dataset(paths, image_size, "train",
+                             float(cfg.dataset.val_split), seed,
+                             cfg.get("debug_subset_fraction"), cache=use_cache)
+    val_ds = build_dataset(paths, image_size, "val",
+                           float(cfg.dataset.val_split), seed, cache=use_cache)
+    threads = int(cfg.backend.num_threads)
+    train_loader = PrefetchLoader(train_ds, global_batch, shuffle=True,
+                                  drop_last=True, seed=seed,
+                                  num_threads=threads)
+    val_loader = PrefetchLoader(val_ds, int(cfg.dataset.val_batch_size),
+                                shuffle=False, drop_last=True, seed=seed,
+                                num_threads=threads)
+    steps_per_epoch = max(1, len(train_loader))
+    logger.info("device=%s global_batch=%d steps/epoch=%d train=%d val=%d",
+                device, global_batch, steps_per_epoch, len(train_ds),
+                len(val_ds))
+
+    # --- model / optimizer ---------------------------------------------
+    compute_dtype = (torch.bfloat16 if cfg.backend.precision == "bf16"
+                     else torch.float32)
+    if compute_dtype == torch.float32:
+        set_exact_float32()
+    model = build_model(cfg, device, seed)
+    grad_clip = cfg.optimizer.get("grad_clip")
+    optimizer = Optimizer(
+        model, float(cfg.optimizer.lr),
+        head_lr_mult=float(cfg.optimizer.head_lr_mult),
+        weight_decay=float(cfg.optimizer.weight_decay),
+        steps_per_epoch=steps_per_epoch,
+        max_epochs=int(cfg.backend.max_epochs),
+        hold_epochs=int(cfg.scheduler.hold_epochs),
+        eta_min=float(cfg.scheduler.eta_min),
+        grad_clip=float(grad_clip) if grad_clip is not None else None,
+        warmup_epochs=float(cfg.scheduler.get("warmup_epochs", 0.0)),
+    )
+    loss_module = LossModule(compose_loss_config(cfg.loss))
+    remat_policy = cfg.backend.get("remat_policy")
+
+    # --- bookkeeping ----------------------------------------------------
+    ckpt = CheckpointManager(
+        str(save_dir), top_k=int(cfg.train_stage.checkpoint_top_k),
+        monitor=cfg.train_stage.checkpoint_monitor,
+        mode=cfg.train_stage.checkpoint_mode)
+    es_cfg = cfg.train_stage.early_stopping
+    early = EarlyStopping(es_cfg.monitor, int(es_cfg.patience), es_cfg.mode,
+                          float(es_cfg.min_delta))
+    writer = None
+    try:
+        # TensorBoard loads TensorFlow when it is installed (and TensorFlow
+        # may load jax); its `notf` marker module selects the TF-free stub,
+        # which is all the scalar writer needs.
+        sys.modules.setdefault("tensorboard.compat.notf",
+                               types.ModuleType("tensorboard.compat.notf"))
+        from torch.utils.tensorboard import SummaryWriter
+
+        writer = SummaryWriter(str(log_dir))
+    except Exception:  # pragma: no cover
+        logger.warning("tensorboard unavailable; scalar logging to stdout only")
+
+    start_epoch, step = 0, 0
+    if cfg.get("checkpoint_path"):
+        tree, start_epoch = restore_external(str(cfg.checkpoint_path),
+                                             steps_per_epoch=steps_per_epoch)
+        model.load_state_dict(tree["model"], strict=True)
+        if cfg.get("weights_only"):
+            # Weights only (reference `train.py:127-133`): fresh optimizer,
+            # schedules and epoch counter.
+            start_epoch = 0
+        else:
+            optimizer.load_state_dict(tree["optimizer"])
+            step = int(tree["step"])
+            if start_epoch:
+                logger.info("resuming at epoch %d (step %d)", start_epoch, step)
+
+    def put_fn(i, batch):
+        # uint8 over the wire (4x fewer bytes); train_step decodes.
+        batch = {**batch, "masks": np.round(batch["masks"] * 255.0)
+                 .astype(np.uint8)}
+        return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+    max_epochs = int(cfg.backend.max_epochs)
+    final_metrics: Dict[str, float] = {}
+    prefetch_depth = max(1, int(cfg.backend.get("device_prefetch", 2)))
+    for epoch in range(start_epoch, max_epochs):
+        t0 = time.time()
+        acc: Dict[str, torch.Tensor] = {}
+        n_steps = 0
+        for i, batch in device_prefetch(train_loader.epoch(epoch), put_fn,
+                                        depth=prefetch_depth):
+            out = train_step(model, optimizer, loss_module, batch, epoch,
+                             step, generator=step_generator(seed, epoch, i),
+                             accum_steps=accum, compute_dtype=compute_dtype,
+                             remat_policy=remat_policy)
+            for k, v in out.items():
+                acc[k] = acc[k] + v if k in acc else v
+            step += 1
+            n_steps += 1
+        if n_steps == 0:
+            raise RuntimeError(
+                f"train loader yielded ZERO batches in epoch {epoch}: "
+                f"{len(train_ds)} train samples < global batch "
+                f"{global_batch} with drop_last — shrink "
+                "dataset.train_batch_size / accumulation or add data")
+        sums = {k: float(v) for k, v in acc.items()}
+        metrics = {f"train_{k}": v / n_steps for k, v in sums.items()
+                   if k not in ("tp", "fp", "fn")}
+        metrics.update({f"train_{k}": v for k, v in micro_dice_iou(sums).items()})
+
+        vsums: Dict[str, float] = {}
+        n_val = 0
+        for batch in val_loader.epoch(0):
+            out = eval_step(model, loss_module, put_fn(n_val, batch), epoch,
+                            compute_dtype=compute_dtype)
+            for k, v in out.items():
+                vsums[k] = vsums.get(k, 0.0) + float(v)
+            n_val += 1
+        if n_val == 0 and epoch == start_epoch:
+            logger.warning(
+                "val loader yielded ZERO batches (%d val samples < "
+                "val_batch_size %d with drop_last) — val metrics read 0/nan "
+                "and checkpoint selection by val_dice is meaningless",
+                len(val_ds), int(cfg.dataset.val_batch_size))
+        metrics.update({f"val_{k}": v / max(n_val, 1) for k, v in vsums.items()
+                        if k not in ("tp", "fp", "fn")})
+        metrics.update({f"val_{k}": v for k, v in micro_dice_iou(vsums).items()})
+        final_metrics = metrics
+
+        if writer:
+            for k, v in metrics.items():
+                writer.add_scalar(k, v, epoch)
+            lr_enc, lr_head = optimizer.lrs(step)
+            writer.add_scalar("lr/encoder", lr_enc, epoch)
+            writer.add_scalar("lr/head", lr_head, epoch)
+        logger.info(
+            "epoch %d (%.1fs): loss=%.4f val_loss=%.4f val_iou=%.4f "
+            "val_dice=%.4f", epoch, time.time() - t0,
+            metrics.get("train_loss", float("nan")),
+            metrics.get("val_loss", float("nan")),
+            metrics.get("val_iou", float("nan")),
+            metrics.get("val_dice", float("nan")))
+
+        save_every = max(1, int(cfg.backend.get("save_every", 1)))
+        ckpt.save({"model": model.state_dict(),
+                   "optimizer": optimizer.state_dict(),
+                   "step": step, "epoch": epoch},
+                  epoch=epoch, metrics=metrics,
+                  save_last=((epoch + 1) % save_every == 0
+                             or epoch + 1 == max_epochs))
+        if early.update(metrics):
+            logger.info("early stopping at epoch %d", epoch)
+            break
+
+    if cfg.get("evaluation", {}).get("enabled"):
+        from s3od_torch.convert import convert_state_dict
+
+        results = evaluate_datasets(
+            model_params=convert_state_dict(model.state_dict(), model.cfg),
+            input_dir=str(cfg.evaluation.input_dir),
+            datasets=list(cfg.dataset.test_datasets),
+            image_size=int(cfg.evaluation.get("image_size")
+                           or cfg.dataset.get("eval_image_size", 1024)),
+            device=device.type)
+        for ds_name, ms in results.items():
+            for k, v in ms.items():
+                if writer:
+                    writer.add_scalar(f"evaluation/{ds_name}/{k}", v)
+
+    if writer:
+        writer.close()
+    export_inference(model, str(save_dir / "s3od_final.npz"))
+    return final_metrics
+
+
+if __name__ == "__main__":
+    train()

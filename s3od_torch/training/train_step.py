@@ -1,0 +1,97 @@
+"""Training and evaluation steps (counterpart of
+`s3od_tpu/training/train_step.py`).
+
+One `train_step` is the JAX jitted step written out: decode the uint8
+batch and normalize it, split it into `accum_steps` micro-batches, and for
+each draw the RoPE coordinate scale, run the forward in training mode
+(batch-statistics BN, per-block remat), the loss and the confusion sums,
+and backpropagate; the gradients, the loss and its parts are averaged
+over the micro-batches, the sums added, and the BN running statistics
+thread through the micro-batches in order. Then one optimizer update.
+Results stay on the device (no host readback per step).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from s3od_torch.models.dinov3 import sample_rope_coord_scale
+
+# ImageNet statistics (`s3od_tpu/ops/augment.py:normalize_imagenet`).
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def preprocess(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """uint8 images (B, S, S, 3) -> ImageNet-normalized fp32; uint8 masks
+    (B, S, S) -> [0, 1] fp32 (the test-mode transform: no augmentation)."""
+    x = batch["images"].float() / 255.0
+    mean = torch.tensor(IMAGENET_MEAN, device=x.device)
+    std = torch.tensor(IMAGENET_STD, device=x.device)
+    masks = batch["masks"]
+    if masks.dtype == torch.uint8:
+        masks = masks.float() / 255.0
+    return {**batch, "images": (x - mean) / std, "masks": masks}
+
+
+@torch.no_grad()
+def best_mask_metrics(outputs, targets) -> Dict[str, torch.Tensor]:
+    """Confusion sums (tp, fp, fn) of the argmax-IoU mask against the
+    targets thresholded at 0.5 (`_best_mask_metrics`)."""
+    probs = torch.sigmoid(outputs["pred_masks"].float())
+    best = outputs["pred_iou"].argmax(1)
+    best_masks = probs[torch.arange(probs.shape[0], device=probs.device), best]
+    pred = best_masks > 0.5
+    gt = targets > 0.5
+    return {"tp": (pred & gt).sum().float(), "fp": (pred & ~gt).sum().float(),
+            "fn": (~pred & gt).sum().float()}
+
+
+def train_step(model, optimizer, loss_module, batch, epoch: int, step: int,
+               *, generator: torch.Generator, accum_steps: int = 1,
+               compute_dtype: torch.dtype = torch.float32,
+               remat_policy: Optional[str] = None) -> Dict[str, torch.Tensor]:
+    """One optimizer step over `batch` (leading dim accum_steps x micro
+    batch, on the model's device). `step` is the number of updates so far
+    (the schedules' count); `generator` draws the RoPE scales when the
+    encoder config has `pos_embed_rescale`. Returns
+    {"loss", *parts, "tp", "fp", "fn"} as 0-dim device tensors."""
+    batch = preprocess(batch)
+    rescale = model.cfg.encoder.pos_embed_rescale
+    n = batch["images"].shape[0]
+    if n % accum_steps:
+        raise ValueError(f"batch {n} does not split into {accum_steps} "
+                         "micro-batches")
+    micro = n // accum_steps
+    optimizer.zero_grad()
+    out: Dict[str, torch.Tensor] = {}
+    for j in range(accum_steps):
+        mb = {k: v[j * micro: (j + 1) * micro] for k, v in batch.items()}
+        scale = None
+        if rescale:
+            scale = sample_rope_coord_scale(generator, rescale)
+        outputs = model(mb["images"].to(compute_dtype), training=True,
+                        rope_coord_scale=scale, remat_policy=remat_policy)
+        loss, parts = loss_module(outputs, mb, epoch)
+        (loss / accum_steps).backward()
+        terms = {"loss": loss.detach() / accum_steps,
+                 **{k: v.detach() / accum_steps for k, v in parts.items()},
+                 **best_mask_metrics(outputs, mb["masks"])}
+        for k, v in terms.items():
+            out[k] = out[k] + v if k in out else v
+    optimizer.step(step)
+    return out
+
+
+@torch.no_grad()
+def eval_step(model, loss_module, batch, epoch: int, *,
+              compute_dtype: torch.dtype = torch.float32
+              ) -> Dict[str, torch.Tensor]:
+    """Forward with running-statistics BN, loss and confusion sums."""
+    batch = preprocess(batch)
+    outputs = model(batch["images"].to(compute_dtype), training=False)
+    outputs = {k: v.float() for k, v in outputs.items()}
+    loss, parts = loss_module(outputs, batch, epoch)
+    return {"loss": loss, **parts, **best_mask_metrics(outputs, batch["masks"])}

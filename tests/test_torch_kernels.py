@@ -1,7 +1,8 @@
 """s3od_torch kernels K1-K6: each plain PyTorch version against its JAX
 Pallas kernel in interpret mode (float32, CPU; K5 also in bf16), the
 wrappers' dispatch and shape gates, and — on a CUDA card only — each
-kernel against its plain version in bf16.
+kernel, K8 included, against its plain version in bf16 (K8's plain
+version against the JAX backward: tests/test_torch_training.py).
 
 Tolerances (float32): the same math in the same order up to the
 summation order of the products and reductions, so 1e-5 (2e-5 for the
@@ -468,3 +469,24 @@ def test_flash_attention_long_sequence_on_cuda(cuda, d):
     _close([o], [o_ref])
     assert float((lse - lse_ref).abs().max()) <= 1e-3
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64])
+def test_flash_attention_bwd_matches_plain_on_cuda(cuda, d):
+    """K8 against its plain version in bf16: n_valid < N, two query rows
+    with logits far beyond the +-40 window (finite, the clamp), and the
+    launch counted once per call."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    bh, n, n_valid = 4, 320, 300
+    q, k, v, g = ((torch.randn(bh, n, d, generator=gen, device=cuda) * s)
+                  .to(torch.bfloat16) for s in (0.5 * d**-0.5, 0.5, 1.0, 1.0))
+    q[0, :2] *= 500
+    g[:, n_valid:] = 0
+    o, lse = fa.flash_attention(q, k, v, n_valid)
+    before = fa.flash_attention_bwd.launches
+    got = fa.flash_attention_bwd(q, k, v, o, lse, g, n_valid)
+    assert fa.flash_attention_bwd.launches == before + 1
+    _close(got, fa.flash_attention_bwd_plain(q, k, v, o, lse, g, n_valid))
+    torch.cuda.synchronize()
+

@@ -132,8 +132,8 @@ def test_kernel_route_runs_the_fused_mlp(tiny, monkeypatch):
 
     cfg, _, _, model, x = tiny
     fused, plain = [], []
-    real = tdinov3.mlp_fused
-    monkeypatch.setattr(tdinov3, "mlp_fused",
+    real = tdinov3.mlp_fused_autograd
+    monkeypatch.setattr(tdinov3, "mlp_fused_autograd",
                         lambda *a: fused.append(1) or real(*a))
     for blk in model.encoder.layer:
         monkeypatch.setattr(blk.mlp, "forward",

@@ -1,6 +1,7 @@
-"""s3od_torch package boundaries: no jax and no triton on import or on a
-CPU forward, no import of the jax modules of s3od_tpu, CUDA required for
-device="cuda", and the kernel build inputs."""
+"""s3od_torch package boundaries: no jax, no triton and no module of the
+JAX package (s3od_tpu) on import or on a CPU forward, none named in the
+port's sources, CUDA required for device="cuda", and the kernel build
+inputs."""
 
 import os
 import re
@@ -25,18 +26,19 @@ def test_import_and_cpu_forward_leave_jax_and_triton_out():
         " device='cpu')\n"
         "r = p.remove_background(np.zeros((48, 80, 3), np.uint8))\n"
         "assert r.all_masks.shape == (3, 48, 80)\n"
-        "print('jax' in sys.modules, 'triton' in sys.modules)\n"
+        "print('jax' in sys.modules, 'triton' in sys.modules,\n"
+        "      any(m.split('.')[0] == 's3od_tpu' for m in sys.modules))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["False", "False"]
+    assert out.stdout.split() == ["False", "False", "False"]
 
 
 def test_new_modules_and_cpu_stream_leave_jax_and_triton_out():
     """The fused MLP, the evaluation modules and a CPU run of the stream
-    API, SODPredictor and InferenceServer import neither jax nor triton
-    (the reused `s3od_tpu` modules are jax-free)."""
+    API, SODPredictor and InferenceServer import neither jax, nor triton,
+    nor any module of s3od_tpu."""
     code = (
         "import sys\n"
         "import numpy as np\n"
@@ -56,18 +58,50 @@ def test_new_modules_and_cpu_stream_leave_jax_and_triton_out():
         "srv = InferenceServer(p, max_batch=2).start()\n"
         "assert srv.submit(ims[0]).all_masks.shape == (3, 48, 80)\n"
         "srv.stop()\n"
-        "print('jax' in sys.modules, 'triton' in sys.modules)\n"
+        "print('jax' in sys.modules, 'triton' in sys.modules,\n"
+        "      any(m.split('.')[0] == 's3od_tpu' for m in sys.modules))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["False", "False"]
+    assert out.stdout.split() == ["False", "False", "False"]
+
+
+def test_training_import_and_cpu_step_leave_jax_triton_and_s3od_tpu_out():
+    """`import s3od_torch.training.train` and one tiny float32 training
+    step on the CPU import neither jax, nor triton, nor any module of
+    s3od_tpu."""
+    code = (
+        "import sys\n"
+        "import torch\n"
+        "import s3od_torch.training.train\n"
+        "from s3od_torch.configs import tiny_test_config\n"
+        "from s3od_torch.models.segmentation import S3ODSegmentation, init_weights_\n"
+        "from s3od_torch.training.loss import LOSS_PRESETS, LossModule\n"
+        "from s3od_torch.training.optim import Optimizer\n"
+        "from s3od_torch.training.train_step import train_step\n"
+        "m = init_weights_(S3ODSegmentation(tiny_test_config()),"
+        " torch.Generator().manual_seed(0))\n"
+        "b = {'images': torch.zeros(2, 64, 64, 3, dtype=torch.uint8),"
+        " 'masks': torch.full((2, 64, 64), 255, dtype=torch.uint8)}\n"
+        "out = train_step(m, Optimizer(m, 1e-4, steps_per_epoch=1),"
+        " LossModule(LOSS_PRESETS['focal_iou']), b, 0, 0,"
+        " generator=torch.Generator().manual_seed(1))\n"
+        "assert torch.isfinite(out['loss'])\n"
+        "print('jax' in sys.modules, 'triton' in sys.modules,\n"
+        "      any(m.split('.')[0] == 's3od_tpu' for m in sys.modules))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["False", "False", "False"]
 
 
 def test_no_source_imports_jax_or_jax_modules():
-    pattern = re.compile(
-        r"^\s*(import|from) (jax|s3od_tpu\.(ops|models|predictor"
-        r"|evaluation\.predictor))\b", re.M)
+    """No source of the port, and not chip_smoke.py, imports jax or any
+    module of s3od_tpu, jax-free ones included: the port keeps its own
+    copies."""
+    pattern = re.compile(r"^\s*(import|from) (jax|s3od_tpu)\b", re.M)
     files = list(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     hits = [str(f) for f in files if pattern.search(f.read_text())]
     assert not hits
@@ -129,7 +163,8 @@ def test_kernel_build_hash_covers_every_source(tmp_path, monkeypatch):
 
     srcs = {p.name for p in _build._sources()}
     assert {"mma.cuh", "qkv_project.cu", "flash_attention.cu",
-            "attn_epilogue.cu", "mlp_fused.cu"} <= srcs
+            "flash_attention_bwd.cu", "attn_epilogue.cu",
+            "mlp_fused.cu"} <= srcs
     h0 = _build.source_hash()
     for src in _build._sources():
         (tmp_path / src.name).write_bytes(src.read_bytes())
@@ -140,7 +175,7 @@ def test_kernel_build_hash_covers_every_source(tmp_path, monkeypatch):
     assert "build/" in (REPO / ".gitignore").read_text().split()
     assert set(_build._SIGNATURES) == {
         "s3od_qkv_project_rope", "s3od_flash_attention_fwd",
-        "s3od_attn_epilogue", "s3od_mlp_fused"}
+        "s3od_flash_attention_bwd", "s3od_attn_epilogue", "s3od_mlp_fused"}
 
 
 FAKE_NVCC = """\
