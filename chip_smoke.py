@@ -47,7 +47,24 @@ all started together) and the Triton kernel, then:
      kernel) and checks that the loss falls over 8 steps on one batch;
   9. holds the bf16 kernel route's gradients against fp32 exact mode and
      against K8's plain version, and shows that a planted K8 fault
-     (dk x 1.01) fails the second check; then one 2048^2 train step.
+     (dk x 1.01) fails the second check; then one 2048^2 train step;
+ 10. checks K7, the online-softmax attention forward, against its plain
+     version at the MMDiT's shapes (24 heads of 128: 4608, 4160 with
+     n_valid 4098, 3840 tokens; and D = 64) and on adversarial logits
+     (+-600, row maxima rising along the keys), timed beside its bound and
+     SDPA;
+ 11. drives the synthetic-data factory at FLUX.1-dev width and depth with
+     seeded weights in bf16 (T5-XXL + CLIP-L -> 28 MMDiT steps with the
+     concept stream on the last 3 -> FLUX VAE -> ViT-L FluxDPT teacher
+     mask -> jpg + png): `ImageMaskGenerationPipeline.process_class` for
+     one class and 2 samples (both written, K7 launched exactly 1653 times
+     a sample), one direct timed `generate` at 1024^2 (device ms per plain
+     and concept step, a stage table, samples per minute, peak memory),
+     one `extract_features`, one `SODTeacherPredictor.predict`, the
+     full-depth step with K7 against K7's plain version end to end and
+     per attention call (a planted K7 fault, o x 1.01, must fail the
+     per-call check), and 2 dual + 4 single blocks at full width in bf16
+     against fp32 exact.
 
 Any failed check raises, so the run exits non-zero, as does a run that
 loaded jax or any module of s3od_tpu. Without a CUDA device, or outside
@@ -85,6 +102,9 @@ KERNELS = {
                                   "s3od_tpu/ops/flash_attention.py:105"),
     "K8_flash_attention_bwd": ("cuda", "s3od_torch/csrc/flash_attention_bwd.cu",
                                "s3od_tpu/ops/flash_attention.py:492"),
+    "K7_flash_attention_online": ("cuda",
+                                  "s3od_torch/csrc/flash_attention_online.cu",
+                                  "s3od_tpu/ops/flash_attention.py:37"),
 }
 # Published dense peaks of one H100 SXM at 700 W (bf16 tensor cores, fp32
 # outside them) and its HBM rate: the bound of a kernel is the larger of
@@ -130,6 +150,27 @@ def cuda_ms(fn, iters: int = 25) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def run_ms(fn, iters: int = 20) -> float:
+    """Device time of one call from CUDA events around a run of `iters`
+    back-to-back calls, after warm-up: for a kernel of a millisecond the
+    host enqueues far ahead and the launch cost hides. (The profiler once
+    reported half of every K7 time late in a long run, against this
+    method and the profiler's own per-step breakdown.)"""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def device_ms(fn, iters: int = 20) -> float:
@@ -516,6 +557,502 @@ def k8_phase(results, randn, n, n_valid, n2, n2_valid):
             log(f"  K8 at batch 1: {results[name]['ms_b1']:.4f} ms")
         del q, k, v, o, lse, g, q_hot, o_hot, q_cold, o_cold, grads
         torch.cuda.empty_cache()
+
+
+K7 = "K7_flash_attention_online"
+
+
+def k7_inputs(randn, bh, n, d, kind="normal"):
+    """q (pre-scaled, as the MMDiT's attention hands it over), k, v.
+    "adversarial": every query row is a_i u and every key c_j u for one
+    unit vector u, with c_j rising from -400 to 400 along the keys, so the
+    logits a_i c_j reach +-600 and each row's maximum grows tile by tile:
+    a static-bound kernel (clip at +-40) is wrong there, and one that
+    skipped the rescale would overflow."""
+    import torch
+
+    if kind == "normal":
+        return (randn(bh, n, d, scale=d**-0.5), randn(bh, n, d),
+                randn(bh, n, d))
+    u = torch.nn.functional.normalize(randn(d).float(), dim=0)
+    a = torch.linspace(0.5, 1.5, n, device=u.device)
+    c = torch.linspace(-400.0, 400.0, n, device=u.device)
+    q = (a[None, :, None] * u).expand(bh, n, d)
+    k = (c[None, :, None] * u).expand(bh, n, d)
+    k = k + 0.05 * randn(bh, n, d).float()
+    return (q.to(torch.bfloat16).contiguous(), k.to(torch.bfloat16),
+            randn(bh, n, d))
+
+
+def k7_phase(results):
+    """K7 against its plain version at the MMDiT's shapes (24 heads of
+    D = 128): the 1024^2 joint sequence (512 + 4096 = 4608 tokens), the
+    concept stream (2 + 4096 = 4098 tokens padded to 4160), the 832 x 1024
+    bucket (512 + 3328 = 3840), a D = 64 shape (ViT-L at 1024^2: 16 heads,
+    4101 tokens) and the adversarial set; at each shape the kernel's
+    device time beside its bound and SDPA's (scale 1 on the pre-scaled q,
+    the key mask where n_valid < N)."""
+    import torch
+    import torch.nn.functional as F
+
+    from s3od_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(
+            torch.bfloat16)
+
+    r = results.setdefault(K7, {"max_abs_err": 0.0})
+    r["shapes"] = {}
+    for bh, n, nv, d in ((24, 4608, 4608, 128), (24, 4160, 4098, 128),
+                         (24, 3840, 3840, 128), (16, 4160, 4101, 64)):
+        log(f"phase K7 flash_attention_online ({bh} x {n} x {d}, n_valid {nv})")
+        q, k, v = k7_inputs(randn, bh, n, d)
+        compare(K7, fa.flash_attention_online(q, k, v, nv),
+                fa.flash_attention_online_plain(q, k, v, nv), results, lse=1)
+        qa, ka, va = k7_inputs(randn, bh, n, d, "adversarial")
+        smax = float(torch.matmul(qa[:1, -64:].float(),
+                                  ka[0, :nv].float().T).amax())
+        log(f"  adversarial: logits up to {smax:.1f}, row maxima rising "
+            f"along the keys")
+        compare(K7, fa.flash_attention_online(qa, ka, va, nv),
+                fa.flash_attention_online_plain(qa, ka, va, nv), results,
+                lse=1)
+        del qa, ka, va
+        (qs, ks, vs), mask = sdpa_inputs(q, k, v, nv)
+        sdpa_mask = mask if nv < n else None
+        kern = lambda: fa.flash_attention_online(q, k, v, nv)
+        sdpa = lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=sdpa_mask, scale=1.0)
+        ms, lib = run_ms(kern), run_ms(sdpa)
+        prof = device_ms(kern, 10)
+        bound = 4.0 * bh * n * n * d / PEAK_BF16 * 1e3
+        r["shapes"][f"{bh}x{n}x{d}/{nv}"] = {"ms": ms, "library_ms": lib,
+                                             "bound_ms": bound,
+                                             "profiler_ms": prof}
+        log(f"  K7 {ms:.4f} ms (profiler {prof:.4f}), bound {bound:.4f} ms "
+            f"(4 BH N^2 D at 989 TFLOP/s, {100 * bound / ms:.1f}%), SDPA "
+            f"{lib:.4f} ms")
+        if n == 4608:
+            plain = lambda: fa.flash_attention_online_plain(q, k, v, nv)
+            r.update(ms=ms, plain_ms=run_ms(plain, 5), library_ms=lib,
+                     profiler_ms=prof, event_ms=cuda_ms(kern),
+                     plain_event_ms=cuda_ms(plain, 5))
+            set_bound(results, K7, 4.0 * bh * n * n * d,
+                      4 * 2 * bh * n * d + 4 * bh * n)
+        del q, k, v, qs, ks, vs
+        torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------------------
+# The synthetic-data factory (FLUX.1-dev MMDiT, T5-XXL, CLIP-L, FLUX VAE,
+# the ViT-L FluxDPT teacher), seeded weights, bf16
+# ----------------------------------------------------------------------------
+
+FACTORY_CLASS = "tabby cat"
+# Bounds of the accuracy checks (d): 1.5x the values measured on the H100
+# (PERF.md, section 2): the full-depth step with K7 against the same step
+# with K7's plain version, end to end and per attention call, and the
+# 2 dual + 4 single block model's bf16 kernel route against fp32 exact.
+# ||a - b|| / ||b|| per output; the inputs and kernels are deterministic.
+K7_STEP_TOL = {"velocity": 2.6e-2, "taps": 2.5e-2, "maps": 2.6e-2}
+K7_CALL_TOL = {"o": 2.9e-3}
+BF16_STEP_TOL = {"velocity": 1.45e-2, "taps": 1.4e-2, "maps": 9.6e-3}
+
+
+def rel_norm(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def step_errors(got, ref):
+    """Relative errors of one MMDiT step's outputs: the velocity, the worst
+    feature tap and the concept maps."""
+    return {"velocity": rel_norm(got["output"], ref["output"]),
+            "taps": max(rel_norm(g, r) for g, r in
+                        zip(got["features"], ref["features"])),
+            "maps": rel_norm(got["concept_maps"], ref["concept_maps"])}
+
+
+def within(what, errs, tol) -> bool:
+    ok = all(errs[k] <= tol[k] for k in tol)
+    log(f"  {what}: " + ", ".join(f"{k} {errs[k]:.3e} (<= {tol[k]:.1e})"
+                                   for k in tol) + f" -> {'ok' if ok else 'OUT'}")
+    return ok
+
+
+def factory_models():
+    """The configuration `MMDiTConfig` defaults to (FLUX.1-dev: hidden
+    3072, 24 heads of 128, 19 dual + 38 single blocks) in bf16, T5-XXL and
+    CLIP-L in bf16, the FLUX VAE and the ViT-L teacher of
+    `training/config/model/flux_teacher.yaml`, all from seeds, made on the
+    card (the teacher on the host, then moved)."""
+    import torch
+
+    from s3od_torch.configs import segmentation_config
+    from s3od_torch.datagen.diffusion import ConceptAttentionPipeline
+    from s3od_torch.datagen.mask_generator import MaskGenerator
+    from s3od_torch.datagen.text_encoding import TorchTextEncoders
+    from s3od_torch.models.flux_teacher import FluxTeacherConfig, init_flux_teacher
+    from s3od_torch.models.mmdit import MMDiTConfig, init_mmdit
+    from s3od_torch.models.vae import VAE, VAEConfig, init_vae
+
+    dev = torch.device("cuda")
+    gen = lambda s: torch.Generator(device=dev).manual_seed(s)
+    t0 = time.perf_counter()
+    mmdit = init_mmdit(MMDiTConfig(), gen(11), dtype=torch.bfloat16)
+    text = TorchTextEncoders.random_init(12)
+    vcfg = VAEConfig()
+    vae = VAE(*init_vae(vcfg, gen(13)), vcfg)
+    pipe = ConceptAttentionPipeline(mmdit, text_encoders=text, vae=vae)
+    tcfg = FluxTeacherConfig(base=segmentation_config("dinov3_large"))
+    teacher = MaskGenerator(model=init_flux_teacher(
+        tcfg, torch.Generator().manual_seed(14)))
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in mmdit.parameters())
+    n_t5 = sum(p.numel() for p in text.t5.parameters())
+    log(f"  models made in {time.perf_counter() - t0:.1f} s: MMDiT {n / 1e9:.3f}B "
+        f"params bf16, T5 {n_t5 / 1e9:.3f}B bf16; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    return pipe, teacher
+
+
+class StageClock:
+    """Wraps the factory's stages with host clocks around synchronised work
+    and each MMDiT step with CUDA events and the K7 launches it made."""
+
+    def __init__(self, pipe, teacher):
+        import torch
+
+        from s3od_torch.ops import flash_attention as fa
+
+        self.sec = {"text encode": 0.0, "denoise": 0.0, "VAE decode": 0.0,
+                    "teacher": 0.0}
+        self.calls = {}  # stage -> seconds of each call
+        self.steps = []  # (start event, end event, with concepts, K7 launches)
+        for obj, name, stage in ((pipe.text_encoders, "encode", "text encode"),
+                                 (pipe.text_encoders, "encode_concepts",
+                                  "text encode"),
+                                 (pipe.vae, "decode", "VAE decode"),
+                                 (teacher, "generate_mask", "teacher")):
+            setattr(obj, name, self._timed(getattr(obj, name), stage))
+        real_step = pipe._step
+
+        def step(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            before = fa.flash_attention_online.launches
+            start.record()
+            out = self._timed(real_step, "denoise")(*args)
+            end.record()
+            self.steps.append((start, end, args[-2] is not None,
+                               fa.flash_attention_online.launches - before))
+            return out
+
+        pipe._step = step
+
+    def _timed(self, fn, stage):
+        import torch
+
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            self.sec[stage] += dt
+            self.calls.setdefault(stage, []).append(dt)
+            return out
+        return run
+
+    def reset(self):
+        self.sec = dict.fromkeys(self.sec, 0.0)
+        self.calls, self.steps = {}, []
+
+    def step_ms(self):
+        """Median device ms of the plain and the concept steps, and the K7
+        launches each kind made."""
+        plain = [s.elapsed_time(e) for s, e, c, _ in self.steps if not c]
+        conc = [s.elapsed_time(e) for s, e, c, _ in self.steps if c]
+        launches = {(c, n) for _, _, c, n in self.steps}
+        return (statistics.median(plain) if plain else None,
+                statistics.median(conc) if conc else None, launches)
+
+
+def factory_phase(results):
+    """(b) the seeded full-size factory through the orchestrator and one
+    direct timed `generate` at 1024^2; (c) one `extract_features`; (d) the
+    accuracy checks. K7 ran in (a), `k7_phase`."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from s3od_torch.datagen import generate_train_images as gti
+    from s3od_torch.ops import flash_attention as fa
+
+    r = results["_factory"] = {}
+    log("phase factory: FLUX.1-dev MMDiT (19 dual + 38 single blocks, 24 x "
+        "128 heads) + T5-XXL + CLIP-L + FLUX VAE + ViT-L FluxDPT teacher, "
+        "seeded weights, bf16, 28 steps (concepts on the last 3)")
+    pipe, teacher = factory_models()
+    cfg = pipe.cfg
+    per_step = cfg.num_dual_blocks + cfg.num_single_blocks
+    per_concept_step = per_step + cfg.num_dual_blocks
+    per_sample = ((pipe.num_inference_steps - 3) * per_step
+                  + 3 * per_concept_step)
+    clock = StageClock(pipe, teacher)
+
+    # (b) the orchestrator: one class, 2 samples, jpg + png on disk
+    out_dir = REPO / "build" / "chip_smoke_factory"
+    subprocess.run(["rm", "-rf", str(out_dir)], check=True)
+    gcfg = gti.GenerationConfig(output_dir=str(out_dir / "out"),
+                                prompts_dir=str(out_dir / "prompts"),
+                                prompts_per_class=2)
+    orch = gti.ImageMaskGenerationPipeline(gcfg, pipe, teacher)
+    blocks_t = teacher.cfg.base.num_encoder_layers_used
+    reset_counts()
+    fa.flash_attention_online.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    done = orch.process_class(FACTORY_CLASS, 2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k7 = fa.flash_attention_online.launches
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  process_class: {done} of 2 samples in {wall:.2f} s "
+        f"({120.0 / wall:.3f} samples/min), peak {peak:.2f} GiB; K7 launches "
+        f"{k7} (want {2 * per_sample}), teacher kernels {counts}")
+    check(done == 2, f"the orchestrator wrote {done} of 2 samples")
+    for i in range(2):
+        stem = f"{FACTORY_CLASS.replace(' ', '_')}_{i:04d}"
+        img = out_dir / "out" / "images" / f"{stem}.jpg"
+        msk = out_dir / "out" / "masks" / f"{stem}.png"
+        check(img.exists() and msk.exists(), f"sample {i}: files missing")
+        hw_i, hw_m = Image.open(img).size, Image.open(msk).size
+        log(f"  sample {i}: image {hw_i}, mask {hw_m} (W x H)")
+        check(hw_i == hw_m, f"sample {i}: image {hw_i} vs mask {hw_m}")
+    check(k7 == 2 * per_sample, f"K7 launched {k7}, want {2 * per_sample}")
+    for name, cnt in counts.items():
+        check(cnt == 2 * blocks_t, f"teacher: {name} launched {cnt}, "
+              f"want {2 * blocks_t}")
+    results[K7]["launches"] = k7 // 2
+    stage_s = dict(clock.sec)
+    stage_s["save + host rest"] = wall - sum(stage_s.values())
+    r.update(samples=done, process_class_s=wall, samples_per_min=120.0 / wall,
+             peak_gib=peak, k7_launches_2_samples=k7, stages_s=stage_s,
+             teacher_launches=counts)
+    log("  stages (s, both samples): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in stage_s.items()))
+    log("  per call (s; the first includes one-time set-up): " + ", ".join(
+        f"{k} {[round(x, 3) for x in v]}" for k, v in clock.calls.items()
+        if k != "denoise"))
+    r["stage_calls_s"] = {k: v for k, v in clock.calls.items()
+                          if k != "denoise"}
+    del orch
+    subprocess.run(["rm", "-rf", str(out_dir)], check=True)
+
+    # one direct generate at 1024^2, outside any catch
+    clock.reset()
+    fa.flash_attention_online.launches = 0
+    t0 = time.perf_counter()
+    image, feats, cmaps = pipe.generate("a photograph of a tabby cat",
+                                        FACTORY_CLASS, 1024, 1024, 7)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    plain_ms, conc_ms, kinds = clock.step_ms()
+    k7 = fa.flash_attention_online.launches
+    log(f"  generate 1024^2: {gen_s:.2f} s; step device ms: plain "
+        f"{plain_ms:.2f}, concept {conc_ms:.2f}; K7 per step "
+        f"{sorted(kinds)}, per sample {k7} (want {per_sample})")
+    check(k7 == per_sample, f"K7 launched {k7} per sample, want {per_sample}")
+    check(kinds == {(False, per_step), (True, per_concept_step)},
+          f"K7 launches per step {kinds}")
+    check(image.shape == (1024, 1024, 3) and image.dtype == np.uint8,
+          "generate: image shape")
+    check(len(feats) == 4 and all(f.shape == (4096, 768) and
+                                  np.isfinite(f).all() for f in feats),
+          "generate: 4 finite (4096, 768) feature taps")
+    for k in ("category", "background"):
+        m = cmaps[k]
+        check(m.shape == (64, 64) and np.isfinite(m).all()
+              and m.min() >= 0.0 and m.max() <= 1.0 + 1e-6,
+              f"generate: concept map {k} in [0, 1]")
+    r.update(generate_1024_s=gen_s, step_ms_plain=plain_ms,
+             step_ms_concept=conc_ms, k7_per_sample=k7,
+             generate_stages_s=dict(clock.sec))
+    log("  stages of the direct generate (s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in clock.sec.items()))
+    profile_step(pipe, r)
+
+    # (c) one extract_features at 1024^2: VAE encode + one concept step
+    lat = pipe.vae.encode(image)
+    fa.flash_attention_online.launches = 0
+    ext = pipe.extract_features(lat, "a photograph of a tabby cat",
+                                [FACTORY_CLASS, "background"], 1024, 1024)
+    torch.cuda.synchronize()
+    k7 = fa.flash_attention_online.launches
+    maps = np.stack(list(ext.concept_maps.values()))
+    log(f"  extract_features: latents {lat.shape}, K7 launches {k7} "
+        f"(want {per_concept_step}), maps in [{maps.min():.3f}, {maps.max():.3f}]")
+    check(k7 == per_concept_step, f"extract_features: K7 launched {k7}")
+    check(all(np.isfinite(f).all() for f in ext.features), "extract: features")
+    check(np.isfinite(maps).all() and maps.min() >= 0 and maps.max() <= 1 + 1e-6,
+          "extract: maps in [0, 1]")
+    r["extract_k7_launches"] = k7
+
+    # the teacher predictor on the fixture photo (bucket-resized), the
+    # same parts
+    from s3od_torch.evaluation.teacher_predictor import SODTeacherPredictor
+
+    photo = np.array(Image.open(IMAGE).convert("RGB"))
+    tpred = SODTeacherPredictor(None, mask_generator=teacher, pipeline=pipe,
+                                vae=pipe.vae)
+    fa.flash_attention_online.launches = 0
+    t0 = time.perf_counter()
+    res = tpred.predict(photo, "a photograph", "object")
+    torch.cuda.synchronize()
+    k7 = fa.flash_attention_online.launches
+    log(f"  SODTeacherPredictor.predict on {photo.shape[:2]}: "
+        f"{time.perf_counter() - t0:.2f} s, K7 launches {k7}, ious "
+        f"{np.round(res.all_ious, 4)}")
+    check(res.soft_mask.shape == photo.shape[:2]
+          and np.isfinite(res.soft_mask).all() and k7 == per_concept_step,
+          "teacher predictor: mask shape, finite, one concept step")
+    del teacher, tpred
+    torch.cuda.empty_cache()
+    accuracy_phase(pipe, r)
+
+
+def profile_step(pipe, r):
+    """Where a concept step's device time goes, by kernel (profiler)."""
+    import torch
+
+    inp = step_inputs(pipe, 1024, 1024)
+    with torch.inference_mode():
+        rows = kernel_breakdown(lambda: pipe.model(**inp), iters=2)
+    busy = sum(ms for _, ms, _ in rows)
+    log(f"  concept step by kernel (device ms per step, busy {busy:.2f}):")
+    for key, ms, count in rows[:10]:
+        log(f"    {ms:8.3f} ms x{count:4d}  {key[:100]}")
+    r["concept_step_busy_ms"] = busy
+    r["concept_step_top"] = [(k[:60], ms, c) for k, ms, c in rows[:10]]
+
+
+def step_inputs(pipe, height, width, seed=3):
+    """One concept step's inputs at the given canvas: T5/CLIP of a real
+    prompt and concepts, seeded latents, the schedule's step 25 of 28."""
+    import torch
+
+    from s3od_torch.datagen.diffusion import (calculate_shift, make_img_ids,
+                                              shifted_sigmas)
+
+    ph, pw = height // 16, width // 16
+    dev = pipe.device
+    t5, pooled = pipe.text_encoders.encode(["a photograph of a tabby cat"])
+    cemb, cpool = pipe.text_encoders.encode_concepts([FACTORY_CLASS,
+                                                      "background"])
+    g = torch.Generator(device=dev).manual_seed(seed)
+    sig = shifted_sigmas(28, calculate_shift(ph * pw))[25]
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return dict(latents=torch.randn(1, ph * pw, pipe.cfg.in_channels,
+                                    generator=g, device=dev),
+                txt=t(t5), pooled=t(pooled),
+                timestep=torch.full((1,), float(sig), device=dev),
+                img_ids=t(make_img_ids(ph, pw)),
+                txt_ids=torch.zeros(t5.shape[1], 3, device=dev),
+                guidance=torch.full((1,), 3.5, device=dev),
+                concepts=t(cemb), pooled_concepts=t(cpool),
+                concept_layers=pipe.concept_layers,
+                compute_dtype=torch.bfloat16)
+
+
+def accuracy_phase(pipe, r):
+    """(d) The full-depth bf16 step with K7 against the same step with
+    K7's plain version, and with a planted fault (K7's o x 1.01), which
+    must fail the bound; then full width at 2 dual + 4 single blocks, the
+    bf16 kernel route against fp32 exact (TF32 off), one concept step."""
+    import dataclasses
+
+    import torch
+
+    from s3od_torch.models.mmdit import MMDiT
+    from s3od_torch.ops import attention as xa
+    from s3od_torch.ops import flash_attention as fa
+    from s3od_torch.ops.precision import set_exact_float32
+
+    inp = step_inputs(pipe, 1024, 1024)
+    real = xa.flash_attention_online
+
+    def run(kernel):
+        xa.flash_attention_online = kernel
+        try:
+            with torch.inference_mode():
+                return pipe.model(**inp)
+        finally:
+            xa.flash_attention_online = real
+
+    def faulty(q, k, v, n_valid):
+        o, lse = real(q, k, v, n_valid)
+        return o * 1.01, lse
+
+    def shadowed(kernel, worst):
+        """`kernel`, and beside each of its calls K7's plain version on
+        the same q, k, v: the worst per-call error of o."""
+        def call(q, k, v, n_valid):
+            o, lse = kernel(q, k, v, n_valid)
+            o_ref, _ = fa.flash_attention_online_plain(q, k, v, n_valid)
+            worst["o"] = max(worst.get("o", 0.0), rel_norm(o, o_ref))
+            return o, lse
+        return call
+
+    ref = run(fa.flash_attention_online_plain)
+    got = run(real)
+    bad = run(faulty)
+    e_k7, e_bad = step_errors(got, ref), step_errors(bad, ref)
+    ok = within("full-depth step, K7 vs its plain version", e_k7, K7_STEP_TOL)
+    within("full-depth step, planted K7 fault (o x 1.01) vs plain", e_bad,
+           K7_STEP_TOL)
+    del ref, got, bad
+    # The same step, each of its 76 attentions held against K7's plain
+    # version on that call's inputs: the end-to-end errors above amplify
+    # bf16 rounding over 57 blocks of seeded weights, this does not.
+    call_k7, call_bad = {}, {}
+    run(shadowed(real, call_k7))
+    run(shadowed(faulty, call_bad))
+    ok_call = within("per call of the full-depth step, K7 vs plain", call_k7,
+                     K7_CALL_TOL)
+    caught = not within("per call, planted K7 fault (o x 1.01) vs plain",
+                        call_bad, K7_CALL_TOL)
+    r.update(k7_vs_plain=e_k7, planted_fault=e_bad, per_call_k7=call_k7,
+             per_call_fault=call_bad, planted_caught=caught)
+    check(ok, "full-depth step: K7 against its plain version out of bound")
+    check(ok_call, "per call: K7 against its plain version out of bound")
+    check(caught, "the planted K7 fault (o x 1.01) went unnoticed")
+
+    # full width, 2 dual + 4 single blocks: bf16 kernels vs fp32 exact
+    cut = dataclasses.replace(pipe.cfg, num_dual_blocks=2, num_single_blocks=4,
+                              feature_taps=(0, 1, 2, 3))
+    m32 = MMDiT(cut, device="meta", dtype=torch.float32).to_empty(device="cuda")
+    src = pipe.model.state_dict()
+    with torch.no_grad():
+        for name, p in m32.state_dict().items():
+            p.copy_(src[name].float())
+    m16 = MMDiT(cut, device="cuda", dtype=torch.bfloat16)
+    m16.load_state_dict(m32.state_dict())
+    inp_cut = dict(inp, concept_layers=None)
+    set_exact_float32()
+    with torch.inference_mode():
+        got = m16(**inp_cut)
+        ref = m32(**dict(inp_cut, compute_dtype=torch.float32))
+    e16 = step_errors(got, ref)
+    r["bf16_vs_fp32_cut"] = e16
+    check(within("2 dual + 4 single blocks, bf16 kernel route vs fp32 exact",
+                 e16, BF16_STEP_TOL), "bf16 vs fp32 out of bound")
+    del m16, m32
+    torch.cuda.empty_cache()
 
 
 def wrappers():
@@ -1376,6 +1913,9 @@ def main() -> int:
     train_step_phase(results)
     grad_agreement_phase(results)
     highres_train_phase(results)
+    torch.cuda.empty_cache()
+    k7_phase(results)
+    factory_phase(results)
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "s3od_tpu"))
     log(f"modules of jax or s3od_tpu loaded: {loaded}")
@@ -1394,6 +1934,7 @@ def main() -> int:
                     "highres": results["_highres"],
                     "serving": results["_serving"],
                     "train": results["_train"],
+                    "factory": results["_factory"],
                     "kernel_extra": {k: {x: y for x, y in v.items()
                                          if x not in ("launches",)}
                                      for k, v in results.items()

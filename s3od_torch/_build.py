@@ -1,4 +1,4 @@
-"""Builds and loads the port's CUDA kernels (K2-K6, K8).
+"""Builds and loads the port's CUDA kernels (K2-K8).
 
 Each `csrc/*.cu` file compiles with its own `nvcc` process, all started
 together, and the objects link into ONE shared library with a plain C
@@ -52,6 +52,8 @@ _SIGNATURES = {
     "s3od_qkv_project_rope": [_P] * 8 + [_I] * 5 + [_F, _P],
     # q, k, v, o, lse, bh, n, head_dim, n_valid, stream
     "s3od_flash_attention_fwd": [_P] * 5 + [_I] * 4 + [_P],
+    # q, k, v, o, lse, bh, n, head_dim, n_valid, stream
+    "s3od_flash_attention_online_fwd": [_P] * 5 + [_I] * 4 + [_P],
     # q, k, v, g, lse, delta, dq, dk, dv, bh, n, head_dim, n_valid, stream
     "s3od_flash_attention_bwd": [_P] * 9 + [_I] * 4 + [_P],
     # a, wo, bo, x, ls, lw, lb, xn, h, batch, n, c, heads, head_dim, eps, stream

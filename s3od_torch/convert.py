@@ -22,6 +22,7 @@ read (`load_native_segmentation` infers the configuration).
 
 from __future__ import annotations
 
+import dataclasses
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
@@ -475,3 +476,205 @@ def load_checkpoint(path) -> Tuple[Dict[str, torch.Tensor], SegmentationConfig]:
         sd = {k[len("model."):]: v for k, v in sd.items()
               if k.startswith("model.")}
     return sd, config_from_state_dict(sd)
+
+
+# ----------------------------------------------------------------------------
+# Factory models: MMDiT, T5, CLIP, VAE trees and the teacher's fusion
+# ----------------------------------------------------------------------------
+#
+# The factory modules name their parameters after the JAX pytree paths, so
+# one rule carries every tree across: the path joined by '.', `kernel`
+# becoming `weight` — (din, dout) -> (dout, din) for a linear, HWIO -> OIHW
+# for a conv. Configurations may ride beside the weights in the `.npz`'s
+# state, as {"config": {field: value}}.
+
+_QUEUE_INT8 = ("int8 weight residency (`kernel_q` trees, s3od_tpu/ops/"
+               "quant.py) is not ported: ROADMAP Queue 1, item 10")
+
+
+def tree_to_state_dict(tree) -> Dict[str, torch.Tensor]:
+    """A JAX param tree (numpy leaves) -> a state dict of float32 tensors."""
+    sd = {}
+    for key, arr in _flatten(tree).items():
+        if key.endswith("#none"):
+            continue
+        parts = key.split("/")
+        if parts[-1] in ("kernel_q", "kernel_scale"):
+            raise NotImplementedError(_QUEUE_INT8)
+        arr = np.array(arr, dtype=np.float32)  # a writable copy
+        if parts[-1] == "kernel":
+            parts[-1] = "weight"
+            arr = arr.T if arr.ndim == 2 else arr.transpose(3, 2, 0, 1)
+        sd[".".join(parts)] = torch.from_numpy(np.ascontiguousarray(arr))
+    return sd
+
+
+def state_dict_to_tree(sd: Dict[str, torch.Tensor]):
+    """Inverse of `tree_to_state_dict`: numpy float32 leaves."""
+    flat = {}
+    for name, t in sd.items():
+        arr = t.detach().float().cpu().numpy()
+        parts = name.split(".")
+        if parts[-1] == "weight" and arr.ndim >= 2:
+            parts[-1] = "kernel"
+            arr = arr.T if arr.ndim == 2 else arr.transpose(2, 3, 1, 0)
+        flat["/".join(parts)] = np.ascontiguousarray(arr)
+    return _unflatten(flat)
+
+
+def load_tree_(module: torch.nn.Module, tree) -> torch.nn.Module:
+    """Copy a JAX tree into `module` (strict: every name must match)."""
+    module.load_state_dict(tree_to_state_dict(tree), strict=True)
+    return module
+
+
+def config_to_meta(cfg) -> dict:
+    return {f.name: np.asarray(getattr(cfg, f.name))
+            for f in dataclasses.fields(cfg)}
+
+
+def config_from_meta(meta: Optional[dict], default):
+    """The dataclass stored as `meta['config']`, or `default` if absent."""
+    if not meta or "config" not in meta:
+        return default
+    vals = {}
+    for f in dataclasses.fields(default):
+        ref, arr = getattr(default, f.name), np.asarray(meta["config"][f.name])
+        if isinstance(ref, tuple):
+            vals[f.name] = tuple(int(x) for x in arr.ravel())
+        else:
+            vals[f.name] = type(ref)(arr.item())
+    return dataclasses.replace(default, **vals)
+
+
+def save_factory_npz(path: str, module: torch.nn.Module, cfg) -> None:
+    """A factory module's weights and configuration, in the format
+    `load_native` reads (and the JAX package's loaders take)."""
+    save_native(path, state_dict_to_tree(module.state_dict()),
+                {"config": config_to_meta(cfg)})
+
+
+def load_mmdit(path: str, cfg=None, device=None, dtype=torch.float32):
+    """MMDiT from a converted `.npz` (the JAX `init_mmdit_params` /
+    `convert_flux.py` tree), made in `dtype` on `device`."""
+    from s3od_torch.models.mmdit import MMDiT, MMDiTConfig
+
+    tree, meta = load_native(path)
+    cfg = cfg or config_from_meta(meta, MMDiTConfig())
+    model = MMDiT(cfg, device="meta", dtype=dtype).to_empty(
+        device=device or "cpu")
+    return load_tree_(model, tree).eval()
+
+
+def load_t5(path: str, cfg=None):
+    from s3od_torch.models.text_encoders import T5Config, T5Encoder
+
+    tree, meta = load_native(path)
+    cfg = cfg or config_from_meta(meta, T5Config())
+    return load_tree_(T5Encoder(cfg), tree).eval()
+
+
+def load_clip_text(path: str, cfg=None):
+    from s3od_torch.models.text_encoders import CLIPTextConfig, CLIPTextEncoder
+
+    tree, meta = load_native(path)
+    cfg = cfg or config_from_meta(meta, CLIPTextConfig())
+    return load_tree_(CLIPTextEncoder(cfg), tree).eval()
+
+
+def load_vae_modules(path: str, cfg=None):
+    """{'enc', 'dec'} trees -> (encoder, decoder, config)."""
+    from s3od_torch.models.vae import VAEConfig, VAEDecoder, VAEEncoder
+
+    tree, meta = load_native(path)
+    cfg = cfg or config_from_meta(meta, VAEConfig())
+    return (load_tree_(VAEEncoder(cfg), tree["enc"]).eval(),
+            load_tree_(VAEDecoder(cfg), tree["dec"]).eval(), cfg)
+
+
+def _fusion_part_sd(prefix: str, p: dict, s: Optional[dict], sd: Dict) -> None:
+    """One fusion level's params/state subtree -> state-dict entries: convs
+    by the shared rule, BatchNorms from params (weight, bias) and state
+    (mean, var)."""
+    for name, sub in p.items():
+        key = f"{prefix}.{name}"
+        if "kernel" in sub:  # a conv
+            for k, v in tree_to_state_dict(sub).items():
+                sd[f"{key}.{k}"] = v
+        elif "weight" in sub:  # a BatchNorm
+            st = s[name]
+            for k, arr in (("weight", sub["weight"]), ("bias", sub["bias"]),
+                           ("running_mean", st["mean"]),
+                           ("running_var", st["var"])):
+                sd[f"{key}.{k}"] = torch.from_numpy(
+                    np.asarray(arr, dtype=np.float32).copy())
+            sd[f"{key}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+        else:
+            _fusion_part_sd(key, sub, s.get(name) if s else None, sd)
+
+
+def teacher_config(params: dict, base: SegmentationConfig):
+    """FluxTeacherConfig read off the fusion params' shapes."""
+    from s3od_torch.models.flux_teacher import FluxTeacherConfig
+
+    f0 = params["head"]["fusion"][0]
+    kw = {"use_dino_features": "vit" in f0, "use_flux_features": "flux" in f0,
+          "use_concept_maps": "concept" in f0}
+    if "flux" in f0:
+        kw["flux_dim"] = int(np.asarray(f0["flux"]["conv"]["kernel"]).shape[2])
+    if "concept" in f0:
+        kw["num_concept_channels"] = int(
+            np.asarray(f0["concept"]["conv"]["kernel"]).shape[2])
+    return FluxTeacherConfig(base=base, **kw)
+
+
+def teacher_state_dict_from_jax(params: dict, state: dict) -> Dict[str, torch.Tensor]:
+    """The JAX teacher's (params, BN state) -> the port's `FluxTeacher`
+    state dict: the base model's names plus `fusion.{level}.*`."""
+    sd = state_dict_from_jax(params, state)
+    for i, (p, s) in enumerate(zip(params["head"]["fusion"], state["fusion"])):
+        _fusion_part_sd(f"fusion.{i}", p, s, sd)
+    return sd
+
+
+def load_teacher(path: str):
+    """A FLUX-teacher checkpoint (`.npz`, the JAX `save_native` format of
+    `init_flux_teacher_params` / teacher training) -> FluxTeacher (eval,
+    float32 weights)."""
+    from s3od_torch.models.flux_teacher import FluxTeacher
+
+    params, state, base = load_native_segmentation(path)
+    model = FluxTeacher(teacher_config(params, base))
+    model.load_state_dict(teacher_state_dict_from_jax(params, state), strict=True)
+    return model.eval()
+
+
+def teacher_tree_from_state_dict(sd: Dict[str, torch.Tensor]):
+    """Inverse of `teacher_state_dict_from_jax` -> (params, state), for
+    `save_native`."""
+    base = {k: v for k, v in sd.items() if not k.startswith("fusion.")}
+    params, state, _ = convert_state_dict(base)
+    fus_p: Dict[int, dict] = {}
+    fus_s: Dict[int, dict] = {}
+    for name, t in sd.items():
+        if not name.startswith("fusion."):
+            continue
+        parts = name.split(".")
+        level, path, leaf = int(parts[1]), parts[2:-1], parts[-1]
+        arr = t.detach().float().cpu().numpy()
+        if leaf == "num_batches_tracked":
+            continue
+        if leaf in ("running_mean", "running_var"):
+            node = fus_s.setdefault(level, {})
+            leaf = "mean" if leaf == "running_mean" else "var"
+        else:
+            node = fus_p.setdefault(level, {})
+            if leaf == "weight" and arr.ndim == 4:
+                leaf, arr = "kernel", arr.transpose(2, 3, 1, 0)
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    params["head"]["fusion"] = [fus_p[i] for i in sorted(fus_p)]
+    state = dict(state or {})
+    state["fusion"] = [fus_s[i] for i in sorted(fus_s)]
+    return params, state

@@ -175,6 +175,12 @@ class DPTHead(nn.Module):
                 training: bool = False):
         """`training` normalizes with batch statistics and updates the
         BatchNorms' running statistics."""
+        return self.decode(self.neck(taps, patch_hw), patch_hw, patch_size,
+                           training)
+
+    def neck(self, taps: List[torch.Tensor], patch_hw) -> List[torch.Tensor]:
+        """Project and resize each tap to its pyramid level (strides 4, 8,
+        16, 32), then the 3x3 scratch convs."""
         ph, pw = patch_hw
         feats = []
         for proj, resize, t in zip(self.projects, self.resize_layers, taps):
@@ -182,8 +188,14 @@ class DPTHead(nn.Module):
             x = t.transpose(1, 2).reshape(b, c, ph, pw)
             feats.append(_conv(resize, _conv(proj, x)))
         s = self.scratch
-        rn = [_conv(getattr(s, f"layer{i + 1}_rn"), f)
-              for i, f in enumerate(feats)]
+        return [_conv(getattr(s, f"layer{i + 1}_rn"), f)
+                for i, f in enumerate(feats)]
+
+    def decode(self, rn: List[torch.Tensor], patch_hw, patch_size: int,
+               training: bool = False):
+        """Refinenets 4..1 over the pyramid, then the IoU and mask heads."""
+        ph, pw = patch_hw
+        s = self.scratch
         hw = lambda a: tuple(a.shape[-2:])
         path = s.refinenet4(rn[3], None, hw(rn[2]), training)
         path = s.refinenet3(path, rn[2], hw(rn[1]), training)

@@ -1,0 +1,394 @@
+"""FLUX-style MMDiT with a concept-attention stream, in PyTorch
+(counterpart of `s3od_tpu/models/mmdit.py`).
+
+- dual-stream blocks (text + image, joint attention, AdaLN-Zero
+  modulation) with a THIRD concept stream that uses the text projections
+  and norms, attends jointly over [concepts, image] with its own RoPE and
+  carries its own AdaLN gates;
+- single-stream blocks (text + image concatenated, parallel attention +
+  MLP) with the feature taps returned explicitly;
+- 3-axis RoPE over (id, y, x) token coordinates, interleaved pairs, fp32.
+
+Parameters mirror the JAX pytree path for path (`dual_blocks.0.img_attn.
+qkv.weight` <-> `dual_blocks/0/img_attn/qkv/kernel`), with one fused qkv
+`nn.Linear` per stream whose output is ordered (3, heads, head_dim) as in
+JAX; `convert.py` carries the trees across. Mixed precision as in JAX:
+the timestep/guidance/pooled embeddings and the AdaLN modulation run in
+fp32 on the weights' values (`_modulation`), the streams in the compute
+dtype, LayerNorm/RMSNorm and RoPE in fp32 with the result cast back.
+Every attention goes through `ops.attention.multi_head_attention`: K7 in
+bf16 at N >= 1024 (the MMDiT never asks for the static bound).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from s3od_torch.ops.attention import multi_head_attention
+
+
+@dataclasses.dataclass(frozen=True)
+class MMDiTConfig:
+    hidden_size: int = 3072
+    num_heads: int = 24
+    num_dual_blocks: int = 19
+    num_single_blocks: int = 38
+    mlp_ratio: float = 4.0
+    text_dim: int = 4096  # T5 features
+    pooled_dim: int = 768  # CLIP pooled
+    in_channels: int = 64  # packed 2x2 VAE latents
+    axes_dims: Tuple[int, int, int] = (16, 56, 56)
+    rope_theta: float = 10000.0
+    guidance_embed: bool = True
+    feature_taps: Tuple[int, ...] = (4, 16, 27, 36)  # single-block indices
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+
+def tiny_mmdit_config() -> MMDiTConfig:
+    return MMDiTConfig(
+        hidden_size=96, num_heads=4, num_dual_blocks=2, num_single_blocks=4,
+        text_dim=64, pooled_dim=32, in_channels=16, axes_dims=(8, 8, 8),
+        feature_taps=(1, 3),
+    )
+
+
+# ----------------------------------------------------------------------------
+# Primitives
+# ----------------------------------------------------------------------------
+
+
+def _linear(x, mod: nn.Linear):
+    """x @ W^T + b with the weights cast to x's dtype (JAX `_linear`)."""
+    return F.linear(x, mod.weight.to(x.dtype), mod.bias.to(x.dtype))
+
+
+def _layer_norm(x, eps=1e-6):
+    """Affine-free LayerNorm in fp32, cast back to x's dtype."""
+    return F.layer_norm(x.float(), x.shape[-1:], eps=eps).to(x.dtype)
+
+
+def _rms_norm(x, weight, eps=1e-6):
+    xf = x.float()
+    y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    return (y * weight.float()).to(x.dtype)
+
+
+def timestep_embedding(t, dim: int, max_period: float = 10000.0):
+    """Sinusoidal embedding, fp32; t scaled by 1000 (flow-matching style)."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(max_period)
+                      * torch.arange(half, dtype=torch.float32, device=t.device)
+                      / half)
+    args = t.float()[:, None] * 1000.0 * freqs[None]
+    return torch.cat([torch.cos(args), torch.sin(args)], -1)
+
+
+def rope_from_ids(ids, axes_dims: Sequence[int], theta: float):
+    """ids (N, n_axes) -> (cos, sin) of shape (N, head_dim), fp32, in the
+    interleaved pairwise layout (diffusers FLUX convention)."""
+    cos, sin = [], []
+    for a, dim in enumerate(axes_dims):
+        pos = ids[:, a].float()
+        freqs = 1.0 / theta ** (
+            torch.arange(0, dim, 2, dtype=torch.float32, device=ids.device)
+            / dim)
+        angles = pos[:, None] * freqs[None]
+        cos.append(torch.repeat_interleave(torch.cos(angles), 2, dim=-1))
+        sin.append(torch.repeat_interleave(torch.sin(angles), 2, dim=-1))
+    return torch.cat(cos, -1), torch.cat(sin, -1)
+
+
+def _rotate_pairs(x):
+    """(-x1, x0, -x3, x2, ...) interleaved rotation."""
+    x2 = x.reshape(*x.shape[:-1], -1, 2)
+    return torch.stack([-x2[..., 1], x2[..., 0]], -1).reshape(x.shape)
+
+
+def apply_rope(q, k, cos, sin):
+    """q, k (B, N, H, D); cos/sin (N, D). fp32 rotation, cast back."""
+    c, s = cos[None, :, None, :], sin[None, :, None, :]
+
+    def rot(t):
+        tf = t.float()
+        return (tf * c + _rotate_pairs(tf) * s).to(t.dtype)
+
+    return rot(q), rot(k)
+
+
+def _modulation(temb, mod: nn.Linear, n_chunks: int):
+    """SiLU(temb) @ W in fp32 on the weights' values -> n_chunks vectors."""
+    m = F.linear(F.silu(temb.float()), mod.weight.float(), mod.bias.float())
+    return m.chunk(n_chunks, -1)
+
+
+def _mod(x, shift, scale):
+    """LayerNorm(x) * (1 + scale) + shift, the vectors cast to x's dtype."""
+    dt = x.dtype
+    return _layer_norm(x) * (1 + scale[:, None].to(dt)) + shift[:, None].to(dt)
+
+
+# ----------------------------------------------------------------------------
+# Modules
+# ----------------------------------------------------------------------------
+
+
+class QKNorm(nn.Module):
+    def __init__(self, head_dim: int, **kw):
+        super().__init__()
+        self.q = nn.Parameter(torch.ones(head_dim, **kw))
+        self.k = nn.Parameter(torch.ones(head_dim, **kw))
+
+
+class Attention(nn.Module):
+    """One stream's fused qkv, output projection and q/k RMSNorms."""
+
+    def __init__(self, d: int, head_dim: int, **kw):
+        super().__init__()
+        self.qkv = nn.Linear(d, 3 * d, **kw)
+        self.proj = nn.Linear(d, d, **kw)
+        self.qk_norm = QKNorm(head_dim, **kw)
+
+
+class MLP(nn.Module):
+    def __init__(self, din: int, hidden: int, dout: int, **kw):
+        super().__init__()
+        self.fc1 = nn.Linear(din, hidden, **kw)
+        self.fc2 = nn.Linear(hidden, dout, **kw)
+
+
+def _qkv_heads(x, qkv: nn.Linear, qk_norm: QKNorm, heads: int, head_dim: int):
+    y = _linear(x, qkv).reshape(*x.shape[:-1], 3, heads, head_dim)
+    q, k, v = y.unbind(-3)
+    return _rms_norm(q, qk_norm.q), _rms_norm(k, qk_norm.k), v
+
+
+class DualBlock(nn.Module):
+    def __init__(self, cfg: MMDiTConfig, **kw):
+        super().__init__()
+        d, mlp = cfg.hidden_size, int(cfg.hidden_size * cfg.mlp_ratio)
+        self.heads, self.head_dim = cfg.num_heads, cfg.head_dim
+        self.img_mod = nn.Linear(d, 6 * d, **kw)
+        self.txt_mod = nn.Linear(d, 6 * d, **kw)
+        self.img_attn = Attention(d, cfg.head_dim, **kw)
+        self.txt_attn = Attention(d, cfg.head_dim, **kw)
+        self.img_mlp = MLP(d, mlp, d, **kw)
+        self.txt_mlp = MLP(d, mlp, d, **kw)
+
+    def _heads(self, x, attn: Attention):
+        return _qkv_heads(x, attn.qkv, attn.qk_norm, self.heads, self.head_dim)
+
+    @staticmethod
+    def _mlp(x, mlp: MLP):
+        return _linear(F.gelu(_linear(x, mlp.fc1), approximate="tanh"), mlp.fc2)
+
+    def forward(self, img, txt, concept, temb, concept_temb, rope_txt_img,
+                rope_concept_img, attn_impl: str = "auto"):
+        """-> (img, txt, concept, maps_vecs); maps_vecs is (concept
+        vectors, image vectors), this block's POST-projection attention
+        outputs before gating, or None without the concept stream."""
+        d = self.head_dim
+        shift_i, scale_i, gate_i, shift_mi, scale_mi, gate_mi = _modulation(
+            temb, self.img_mod, 6)
+        shift_t, scale_t, gate_t, shift_mt, scale_mt, gate_mt = _modulation(
+            temb, self.txt_mod, 6)
+        qi, ki, vi = self._heads(_mod(img, shift_i, scale_i), self.img_attn)
+        qt, kt, vt = self._heads(_mod(txt, shift_t, scale_t), self.txt_attn)
+
+        q, k = apply_rope(torch.cat([qt, qi], 1), torch.cat([kt, ki], 1),
+                          *rope_txt_img)
+        attn = multi_head_attention(q, k, torch.cat([vt, vi], 1),
+                                    scale=d**-0.5, impl=attn_impl)
+        n_txt = txt.shape[1]
+        attn_t = _linear(attn[:, :n_txt].flatten(2), self.txt_attn.proj)
+        attn_i = _linear(attn[:, n_txt:].flatten(2), self.img_attn.proj)
+
+        new_concept, maps_vecs = None, None
+        if concept is not None:
+            eff = concept_temb if concept_temb is not None else temb
+            sc, scc, gc, smc, sccm, gcm = _modulation(eff, self.txt_mod, 6)
+            qc, kc, vc = self._heads(_mod(concept, sc, scc), self.txt_attn)
+            q2, k2 = apply_rope(torch.cat([qc, qi], 1), torch.cat([kc, ki], 1),
+                                *rope_concept_img)
+            cattn = multi_head_attention(q2, k2, torch.cat([vc, vi], 1),
+                                         scale=d**-0.5, impl=attn_impl)
+            n_c = concept.shape[1]
+            # the reference routes concepts through the image to_out
+            attn_c = _linear(cattn[:, :n_c].flatten(2), self.img_attn.proj)
+            maps_vecs = (attn_c, attn_i)
+            dt = concept.dtype
+            concept = concept + gc[:, None].to(dt) * attn_c
+            ff_c = self._mlp(_mod(concept, smc, sccm), self.txt_mlp)
+            new_concept = concept + gcm[:, None].to(dt) * ff_c
+
+        dt = img.dtype
+        img = img + gate_i[:, None].to(dt) * attn_i
+        img = img + gate_mi[:, None].to(dt) * self._mlp(
+            _mod(img, shift_mi, scale_mi), self.img_mlp)
+        dt = txt.dtype
+        txt = txt + gate_t[:, None].to(dt) * attn_t
+        txt = txt + gate_mt[:, None].to(dt) * self._mlp(
+            _mod(txt, shift_mt, scale_mt), self.txt_mlp)
+        return img, txt, new_concept, maps_vecs
+
+
+class SingleBlock(nn.Module):
+    """Parallel attention + MLP over the concatenated stream."""
+
+    def __init__(self, cfg: MMDiTConfig, **kw):
+        super().__init__()
+        d, mlp = cfg.hidden_size, int(cfg.hidden_size * cfg.mlp_ratio)
+        self.heads, self.head_dim = cfg.num_heads, cfg.head_dim
+        self.mod = nn.Linear(d, 3 * d, **kw)
+        self.qkv = nn.Linear(d, 3 * d, **kw)
+        self.qk_norm = QKNorm(cfg.head_dim, **kw)
+        self.mlp_in = nn.Linear(d, mlp, **kw)
+        self.proj_out = nn.Linear(d + mlp, d, **kw)
+
+    def forward(self, x, temb, rope, attn_impl: str = "auto"):
+        shift, scale, gate = _modulation(temb, self.mod, 3)
+        x_n = _mod(x, shift, scale)
+        q, k, v = _qkv_heads(x_n, self.qkv, self.qk_norm, self.heads,
+                             self.head_dim)
+        q, k = apply_rope(q, k, *rope)
+        attn = multi_head_attention(q, k, v, scale=self.head_dim**-0.5,
+                                    impl=attn_impl).flatten(2)
+        mlp = F.gelu(_linear(x_n, self.mlp_in), approximate="tanh")
+        out = _linear(torch.cat([attn, mlp], -1), self.proj_out)
+        return x + gate[:, None].to(x.dtype) * out
+
+
+class MMDiT(nn.Module):
+    def __init__(self, cfg: MMDiTConfig, device=None, dtype=None):
+        super().__init__()
+        kw = {"device": device, "dtype": dtype}
+        d = cfg.hidden_size
+        self.cfg = cfg
+        self.img_in = nn.Linear(cfg.in_channels, d, **kw)
+        self.txt_in = nn.Linear(cfg.text_dim, d, **kw)
+        self.time_in = MLP(256, d, d, **kw)
+        self.guidance_in = MLP(256, d, d, **kw)
+        self.vector_in = MLP(cfg.pooled_dim, d, d, **kw)
+        self.dual_blocks = nn.ModuleList(
+            DualBlock(cfg, **kw) for _ in range(cfg.num_dual_blocks))
+        self.single_blocks = nn.ModuleList(
+            SingleBlock(cfg, **kw) for _ in range(cfg.num_single_blocks))
+        self.final_mod = nn.Linear(d, 2 * d, **kw)
+        self.proj_out = nn.Linear(d, cfg.in_channels, **kw)
+
+    @staticmethod
+    def _embed(mlp: MLP, x):
+        """fc2(SiLU(fc1(x))) in fp32 on the weights' values."""
+        f = lambda m, t: F.linear(t, m.weight.float(), m.bias.float())
+        return f(mlp.fc2, F.silu(f(mlp.fc1, x.float())))
+
+    def forward(self, *, latents, txt, pooled, timestep, img_ids, txt_ids,
+                guidance=None, concepts=None, pooled_concepts=None,
+                concept_layers: Optional[Sequence[int]] = None,
+                compute_dtype=torch.bfloat16, attn_impl: str = "auto"
+                ) -> Dict[str, object]:
+        """latents (B, N_img, in_channels) packed; txt (B, N_txt, text_dim);
+        pooled (B, pooled_dim); timestep (B,); img_ids (N_img, 3); txt_ids
+        (N_txt, 3); concepts (B, N_c, text_dim). Returns {'output': velocity
+        (B, N_img, in_channels) fp32, 'features': [tap outputs (B, N_img,
+        hidden)], 'concept_maps': (L, B, N_c, N_img) softmax-over-patches
+        maps, one per collected dual block (None without concepts),
+        'concept_out', 'image_out'}."""
+        cfg, dt = self.cfg, compute_dtype
+        img = _linear(latents.to(dt), self.img_in)
+        txt_h = _linear(txt.to(dt), self.txt_in)
+
+        cond = self._embed(self.time_in, timestep_embedding(timestep, 256))
+        if cfg.guidance_embed and guidance is not None:
+            cond = cond + self._embed(self.guidance_in,
+                                      timestep_embedding(guidance, 256))
+        temb = cond + self._embed(self.vector_in, pooled)
+
+        concept_temb = concept_h = None
+        if concepts is not None:
+            concept_h = _linear(concepts.to(dt), self.txt_in)
+            if pooled_concepts is not None:
+                concept_temb = cond + self._embed(self.vector_in,
+                                                  pooled_concepts)
+
+        rope_ti = rope_from_ids(torch.cat([txt_ids, img_ids]).float(),
+                                cfg.axes_dims, cfg.rope_theta)
+        rope_ci = None
+        if concepts is not None:
+            cids = torch.zeros(concepts.shape[1], 3, device=img_ids.device)
+            rope_ci = rope_from_ids(torch.cat([cids, img_ids.float()]),
+                                    cfg.axes_dims, cfg.rope_theta)
+
+        maps: List[torch.Tensor] = []
+        for bi, blk in enumerate(self.dual_blocks):
+            img, txt_h, concept_h, mv = blk(img, txt_h, concept_h, temb,
+                                            concept_temb, rope_ti, rope_ci,
+                                            attn_impl)
+            if mv is not None and (concept_layers is None
+                                   or bi in concept_layers):
+                maps.append(concept_maps_from_vectors(*mv))
+        concept_out, image_out = concept_h, img
+
+        x = torch.cat([txt_h, img], 1)
+        n_txt = txt_h.shape[1]
+        features: List[torch.Tensor] = []
+        for i, blk in enumerate(self.single_blocks):
+            x = blk(x, temb, rope_ti, attn_impl)
+            if i in cfg.feature_taps:
+                features.append(x[:, n_txt:])
+
+        shift, scale = _modulation(temb, self.final_mod, 2)
+        out = _linear(_mod(x[:, n_txt:], shift, scale), self.proj_out)
+        return {"output": out.float(), "features": features,
+                "concept_maps": torch.stack(maps) if maps else None,
+                "concept_out": concept_out, "image_out": image_out}
+
+
+def concept_maps_from_vectors(concept_vectors, image_vectors):
+    """One (timestep, layer) entry of the map postprocess: L2-normalize the
+    concepts (eps 1e-8), dot with the image tokens, softmax over PATCHES
+    -> (B, N_c, N_img), fp32."""
+    c = concept_vectors.float()
+    c = c / (torch.linalg.vector_norm(c, dim=-1, keepdim=True) + 1e-8)
+    sim = torch.einsum("bnc,bmc->bnm", c, image_vectors.float())
+    return torch.softmax(sim, -1)
+
+
+def minmax_normalize(maps):
+    """Per-batch GLOBAL min-max across concepts and space."""
+    lo = maps.amin(dim=(-3, -2, -1), keepdim=True)
+    hi = maps.amax(dim=(-3, -2, -1), keepdim=True)
+    return (maps - lo) / (hi - lo + 1e-8)
+
+
+# ----------------------------------------------------------------------------
+# Init
+# ----------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def init_mmdit(cfg: MMDiTConfig, generator: torch.Generator, device=None,
+               dtype=torch.float32) -> MMDiT:
+    """Seeded random weights in the JAX init scheme (`init_mmdit_params`):
+    every Linear weight ~ N(0, 0.02), biases zero, q/k norms one. Built on
+    the meta device and materialised directly in `dtype` on `device`
+    (the generator's device): the full FLUX tree is ~12B parameters, and
+    a host fp32 copy would be 48 GB."""
+    model = MMDiT(cfg, device="meta", dtype=dtype)
+    model = model.to_empty(device=device or generator.device)
+    for name, prm in model.named_parameters():
+        if name.endswith(".q") or name.endswith(".k"):
+            prm.fill_(1.0)
+        elif name.endswith("bias"):
+            prm.zero_()
+        else:
+            prm.normal_(0.0, 0.02, generator=generator)
+    return model.eval()

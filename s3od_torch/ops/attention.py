@@ -1,17 +1,36 @@
-"""Exact full-softmax attention of the float32 route (counterpart of
-`s3od_tpu/ops/attention.py:_xla_attention`). Plain tensor code, no kernel:
-the JAX package leaves it to XLA too."""
+"""Attention dispatch (counterpart of `s3od_tpu/ops/attention.py`).
+
+`attention` is the exact full-softmax attention of the float32 route
+(`_xla_attention`): plain tensor code, no kernel, as the JAX package
+leaves it to XLA. `multi_head_attention` keeps the JAX package's rule for
+when the flash kernels run (bf16 and at least 1024 tokens): K7, the
+online-softmax kernel, or K3/K6 when the caller asks for the static
+softmax bound. On CPU tensors the kernel wrappers take their plain
+versions; on CUDA tensors they launch or raise.
+"""
 
 from __future__ import annotations
 
-import torch
+from typing import Optional
 
-from s3od_torch.ops.flash_attention import query_chunk, row_chunks
+import torch
+import torch.nn.functional as F
+
+from s3od_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_online,
+    flash_seq_len,
+    query_chunk,
+    row_chunks,
+)
+
+IMPLS = ("auto", "xla", "flash")
 
 
 def attention(q, k, v, scale: float, n_valid: int = 0, chunk: int = 0):
     """q, k, v (B, N, H, D) -> (B, N, H, D). Logits and softmax in fp32;
-    keys at or past n_valid (when nonzero) are masked with -1e30. Runs one
+    keys at or past n_valid (when nonzero) are masked with -1e30; the
+    probabilities are rounded to v's dtype before the product. Runs one
     batch element and one chunk of at most `chunk` query rows (default
     `query_chunk`) at a time, which bounds the (H, rows, N) logit memory at
     2048^2 and changes no number: query rows are independent."""
@@ -31,3 +50,44 @@ def attention(q, k, v, scale: float, n_valid: int = 0, chunk: int = 0):
             rows.append(torch.einsum("hnm,mhd->nhd", probs, vi))
         out.append(torch.cat(rows))
     return torch.stack(out)
+
+
+def resolve_attn_impl(n: int, dtype: torch.dtype, impl: str = "auto") -> str:
+    """"auto" -> "flash" for bf16 and N >= 1024 (`ops/attention.py:52-59`:
+    the flash kernels' products are bf16-precision, so float32 keeps the
+    exact route), else "xla"."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if impl != "auto":
+        return impl
+    return "flash" if n >= 1024 and dtype == torch.bfloat16 else "xla"
+
+
+def multi_head_attention(q, k, v, *, scale: Optional[float] = None,
+                         impl: str = "auto", n_valid: int = 0,
+                         static_softmax_bound: bool = False):
+    """Multi-head attention over (B, N, H, D) tensors -> (B, N, H, D).
+
+    "flash": q is scaled IN ITS DTYPE (as `flash_attention.py:743` folds
+    the scale into bf16 q), the heads go to (B*H, N, D), the sequence is
+    padded to a multiple of 64 with `n_valid` masking the padded keys, K7
+    (or K3/K6 under `static_softmax_bound`) runs, and the padded query
+    rows are sliced off. "xla": the exact attention above. `n_valid`: the
+    true token count when the sequence carries trailing padding rows
+    (0: all N)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if resolve_attn_impl(q.shape[1], q.dtype, impl) == "xla":
+        return attention(q, k, v, scale, n_valid)
+    b, n, h, d = q.shape
+    n_valid = n_valid or n
+    q = q * torch.tensor(scale, dtype=q.dtype, device=q.device)
+    n_pad = flash_seq_len(n)
+
+    def to_bhnd(t):
+        t = t.transpose(1, 2).reshape(b * h, n, d)
+        return F.pad(t, (0, 0, 0, n_pad - n)) if n_pad != n else t
+
+    kernel = flash_attention if static_softmax_bound else flash_attention_online
+    o, _ = kernel(to_bhnd(q), to_bhnd(k), to_bhnd(v), n_valid)
+    return o[:, :n].reshape(b, h, n, d).transpose(1, 2)

@@ -1,6 +1,8 @@
 """K3 and K6: attention forward under the static softmax bound (CUDA) and
 its plain version; K8: its backward (CUDA, `csrc/flash_attention_bwd.cu`)
-and its plain version; and the `autograd.Function` that joins them.
+and its plain version; the `autograd.Function` that joins them; and K7,
+the forward with the exact row-max (online) softmax that the MMDiT runs
+(CUDA, `csrc/flash_attention_online.cu`), with its plain version.
 
 One CUDA kernel replaces two TPU kernels of `s3od_tpu/ops/flash_attention.py`
 (both via `_flash_forward(static_bound=True)`):
@@ -194,6 +196,75 @@ def flash_attention_bwd(q, k, v, o, lse, g, n_valid: int):
 
 
 flash_attention_bwd.launches = 0
+
+
+def flash_attention_online_plain(q, k, v, n_valid: int):
+    """Plain version of K7: the exact row-max softmax, as
+    `_fwd_kernel_single(static_bound=False)` computes it in one block.
+    q, k, v (BH, N, D) -> (o (BH, N, D) in q's dtype, lse (BH, N) fp32).
+    Keys at or past n_valid get the bias -1e30; m is the row max,
+    p = exp(s - m) is rounded to v's dtype for P V while l sums the fp32
+    p; o = (P V) / l and lse = m + log l. Query rows run in chunks of
+    `query_chunk` rows."""
+    bh, n = q.shape[:2]
+    chunk = query_chunk(bh, k.shape[1])
+    kt, vf = k.float().transpose(1, 2), v.float()
+    bias = None
+    if n_valid < k.shape[1]:
+        bias = torch.zeros(k.shape[1], device=q.device, dtype=torch.float32)
+        bias[n_valid:] = NEG_INF
+    outs, lses = [], []
+    for i, j in row_chunks(n, chunk):
+        s = torch.matmul(q[:, i: j].float(), kt)
+        if bias is not None:
+            s = s + bias
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp(s - m)
+        del s
+        l = p.sum(-1, keepdim=True)
+        o = torch.matmul(p.to(v.dtype).float(), vf) / l
+        outs.append(o.to(q.dtype))
+        lses.append((m + torch.log(l))[..., 0])
+    return torch.cat(outs, 1), torch.cat(lses, 1)
+
+
+def flash_attention_online(q, k, v, n_valid: int):
+    """K7: attention forward with the online (row-max) softmax -> (o, lse);
+    kernel source and design note in `s3od_torch/csrc/flash_attention_online.cu`.
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel or
+    raise: bf16 (BH, N, D) with N a multiple of 64 and D in {64, 128}.
+    Forward only: an input that requires grad raises."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention_online has no backward yet: the D = 128 "
+            "backward (K8 at D = 128, for the MMDiT's LoRA training) is "
+            "ROADMAP Queue 1, item 11.3")
+    if q.device.type == "cpu":
+        return flash_attention_online_plain(q, k, v, n_valid)
+    bh, n, d = q.shape
+    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
+        raise ValueError("flash_attention_online kernel: bf16 q, k, v only")
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError("flash_attention_online kernel: q, k, v shapes differ")
+    if n % SEQ_MULTIPLE or d not in (64, 128) or not 0 < n_valid <= n:
+        raise ValueError(
+            f"flash_attention_online kernel: unsupported N={n} D={d} "
+            f"n_valid={n_valid}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    o = torch.empty_like(q)
+    lse = torch.empty((bh, n), device=q.device, dtype=torch.float32)
+    lib = _build.load_library()
+    code = lib.s3od_flash_attention_online_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), bh, n, d, n_valid, _build.stream_ptr(q),
+    )
+    _build.check(code, "flash_attention_online")
+    _build.count_launch(flash_attention_online)
+    return o, lse
+
+
+flash_attention_online.launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -4,7 +4,8 @@ On the device the port calls `F.interpolate(mode="bilinear",
 align_corners=False[, antialias=True])` itself — the behaviour
 `s3od_tpu/ops/resize.py` was built to match. The host-side numpy resize
 (letterbox fallback and the antialiased mask resize back to the original
-size) needs the torch-matched separable resize matrix; it is carried over
+size) and the FLUX-teacher fusion (`resize_bilinear_matrix`, on the
+device) use the torch-matched separable resize matrix; it is carried over
 from `s3od_tpu/ops/resize.py:27-60,153-175` rather than imported, because
 that module imports jax.
 """
@@ -54,6 +55,27 @@ def _linear_resize_matrix(in_size: int, out_size: int,
             out[o, min(max(i0, 0), in_size - 1)] += 1.0 - frac
             out[o, min(i0 + 1, in_size - 1)] += frac
     return out.astype(np.float32)
+
+
+def resize_bilinear_matrix(x, out_hw: Tuple[int, int], *,
+                           antialias: bool = False):
+    """NCHW tensor -> (N, C, *out_hw) through the torch-matched separable
+    resize matrices, as `s3od_tpu/ops/resize.py:resize_bilinear` applies
+    them: two matmuls, the matrices in x's dtype (bf16 stays bf16). The
+    FLUX-teacher fusion resizes with these so that its antialiased
+    downscale is the JAX package's."""
+    import torch
+
+    out_h, out_w = out_hw
+    in_h, in_w = x.shape[-2:]
+    if in_h != out_h:
+        w = torch.from_numpy(_linear_resize_matrix(in_h, out_h, antialias))
+        x = torch.matmul(x.transpose(-1, -2), w.T.to(x.device, x.dtype)
+                         ).transpose(-1, -2)
+    if in_w != out_w:
+        w = torch.from_numpy(_linear_resize_matrix(in_w, out_w, antialias))
+        x = torch.matmul(x, w.T.to(x.device, x.dtype))
+    return x
 
 
 def resize_bilinear_numpy(x: np.ndarray, out_hw: Tuple[int, int], *,

@@ -109,3 +109,28 @@ def remove_padding(masks: np.ndarray, pad_info: Dict[str, Any]) -> np.ndarray:
     # skipping the crop there leaves a zero row/column that misaligns the
     # mask when resized back to the original size.
     return masks[:, hp : hp + nh, wp : wp + nw]
+
+
+def resolve_device(device=None):
+    """`device` (default "cuda") as a torch.device; a CUDA device without a
+    card raises rather than falling back to the CPU."""
+    import torch
+
+    dev = torch.device(device or "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device='cuda' needs a CUDA device; pass device='cpu' to run the "
+            "plain PyTorch path")
+    return dev
+
+
+def compute_dtype_for(device, name=None):
+    """"bfloat16" / "float32" as a torch dtype; None -> bf16 on CUDA and
+    float32 elsewhere (`ops.precision.default_dtype`)."""
+    import torch
+
+    from s3od_torch.ops.precision import default_dtype
+
+    if name is None:
+        return default_dtype(torch.device(device))
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]

@@ -490,3 +490,26 @@ def test_flash_attention_bwd_matches_plain_on_cuda(cuda, d):
     _close(got, fa.flash_attention_bwd_plain(q, k, v, o, lse, g, n_valid))
     torch.cuda.synchronize()
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_online_matches_plain_on_cuda(cuda, d):
+    """K7 against its plain version in bf16: n_valid < N, and rows whose
+    logits reach +-600 with the maximum rising along the keys (a kernel
+    that skipped the rescale, or clipped at +-40, fails); one launch
+    counted per call."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    bh, n, n_valid = 4, 320, 290
+    q, k, v = ((torch.randn(bh, n, d, generator=gen, device=cuda) * s)
+               .to(torch.bfloat16) for s in (d**-0.5, 1.0, 1.0))
+    u = torch.nn.functional.normalize(torch.randn(d, generator=gen, device=cuda), dim=0)
+    q[1] = (torch.linspace(0.5, 1.5, n, device=cuda)[:, None] * u).to(torch.bfloat16)
+    k[1] = (torch.linspace(-400, 400, n, device=cuda)[:, None] * u).to(torch.bfloat16)
+    before = fa.flash_attention_online.launches
+    o, lse = fa.flash_attention_online(q, k, v, n_valid)
+    assert fa.flash_attention_online.launches == before + 1
+    o_ref, lse_ref = fa.flash_attention_online_plain(q, k, v, n_valid)
+    _close([o], [o_ref])
+    assert float((lse - lse_ref).abs().max()) <= 1e-3
+    torch.cuda.synchronize()

@@ -97,14 +97,88 @@ def test_training_import_and_cpu_step_leave_jax_triton_and_s3od_tpu_out():
     assert out.stdout.split() == ["False", "False", "False"]
 
 
+def test_factory_cpu_generation_leaves_jax_triton_transformers_out():
+    """The factory modules (`s3od_torch.datagen.*`, the MMDiT, text
+    encoders, VAE and teacher) and a tiny CPU generation through
+    `ImageMaskGenerationPipeline` import neither jax, nor triton, nor
+    transformers, nor any module of s3od_tpu."""
+    code = (
+        "import sys, tempfile, torch\n"
+        "import s3od_torch.datagen.generate_train_images as g\n"
+        "import s3od_torch.datagen.text_encoding, s3od_torch.datagen.resizer\n"
+        "from s3od_torch.configs import tiny_test_config\n"
+        "from s3od_torch.datagen.diffusion import ConceptAttentionPipeline\n"
+        "from s3od_torch.datagen.mask_generator import MaskGenerator\n"
+        "from s3od_torch.datagen.text_encoding import TorchTextEncoders\n"
+        "from s3od_torch.models import mmdit, text_encoders as te, vae\n"
+        "from s3od_torch.models.flux_teacher import FluxTeacherConfig,"
+        " init_flux_teacher\n"
+        "gen = torch.Generator().manual_seed(0)\n"
+        "cfg = mmdit.MMDiTConfig(hidden_size=96, num_heads=4,"
+        " num_dual_blocks=1, num_single_blocks=4, text_dim=64, pooled_dim=32,"
+        " in_channels=16, axes_dims=(8, 8, 8), feature_taps=(0, 1, 2, 3))\n"
+        "vcfg = vae.VAEConfig(latent_channels=4, base_channels=8,"
+        " channel_mults=(1, 1, 1, 1), layers_per_block=1, groups=4)\n"
+        "enc = TorchTextEncoders.random_init(0, te.T5Config(vocab_size=300,"
+        " d_model=64, d_kv=16, d_ff=96, num_layers=1, num_heads=4),"
+        " te.CLIPTextConfig(vocab_size=400, hidden_size=32,"
+        " intermediate_size=64, num_layers=1, num_heads=2),"
+        " max_t5_tokens=16, device='cpu')\n"
+        "pipe = ConceptAttentionPipeline(mmdit.init_mmdit(cfg, gen),"
+        " text_encoders=enc, vae=vae.VAE(*vae.init_vae(vcfg, gen), vcfg,"
+        " device='cpu'), num_inference_steps=2, device='cpu')\n"
+        "mg = MaskGenerator(model=init_flux_teacher(FluxTeacherConfig("
+        "base=tiny_test_config(), flux_dim=24), gen), device='cpu')\n"
+        "g.GENERATION_RESOLUTIONS = [(64, 96)]\n"
+        "d = tempfile.mkdtemp()\n"
+        "c = g.GenerationConfig(output_dir=d + '/o', prompts_dir=d + '/p')\n"
+        "assert g.ImageMaskGenerationPipeline(c, pipe, mg)"
+        ".process_class('tabby cat', 1) == 1\n"
+        "print([any(m.split('.')[0] == n for m in sys.modules)\n"
+        "       for n in ('jax', 'triton', 'transformers', 's3od_tpu')])\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["[False,", "False,", "False,", "False]"]
+
+
+def test_factory_entry_points_default_to_the_card():
+    """Without a card, every factory entry point refuses its default
+    device rather than falling back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from s3od_torch.datagen.diffusion import ConceptAttentionPipeline
+    from s3od_torch.datagen.mask_generator import MaskGenerator
+    from s3od_torch.datagen.text_encoding import TorchTextEncoders
+    from s3od_torch.models.mmdit import MMDiT, tiny_mmdit_config
+    from s3od_torch.models.vae import VAE, VAEDecoder, VAEEncoder, tiny_vae_config
+
+    vcfg = tiny_vae_config()
+    calls = [
+        lambda: ConceptAttentionPipeline(MMDiT(tiny_mmdit_config())),
+        lambda: MaskGenerator("teacher.npz"),
+        lambda: TorchTextEncoders.random_init(0),
+        lambda: VAE(VAEEncoder(vcfg), VAEDecoder(vcfg), vcfg),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
 def test_no_source_imports_jax_or_jax_modules():
     """No source of the port, and not chip_smoke.py, imports jax or any
     module of s3od_tpu, jax-free ones included: the port keeps its own
     copies."""
     pattern = re.compile(r"^\s*(import|from) (jax|s3od_tpu)\b", re.M)
     files = list(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert PKG / "datagen" / "diffusion.py" in files
+    assert PKG / "models" / "mmdit.py" in files
     hits = [str(f) for f in files if pattern.search(f.read_text())]
     assert not hits
+    # transformers only inside a function (lazily), never at module level
+    eager = re.compile(r"^(import|from) transformers\b", re.M)
+    assert not [str(f) for f in files if eager.search(f.read_text())]
 
 
 def test_chip_smoke_names_no_module_of_the_jax_package():
@@ -164,7 +238,7 @@ def test_kernel_build_hash_covers_every_source(tmp_path, monkeypatch):
     srcs = {p.name for p in _build._sources()}
     assert {"mma.cuh", "qkv_project.cu", "flash_attention.cu",
             "flash_attention_bwd.cu", "attn_epilogue.cu",
-            "mlp_fused.cu"} <= srcs
+            "mlp_fused.cu", "flash_attention_online.cu"} <= srcs
     h0 = _build.source_hash()
     for src in _build._sources():
         (tmp_path / src.name).write_bytes(src.read_bytes())
@@ -175,7 +249,8 @@ def test_kernel_build_hash_covers_every_source(tmp_path, monkeypatch):
     assert "build/" in (REPO / ".gitignore").read_text().split()
     assert set(_build._SIGNATURES) == {
         "s3od_qkv_project_rope", "s3od_flash_attention_fwd",
-        "s3od_flash_attention_bwd", "s3od_attn_epilogue", "s3od_mlp_fused"}
+        "s3od_flash_attention_bwd", "s3od_attn_epilogue", "s3od_mlp_fused",
+        "s3od_flash_attention_online_fwd"}
 
 
 FAKE_NVCC = """\
