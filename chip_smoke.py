@@ -34,6 +34,17 @@ all started together) and the Triton kernel, then:
      1024^2);
   5. serves the 1024^2 predictor through `InferenceServer`: concurrent
      requests, each answer equal to a direct call;
+  5b. runs the decoder's gated kernels (`S3OD_WINOGRAD`: K9a, the
+     Winograd conv, and K9b, the chained RCU; `MASK_TAIL_FUSED`: K10, the
+     fused mask tail): each against its plain version at the 1024^2
+     shapes, timed beside the cuDNN chain and the bound; the 1024^2 path
+     with both gates on (b1 and b16: launches as the copied rule gives
+     them, every gated call against its plain version on its own inputs,
+     a planted K9b x 1.01 caught there, results against fp32 exact mode,
+     device time and img/s beside the gates off); one 2048^2 forward and
+     stream the same way; one ViT-B 1024^2 b4 train step with the
+     Winograd gate (K9a forward and dx launches) and K9a's dx against the
+     plain version's vjp;
   6. checks K8, the attention backward, against its plain version at the
      training shapes (12 and 48 x 4160 tokens, D = 64 and 32) and at
      2048^2, with +-1000-scale inputs, and times it beside the SDPA
@@ -74,6 +85,7 @@ lines are the kernel summary and the device result as JSON.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import statistics
@@ -105,6 +117,12 @@ KERNELS = {
     "K7_flash_attention_online": ("cuda",
                                   "s3od_torch/csrc/flash_attention_online.cu",
                                   "s3od_tpu/ops/flash_attention.py:37"),
+    "K9a_winograd_conv": ("cuda", "s3od_torch/csrc/winograd.cu",
+                          "s3od_tpu/ops/experimental/winograd.py:201"),
+    "K9b_winograd_rcu": ("cuda", "s3od_torch/csrc/winograd.cu",
+                         "s3od_tpu/ops/experimental/winograd.py:420"),
+    "K10_mask_tail": ("cuda", "s3od_torch/csrc/mask_tail.cu",
+                      "s3od_tpu/ops/experimental/mask_tail.py:138"),
 }
 # Published dense peaks of one H100 SXM at 700 W (bf16 tensor cores, fp32
 # outside them) and its HBM rate: the bound of a kernel is the larger of
@@ -177,26 +195,33 @@ def device_ms(fn, iters: int = 20) -> float:
     """Device time of one call: the summed time of every kernel the call
     launches (profiler trace of `iters` calls). Unlike CUDA events around
     a call, it leaves out the host's launch overhead, which can exceed a
-    small kernel's run time."""
+    small kernel's run time. Where every trace came back empty (the
+    profiler lost them all, as it did once on an H100 late in a run), the
+    time comes from CUDA events around back-to-back calls, and the log
+    says so."""
     total = sum(ms for _, ms, _ in kernel_breakdown(fn, iters))
-    check(total > 0, "profiler recorded no device time")
-    return total
+    if total > 0:
+        return total
+    log("  the profiler recorded no device time; CUDA events over "
+        f"{iters} back-to-back calls instead")
+    return run_ms(fn, iters)
 
 
 def kernel_breakdown(fn, iters: int):
     """[(kernel name, device ms per call, launches per call)], largest
     first, from torch.profiler traces of `iters` calls. A trace can lose
     events (one did on an H100: a kernel read half its time while the same
-    run's other traces showed it whole), and a lost event only lowers the
-    total, so three traces are taken and the one with the median total is
-    kept."""
+    run's other traces showed it whole, and another run's traces held no
+    device event at all), and a lost event only lowers the total, so three
+    traces that hold events are taken (of at most six) and the one with
+    the median total is kept; [] if none held any."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     cuda = torch.profiler.ProfilerActivity.CUDA
     traces = []
-    for _ in range(3):
+    for _ in range(6):
         with torch.profiler.profile(activities=[cuda]) as prof:
             for _ in range(iters):
                 fn()
@@ -206,9 +231,14 @@ def kernel_breakdown(fn, iters: int):
                 for e in prof.key_averages()
                 if getattr(e, "device_time_total", 0.0) > 0
                 and not e.key.startswith("Activity Buffer")]  # bookkeeping
-        traces.append(sorted(rows, key=lambda r: -r[1]))
+        if rows:
+            traces.append(sorted(rows, key=lambda r: -r[1]))
+        if len(traces) == 3:
+            break
+    if not traces:
+        return []
     traces.sort(key=lambda rows: sum(ms for _, ms, _ in rows))
-    return traces[1]
+    return traces[len(traces) // 2]
 
 
 def time_pair(name, kernel_fn, plain_fn, results, iters: int = 20):
@@ -1214,7 +1244,7 @@ def slice_phase(results):
     results["_slice"].update(agreement=agree, d_iou=d_iou, d_mask=d_mask,
                              near_half=near[1e-2], tap_rel_err=tap_err,
                              batch_vs_single=d_bm, batch_vs_single_taps=tap_b)
-    return pred
+    return pred, pred32
 
 
 def stream_img_s(pred, images, **kwargs) -> float:
@@ -1476,6 +1506,410 @@ def quality_phase(results):
     log(f"  IoU vs fixture mask: {score:.4f} (launches {counts})")
     check(score >= 0.9, f"tiny 1024 IoU {score} < 0.9")
     results["_quality"] = {"iou": score}
+
+
+# ----------------------------------------------------------------------------
+# The decoder's gated kernels: K9a, K9b (S3OD_WINOGRAD) and K10
+# (MASK_TAIL_FUSED)
+# ----------------------------------------------------------------------------
+
+K9A, K9B, K10 = "K9a_winograd_conv", "K9b_winograd_rcu", "K10_mask_tail"
+# ||kernel - plain|| / ||plain|| of each K9a, K9b and K10 call of a gated
+# forward, on the call's own inputs: about 2x the largest value this
+# script measured on an H100 80GB HBM3 at 700 W (K9b 7.0e-5 at 1024^2 and
+# 2048^2; K9a 3.8e-5, K10 2.5e-5). The planted K9b x 1.01 reads 1.0e-2.
+DEC_CALL_TOL = 1.5e-4
+
+
+def decoder_wrappers():
+    from s3od_torch.ops.experimental import mask_tail, winograd
+
+    return {K9A: winograd.winograd_conv, K9B: winograd.winograd_rcu,
+            K10: mask_tail.mask_tail}
+
+
+def decoder_counts(wrappers):
+    return {name: fn.launches for name, fn in wrappers.items()}
+
+
+@contextlib.contextmanager
+def decoder_gates(on: bool):
+    """Both gates of the decoder (`S3OD_WINOGRAD` as read into
+    `ops/conv._WINOGRAD_ENABLED`, and `models/dpt.MASK_TAIL_FUSED`), set
+    and restored."""
+    from s3od_torch.models import dpt
+    from s3od_torch.ops import conv
+
+    old = conv._WINOGRAD_ENABLED, dpt.MASK_TAIL_FUSED
+    conv._WINOGRAD_ENABLED = dpt.MASK_TAIL_FUSED = on
+    try:
+        yield
+    finally:
+        conv._WINOGRAD_ENABLED, dpt.MASK_TAIL_FUSED = old
+
+
+@contextlib.contextmanager
+def decoder_shadowed(results, worst, fault=None):
+    """Every K9a, K9b and K10 call of the decoder held against its plain
+    version on the call's own inputs: the worst ||d|| / ||plain|| per
+    kernel into `worst`, and (without a fault) `compare`'s max|d| /
+    max|plain| check. The callers' references (`ops/conv`'s and
+    `models/dpt`'s) are shadowed; the wrappers, and their counts, are not.
+    `fault` names a kernel whose output is multiplied by 1.01."""
+    import torch
+
+    from s3od_torch.models import dpt
+    from s3od_torch.ops import conv
+    from s3od_torch.ops.experimental import mask_tail, winograd
+
+    real = (conv.conv3x3_winograd, dpt.rcu_winograd, dpt.mask_tail)
+
+    def held(name, out, ref):
+        if name == fault:
+            out = out * 1.01
+        if fault is None:
+            compare(name, [out], [ref], results)
+        worst[name] = max(worst.get(name, 0.0), rel_norm(out, ref))
+        return out
+
+    def k9a(x, p):
+        b = p.get("bias")
+        if b is None:
+            b = torch.zeros(p["kernel"].shape[-1], dtype=x.dtype, device=x.device)
+        return held(K9A, real[0](x, p),
+                    winograd.winograd_conv_plain(x, p["kernel"], b))
+
+    def k9b(x, p1, p2):
+        return held(K9B, real[1](x, p1, p2), winograd.winograd_rcu_plain(
+            x, p1["kernel"], p1["bias"], p2["kernel"], p2["bias"]))
+
+    def k10(*args):
+        return held(K10, real[2](*args), mask_tail.mask_tail_plain(*args))
+
+    conv.conv3x3_winograd, dpt.rcu_winograd, dpt.mask_tail = k9a, k9b, k10
+    try:
+        yield
+    finally:
+        conv.conv3x3_winograd, dpt.rcu_winograd, dpt.mask_tail = real
+
+
+def decoder_rule_counts(cfg, size: int, training: bool = False):
+    """K9a, K9b and K10 launches of one forward at a square canvas by the
+    copied rule, from the decoder's 3x3/s1/p1 convs written out (ViT
+    patch 16): serving folds the BNs, so an RCU whose shape both rules
+    admit is one K9b launch and its convs are not single convs; training
+    keeps the BNs (no K9b) and the unfused tail (no K10). Training also
+    returns K9a's dx launches (where the rule admits the gradient's
+    shape)."""
+    from s3od_torch.ops.experimental.winograd import (rcu_winograd_available,
+                                                     winograd_available)
+
+    p = size // cfg.encoder.patch_size
+    f, neck, inter = cfg.features, cfg.neck_channels, cfg.mask_inter_features
+    rn = [4 * p, 2 * p, p, -(-p // 2)]
+    singles = [(rn[i], neck[i], f) for i in range(4)]
+    singles += [(8 * p, f, f // 2), (16 * p, 2 * inter, 2 * inter),
+                (16 * p, 2 * inter, 3 * inter)]
+    rcus = [rn[i] for i in range(4) for _ in range(1 if i == 3 else 2)]
+    ok = lambda s, c, k: winograd_available(s, s, c, k)
+    if training:
+        convs = singles + [(s, f, f) for s in rcus for _ in range(2)]
+        return (sum(ok(*sh) for sh in convs),
+                sum(ok(s, c, k) and ok(s, k, c) for s, c, k in convs))
+    chained = [s for s in rcus if ok(s, f, f) and rcu_winograd_available(s, s, f)]
+    k9a = sum(ok(*sh) for sh in singles[:5]) + 2 * sum(
+        ok(s, f, f) for s in rcus if s not in chained)
+    return {K9A: k9a, K9B: len(chained), K10: 1}
+
+
+def decoder_kernel_checks(results):
+    """K9a, K9b and K10 against their plain versions on random inputs at
+    the 1024^2 b1 path's largest shapes (NCHW memory seen through NHWC
+    views, as the decoder calls them), timed beside the plain version, the
+    cuDNN chain computing the same function in bf16 and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from s3od_torch.ops.experimental import mask_tail as mt
+    from s3od_torch.ops.experimental import winograd as wg
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    bf = torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(bf)
+
+    def nchw_view(b, c, h, w, scale=1.0):
+        return randn(b, c, h, w, scale=scale).permute(0, 2, 3, 1)
+
+    oihw = lambda w: w.permute(3, 2, 0, 1)
+    nchw = lambda x: x.permute(0, 3, 1, 2)
+
+    # K9a at layer1_rn: (1, 256, 256, 256 -> 256)
+    s, c, k = 256, 256, 256
+    log(f"phase K9a winograd_conv (1, {s}, {s}, {c} -> {k}), layer1_rn")
+    x, w, b = nchw_view(1, c, s, s), randn(3, 3, c, k, scale=0.03), randn(k, scale=0.1)
+    compare(K9A, [wg.winograd_conv(x, w, b)], [wg.winograd_conv_plain(x, w, b)],
+            results)
+    time_pair(K9A, lambda: wg.winograd_conv(x, w, b),
+              lambda: wg.winograd_conv_plain(x, w, b), results, iters=5)
+    results[K9A]["library_ms"] = device_ms(
+        lambda: F.conv2d(nchw(x), oihw(w), b, padding=1))
+    tiles = (s // 2) ** 2
+    set_bound(results, K9A, 2.0 * 16 * tiles * c * k,
+              2 * (s * s * c + 9 * c * k + k + s * s * k),
+              fp32_ops=tiles * (32.0 * c + 40.0 * k))
+
+    # K9b at refinenet1: (1, 256, 256, 256)
+    log(f"phase K9b winograd_rcu (1, {s}, {s}, {c}), refinenet1")
+    x = nchw_view(1, c, s, s)
+    w1, w2 = randn(3, 3, c, c, scale=0.03), randn(3, 3, c, c, scale=0.03)
+    b1, b2 = randn(c, scale=0.3), randn(c, scale=0.1)
+    args = (x, w1, b1, w2, b2)
+    compare(K9B, [wg.winograd_rcu(*args)], [wg.winograd_rcu_plain(*args)], results)
+    time_pair(K9B, lambda: wg.winograd_rcu(*args),
+              lambda: wg.winograd_rcu_plain(*args), results, iters=5)
+    xc = nchw(x)
+    results[K9B]["library_ms"] = device_ms(lambda: xc + F.conv2d(
+        F.relu(F.conv2d(F.relu(xc), oihw(w1), b1, padding=1)), oihw(w2), b2,
+        padding=1))
+    set_bound(results, K9B, 2 * 2.0 * 16 * tiles * c * c,
+              2 * (2 * s * s * c + 2 * 9 * c * c + 2 * c),
+              fp32_ops=2 * tiles * 72.0 * c)
+
+    # K10 at the 1024^2 tail: (1, 1024, 1024, 64 -> 64 -> 96 -> 3)
+    s, ci, cm, n = 1024, 64, 96, 3
+    log(f"phase K10 mask_tail (1, {s}, {s}, {ci} -> {ci} -> {cm} -> {n})")
+    targs = (nchw_view(1, ci, s, s, scale=0.5), randn(3, 3, ci, ci, scale=0.05),
+             randn(ci, scale=0.1), randn(3, 3, ci, cm, scale=0.05),
+             randn(cm, scale=0.1), randn(cm, n, scale=0.1), randn(n, scale=0.1))
+    compare(K10, [mt.mask_tail(*targs)], [mt.mask_tail_plain(*targs)], results)
+    time_pair(K10, lambda: mt.mask_tail(*targs),
+              lambda: mt.mask_tail_plain(*targs), results, iters=5)
+    x, w1, b1, w0, b0, k1, bk = targs
+    xc, k1c = nchw(x), k1.t()[:, :, None, None]
+    results[K10]["library_ms"] = device_ms(lambda: F.conv2d(F.relu(F.conv2d(
+        F.relu(F.conv2d(F.relu(xc), oihw(w1), b1, padding=1)), oihw(w0), b0,
+        padding=1)), k1c, bk))
+    set_bound(results, K10, 2.0 * s * s * 9 * ci * (ci + cm) + 2.0 * s * s * cm * n,
+              2 * (s * s * ci + 9 * ci * (ci + cm) + cm * n + ci + cm + n
+                   + s * s * n), fp32_ops=s * s * (2.0 * ci + 3.0 * cm))
+    for name in (K9A, K9B, K10):
+        r = results[name]
+        log(f"  {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, cuDNN "
+            f"chain {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+            f"{r['bound_by']})")
+
+
+def decoder_phase(results, pred, pred32):
+    """The gated decoder on the main paths: kernel checks at the 1024^2
+    shapes; `remove_background` and `remove_background_batch` (16) at
+    1024^2 with both gates on — launches as the rule gives them, every K9a,
+    K9b and K10 call against its plain version (a planted K9b fault must
+    fail that check), results against fp32 exact mode, device time and
+    img/s beside the gates off; one 2048^2 stream and a per-call check at
+    2048^2; one ViT-B 1024^2 b4 train step with the Winograd gate on."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    decoder_kernel_checks(results)
+    wrappers = decoder_wrappers()
+    cfg = pred.cfg
+    image = np.array(Image.open(IMAGE).convert("RGB"))
+    imgs = test_images(image)
+    dec = results["_decoder"] = {}
+    want = decoder_rule_counts(cfg, 1024)
+    log(f"phase decoder gates on, 1024^2 ViT-B: launches by the rule {want}")
+    check(want == {K9A: 3, K9B: 4, K10: 1}, f"1024^2 rule counts {want}")
+    per_forward = cfg.num_encoder_layers_used
+    with decoder_gates(True):
+        worst = {}
+        reset_counts()
+        for fn in wrappers.values():
+            fn.launches = 0
+        with decoder_shadowed(results, worst):
+            res = pred.remove_background(image)
+        torch.cuda.synchronize()
+        counts, enc = decoder_counts(wrappers), launch_counts()
+        log(f"  remove_background launches: {counts}, encoder {enc}")
+        check(counts == want, f"gated b1 launches {counts}, want {want}")
+        check(all(v == per_forward for v in enc.values()), f"encoder {enc}")
+        for name, cnt in counts.items():
+            results[name]["launches"] = cnt
+        for fn in wrappers.values():
+            fn.launches = 0
+        with decoder_shadowed(results, worst):
+            batch = pred.remove_background_batch(imgs)
+        torch.cuda.synchronize()
+        counts = decoder_counts(wrappers)
+        log(f"  remove_background_batch(16) launches: {counts}")
+        check(counts == want, f"gated b16 launches {counts}, want {want}")
+        log("  per call, kernel vs plain (||d|| / ||plain||): " + ", ".join(
+            f"{k} {v:.3e}" for k, v in worst.items()))
+        check(all(v <= DEC_CALL_TOL for v in worst.values()),
+              f"a gated kernel call out of bound {worst}")
+        faulty = {}
+        with decoder_shadowed(results, faulty, fault=K9B):
+            pred.remove_background(image)
+        log(f"  planted K9b x 1.01, per call: {faulty[K9B]:.3e} "
+            f"(bound {DEC_CALL_TOL:.1e})")
+        check(faulty[K9B] > DEC_CALL_TOL, "the planted K9b fault went unnoticed")
+        dec.update(per_call=worst, planted_k9b=faulty[K9B])
+
+        # against float32 exact mode, image by image
+        d_iou, agree = 0.0, 1.0
+        for r, im in zip([res] + batch, [image] + imgs):
+            r32 = pred32.remove_background(im)
+            agree = min(agree, float(((r.all_masks > 0.5)
+                                      == (r32.all_masks > 0.5)).mean()))
+            d_iou = max(d_iou, float(np.abs(r.all_ious - r32.all_ious).max()))
+        log(f"  gated bf16 vs fp32 exact (17 images): worst thresholded "
+            f"agreement {agree:.6f}, max|d iou score| {d_iou:.3e}")
+        check(agree >= 0.99, f"gated bf16/fp32 agreement {agree} < 0.99")
+        check(d_iou <= 2e-2, f"gated bf16/fp32 IoU score diff {d_iou} > 2e-2")
+        dec.update(agreement=agree, d_iou=d_iou)
+
+    # device time of the forward, gates off and on in turns, and img/s
+    c1 = torch.from_numpy(pred._preprocess(image)[0][None]).cuda()
+    c16 = torch.from_numpy(np.stack([pred._preprocess(im)[0] for im in imgs])).cuda()
+    for tag, canvas, iters in (("b1", c1, 20), ("b16", c16, 5)):
+        times = {False: [], True: []}
+        for on in (False, True, True, False):
+            with decoder_gates(on):
+                times[on].append(cuda_ms(lambda: pred._forward_device(canvas, "full"),
+                                         iters=iters))
+        dec[f"fwd_ms_{tag}_off"] = statistics.mean(times[False])
+        dec[f"fwd_ms_{tag}_on"] = statistics.mean(times[True])
+        log(f"  forward {tag}: gates off {times[False]} ms, on {times[True]} ms")
+    with decoder_gates(True):
+        forward_profile(pred, c1.cpu().numpy(), "b1_gated", dec, iters=20)
+        forward_profile(pred, c16.cpu().numpy(), "b16_gated", dec)
+    for on in (False, True):
+        with decoder_gates(on):
+            pred.remove_background(image)
+            t0 = time.perf_counter()
+            for _ in range(10):
+                pred.remove_background(image)
+            b1 = 10 / (time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            for _ in range(2):
+                pred.remove_background_batch(imgs)
+            b16 = 32 / (time.perf_counter() - t0)
+        tag = "on" if on else "off"
+        dec[f"img_s_b1_{tag}"], dec[f"img_s_b16_{tag}"] = b1, b16
+        log(f"  end to end, gates {tag}: batch 1 {b1:.3f} img/s, batch 16 "
+            f"{b16:.3f} img/s")
+    decoder_highres(results, wrappers, cfg, imgs)
+    decoder_train_step(results, wrappers)
+
+
+def decoder_highres(results, wrappers, cfg, imgs):
+    """2048^2 with both gates on: one forward with every gated call held
+    against its plain version (the 2048^2 shapes, refinenet1's RCU convs
+    on K9a among them), then `remove_background_stream` (batch 1, payload
+    "best", bucketed upload) — launches per image as the rule gives them
+    and each result against `payload="full"`."""
+    import numpy as np
+    import torch
+
+    from s3od_torch import BackgroundRemoval
+    from s3od_torch.models.segmentation import S3ODSegmentation, init_weights_
+
+    want = decoder_rule_counts(cfg, 2048)
+    log(f"phase decoder gates on, 2048^2 ViT-B: launches by the rule {want}")
+    check(want == {K9A: 7, K9B: 4, K10: 1}, f"2048^2 rule counts {want}")
+    model = init_weights_(S3ODSegmentation(cfg), torch.Generator().manual_seed(0))
+    pred = BackgroundRemoval.from_model(model, image_size=2048, device="cuda")
+    dec = results["_decoder"]
+    with decoder_gates(True):
+        worst = {}
+        for fn in wrappers.values():
+            fn.launches = 0
+        with decoder_shadowed(results, worst):
+            pred.remove_background(imgs[0])
+        counts = decoder_counts(wrappers)
+        log(f"  one forward: launches {counts}; per call vs plain " + ", ".join(
+            f"{k} {v:.3e}" for k, v in worst.items()))
+        check(counts == want, f"2048^2 launches {counts}, want {want}")
+        check(all(v <= DEC_CALL_TOL for v in worst.values()),
+              f"a 2048^2 gated call out of bound {worst}")
+        for fn in wrappers.values():
+            fn.launches = 0
+        streamed = list(pred.remove_background_stream(
+            imgs[:2], batch=1, payload="best", upload="bucket"))
+        torch.cuda.synchronize()
+        counts = decoder_counts(wrappers)
+        check(counts == {k: 2 * v for k, v in want.items()},
+              f"2048^2 stream launches {counts}")
+        d_best = d_iou = 0.0
+        for im, r in zip(imgs[:2], streamed):
+            full = pred.remove_background(im)
+            d_best = max(d_best, float(np.abs(r.predicted_mask
+                                              - full.predicted_mask).max()))
+            d_iou = max(d_iou, float(np.abs(r.all_ious - full.all_ious).max()))
+        log(f"  stream of 2: launches {counts}; 'best' vs 'full': max|d best "
+            f"mask| {d_best:.3e}, max|d iou| {d_iou:.3e}")
+        check(d_best <= BEST_TOL and d_iou <= 1e-5,
+              f"2048^2 gated stream vs full ({d_best}, {d_iou})")
+        dec.update(per_call_2048=worst, best_vs_full_2048=d_best)
+    del pred, model
+    torch.cuda.empty_cache()
+
+
+def decoder_train_step(results, wrappers):
+    """One `train_step` at ViT-B 1024^2 b4 bf16 with the Winograd gate on:
+    the loss finite, K9a's forward and dx launches as the rule gives them;
+    then K9a's autograd dx against the vjp of its plain version at the
+    step's layer1_rn shape."""
+    import torch
+
+    from s3od_torch.ops.experimental import winograd as wg
+    from s3od_torch.training.loss import LOSS_PRESETS, LossModule
+    from s3od_torch.training.optim import Optimizer
+    from s3od_torch.training.train_step import train_step
+
+    log("phase decoder gate in training: train_step ViT-B 1024^2 b4 bf16")
+    model = vit_b_model(2)
+    opt = Optimizer(model, 1e-4, steps_per_epoch=100)
+    batch = fixture_batch(4, 1024)
+    loss_module = LossModule(LOSS_PRESETS["focal_iou"])
+    fwd, dx = decoder_rule_counts(model.cfg, 1024, training=True)
+    step = lambda i: train_step(model, opt, loss_module, batch, 0, i,
+                                compute_dtype=torch.bfloat16,
+                                generator=torch.Generator().manual_seed(i))
+    with decoder_gates(True):
+        for fn in wrappers.values():
+            fn.launches = 0
+        loss = float(step(0)["loss"])
+        torch.cuda.synchronize()
+        counts = decoder_counts(wrappers)
+        log(f"  loss {loss:.4f}; launches {counts}; by the rule K9a {fwd} "
+            f"forward + {dx} dx")
+        check(loss == loss and abs(loss) < 1e6, "gated train step loss")
+        check(counts == {K9A: fwd + dx, K9B: 0, K10: 0},
+              f"gated train step launches {counts}")
+        ms_on = cuda_ms(lambda: step(1), iters=3)
+    ms_off = cuda_ms(lambda: step(2), iters=3)
+    log(f"  train step: Winograd gate on {ms_on:.2f} ms, off {ms_off:.2f} ms")
+    results["_decoder"].update(train_step_ms_on=ms_on, train_step_ms_off=ms_off,
+                               train_k9a=fwd + dx)
+    del model, opt
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    r = lambda *s, scale=1.0: (torch.randn(*s, generator=gen, device="cuda")
+                               * scale).to(torch.bfloat16)
+    x = r(4, 256, 256, 256).permute(0, 2, 3, 1)
+    w, b, g = r(3, 3, 256, 256, scale=0.03), r(256, scale=0.1), r(4, 256, 256, 256)
+    xk = x.detach().requires_grad_()
+    (dx_k,) = torch.autograd.grad(wg.conv3x3_winograd(xk, {"kernel": w, "bias": b}),
+                                  xk, g)
+    xp = x.detach().requires_grad_()
+    (dx_p,) = torch.autograd.grad(wg.winograd_conv_plain(xp, w, b), xp, g)
+    log("  K9a dx (autograd, through K9a) vs the plain version's vjp at "
+        "(4, 256, 256, 256):")
+    compare(K9A, [dx_k], [dx_p], results)
 
 
 # ----------------------------------------------------------------------------
@@ -1904,11 +2338,13 @@ def main() -> int:
 
     results: dict = {}
     kernel_phases(results)
-    pred = slice_phase(results)
+    pred, pred32 = slice_phase(results)
     quality_phase(results)
     highres_phase(results)
     serving_phase(results, pred)
-    del pred
+    decoder_phase(results, pred, pred32)
+    del pred, pred32
+    torch.cuda.empty_cache()
     train_entry_phase(results)
     train_step_phase(results)
     grad_agreement_phase(results)
@@ -1933,6 +2369,7 @@ def main() -> int:
     log(json.dumps({"slice": results["_slice"], "quality": results["_quality"],
                     "highres": results["_highres"],
                     "serving": results["_serving"],
+                    "decoder": results["_decoder"],
                     "train": results["_train"],
                     "factory": results["_factory"],
                     "kernel_extra": {k: {x: y for x, y in v.items()

@@ -1,4 +1,4 @@
-"""Builds and loads the port's CUDA kernels (K2-K8).
+"""Builds and loads the port's CUDA kernels (K2-K10).
 
 Each `csrc/*.cu` file compiles with its own `nvcc` process, all started
 together, and the objects link into ONE shared library with a plain C
@@ -45,6 +45,7 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points: name -> argument types (every pointer and the stream as
 # c_void_p, or ctypes would cut them to 32 bits).
 _SIGNATURES = {
@@ -60,6 +61,14 @@ _SIGNATURES = {
     "s3od_attn_epilogue": [_P] * 9 + [_I] * 5 + [_F, _P],
     # x, wu, bu, wd, bd, res, ls, out, rows, c, f, stream
     "s3od_mlp_fused": [_P] * 8 + [_I] * 3 + [_P],
+    # x, u, bias, out, batch, c, h, w, k, x strides (b, h, w, c),
+    # out strides (b, h, w, k), stream
+    "s3od_winograd_conv": [_P] * 4 + [_I] * 5 + [_L] * 8 + [_P],
+    # x, u1, b1, u2, b2, out, batch, c, h, w, x strides, out strides, stream
+    "s3od_winograd_rcu": [_P] * 6 + [_I] * 4 + [_L] * 8 + [_P],
+    # x, w1, b1, w0, b0, k1, bk, out, batch, h, w, c_in, c_mid, n_out,
+    # x strides (b, h, w, c), out strides (b, h, w, n), stream
+    "s3od_mask_tail": [_P] * 8 + [_I] * 6 + [_L] * 8 + [_P],
 }
 _COUNT_LOCK = threading.Lock()
 _TRITON_ENV_LOCK = threading.RLock()

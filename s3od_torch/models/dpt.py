@@ -1,8 +1,14 @@
 """DPT decoder in PyTorch (counterpart of `s3od_tpu/models/dpt.py`).
 
-NCHW with cuDNN convolutions; parameter names follow the reference
-checkpoint (`seg_head.*` keys). The JAX package computes these convs
-outside Pallas, so there is no kernel to port here. Structure:
+NCHW; parameter names follow the reference checkpoint (`seg_head.*`
+keys). Every conv runs cuDNN (every 3x3 through `ops/conv.conv2d`) unless
+one of the JAX package's two gates is on, as there:
+- `S3OD_WINOGRAD=1` (`ops/conv.py`): eligible 3x3 convs run K9a, and a
+  BN-folded ResidualConvUnit (BN Identity, conv biases, both rules true)
+  runs K9b as one kernel (`dpt.py:76-95`).
+- `MASK_TAIL_FUSED` (below): the serving forward's mask-head tail runs
+  K10 (`dpt.py:364-382`).
+Both are off by default, and both act on the bf16 route only. Structure:
 
   taps (B, N, C) x4 -> 1x1 project -> resize (convT x4, convT x2, id,
   3x3 s2) -> 3x3 scratch convs -> refinenet4..1 (RCUs + 1x1 out_conv +
@@ -29,7 +35,15 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from s3od_torch.configs import SegmentationConfig
+from s3od_torch.ops import conv as conv_ops
+from s3od_torch.ops.experimental import winograd
+from s3od_torch.ops.experimental.mask_tail import mask_tail
+from s3od_torch.ops.experimental.winograd import rcu_winograd
 from s3od_torch.ops.resize import resize_bilinear
+
+# The fused mask-head tail (K10) for the serving forward; off, as the JAX
+# package ships it (`s3od_tpu/models/dpt.py:49`).
+MASK_TAIL_FUSED = False
 
 
 def _conv(mod: nn.Module, x):
@@ -37,12 +51,13 @@ def _conv(mod: nn.Module, x):
     to x's dtype at use."""
     if isinstance(mod, nn.Identity):
         return x
-    w = mod.weight.to(x.dtype)
-    b = mod.bias.to(x.dtype) if mod.bias is not None else None
     if isinstance(mod, nn.ConvTranspose2d):
+        w = mod.weight.to(x.dtype)
+        b = mod.bias.to(x.dtype) if mod.bias is not None else None
         return F.conv_transpose2d(x, w, b, mod.stride, mod.padding,
                                   mod.output_padding, mod.groups, mod.dilation)
-    return mod._conv_forward(x, w, b)
+    return conv_ops.conv2d(x, mod.weight, mod.bias, mod.stride[0],
+                           mod.padding[0])
 
 
 def _linear(mod: nn.Linear, x):
@@ -88,9 +103,27 @@ class ResidualConvUnit(nn.Module):
         self.bn1, self.bn2 = bn(), bn()
 
     def forward(self, x, training: bool = False):
+        if self._chained(x):
+            p1 = {"kernel": self.conv1.weight.to(x.dtype).permute(2, 3, 1, 0),
+                  "bias": self.conv1.bias}
+            p2 = {"kernel": self.conv2.weight.to(x.dtype).permute(2, 3, 1, 0),
+                  "bias": self.conv2.bias}
+            y = rcu_winograd(x.permute(0, 2, 3, 1), p1, p2)
+            return y.permute(0, 3, 1, 2)
         out = batch_norm(self.bn1, _conv(self.conv1, F.relu(x)), training)
         out = batch_norm(self.bn2, _conv(self.conv2, F.relu(out)), training)
         return out + x
+
+    def _chained(self, x) -> bool:
+        """The BN-folded form with the Winograd gate on and both rules
+        true: the whole unit is one K9b launch (`dpt.py:76-95`)."""
+        if not (isinstance(self.bn1, nn.Identity)
+                and isinstance(self.bn2, nn.Identity)
+                and self.conv1.bias is not None):
+            return False
+        _, c, h, w = x.shape
+        return (conv_ops._winograd_eligible(x, self.conv1.weight, 1, 1)
+                and winograd.rcu_winograd_available(h, w, c, x.dtype))
 
 
 class FeatureFusionBlock(nn.Module):
@@ -135,18 +168,34 @@ class MaskHead(nn.Module):
             for _ in range(num_outputs)
         )
 
-    def forward(self, path1, target_hw):
+    def forward(self, path1, target_hw, fused_tail: bool = False):
+        """`fused_tail`: the serving forward may run K10 (the JAX
+        `masks_nhwc` and `not training` conditions, `dpt.py:368-374`)."""
         feat = _conv(self.output_conv1, path1)
         up = self.upsample_2x
-        feat = F.relu(_conv(up[2], F.relu(_conv(up[0], feat))))
-        feat = resize_bilinear(feat, target_hw, antialias=True)  # no-op at 16p
-        # The branches' 3x3 convs run as ONE conv over the shared features
-        # and their 1x1 convs as one grouped (block-diagonal) conv.
+        feat = _conv(up[0], feat)
         heads = self.mask_heads
         dt = feat.dtype
-        hidden = F.relu(F.conv2d(
-            feat, torch.cat([h[0].weight for h in heads]).to(dt),
-            torch.cat([h[0].bias for h in heads]).to(dt), padding=1))
+        # The branches' 3x3 convs run as ONE conv over the shared features
+        # and their 1x1 convs as one grouped (block-diagonal) conv.
+        k_fused = torch.cat([h[0].weight for h in heads])
+        b_fused = torch.cat([h[0].bias for h in heads])
+        hh, ww = feat.shape[-2:]
+        if (fused_tail and MASK_TAIL_FUSED and dt == torch.bfloat16
+                and (hh, ww) == tuple(target_hw) and hh % 8 == 0
+                and ww % 8 == 0):
+            inter, n = heads[0][0].weight.shape[0], len(heads)
+            k1 = torch.zeros(inter * n, n, dtype=dt, device=feat.device)
+            for i, h in enumerate(heads):
+                k1[i * inter: (i + 1) * inter, i] = h[2].weight[0, :, 0, 0]
+            m = mask_tail(
+                feat.permute(0, 2, 3, 1), up[2].weight.permute(2, 3, 1, 0),
+                up[2].bias, k_fused.permute(2, 3, 1, 0), b_fused, k1,
+                torch.cat([h[2].bias for h in heads]))
+            return m.permute(0, 3, 1, 2)
+        feat = F.relu(_conv(up[2], F.relu(feat)))
+        feat = resize_bilinear(feat, target_hw, antialias=True)  # no-op at 16p
+        hidden = F.relu(conv_ops.conv2d(feat, k_fused, b_fused, padding=1))
         return F.conv2d(hidden, torch.cat([h[2].weight for h in heads]).to(dt),
                         torch.cat([h[2].bias for h in heads]).to(dt),
                         groups=len(heads))
@@ -172,11 +221,12 @@ class DPTHead(nn.Module):
         self.mask_head = MaskHead(f, cfg.mask_inter_features, cfg.num_outputs)
 
     def forward(self, taps: List[torch.Tensor], patch_hw, patch_size: int,
-                training: bool = False):
+                training: bool = False, serving: bool = False):
         """`training` normalizes with batch statistics and updates the
-        BatchNorms' running statistics."""
+        BatchNorms' running statistics; `serving` marks the serving forward
+        (the JAX `serving_fast_output`), the one that may run K10."""
         return self.decode(self.neck(taps, patch_hw), patch_hw, patch_size,
-                           training)
+                           training, serving)
 
     def neck(self, taps: List[torch.Tensor], patch_hw) -> List[torch.Tensor]:
         """Project and resize each tap to its pyramid level (strides 4, 8,
@@ -192,7 +242,7 @@ class DPTHead(nn.Module):
                 for i, f in enumerate(feats)]
 
     def decode(self, rn: List[torch.Tensor], patch_hw, patch_size: int,
-               training: bool = False):
+               training: bool = False, serving: bool = False):
         """Refinenets 4..1 over the pyramid, then the IoU and mask heads."""
         ph, pw = patch_hw
         s = self.scratch
@@ -206,7 +256,8 @@ class DPTHead(nn.Module):
         pooled = path1.float().mean(dim=(2, 3)).to(path1.dtype)
         fc1, fc2 = self.classifier_head[2], self.classifier_head[4]
         iou = _linear(fc2, F.relu(_linear(fc1, pooled)))
-        masks = self.mask_head(path1, (ph * patch_size, pw * patch_size))
+        masks = self.mask_head(path1, (ph * patch_size, pw * patch_size),
+                               serving and not training)
         return masks, iou
 
 

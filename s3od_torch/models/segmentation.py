@@ -28,7 +28,8 @@ class S3ODSegmentation(nn.Module):
 
     def forward(self, images, training: bool = False,
                 rope_coord_scale: Optional[torch.Tensor] = None,
-                remat_policy: Optional[str] = None):
+                remat_policy: Optional[str] = None,
+                serving_fast_output: bool = False):
         """images (B, H, W, 3) normalized, in the compute dtype.
 
         Returns {"pred_masks": (B, n, H, W) logits, "pred_iou": (B, n) fp32
@@ -38,7 +39,10 @@ class S3ODSegmentation(nn.Module):
         public contract, `segmentation.py:78-83`), normalizes the decoder
         with batch statistics (updating the BatchNorms' running ones) and
         checkpoints every encoder block (`remat_policy`: models/dinov3.py).
-        `rope_coord_scale` rescales the RoPE coordinates."""
+        `rope_coord_scale` rescales the RoPE coordinates.
+        `serving_fast_output` marks the serving forward, as in the JAX
+        package: only it may run the fused mask tail (K10, behind
+        `models/dpt.MASK_TAIL_FUSED`); the masks stay NCHW either way."""
         route = "kernel" if images.dtype == torch.bfloat16 else "exact"
         cfg = self.cfg
         p = cfg.encoder.patch_size
@@ -47,7 +51,8 @@ class S3ODSegmentation(nn.Module):
                             remat=training,
                             remat_policy=remat_policy)
         masks, iou = self.seg_head(
-            taps, (images.shape[1] // p, images.shape[2] // p), p, training)
+            taps, (images.shape[1] // p, images.shape[2] // p), p, training,
+            serving_fast_output)
         if training:
             masks = masks.float()
         return {"pred_masks": masks, "pred_iou": iou.float()}

@@ -3,7 +3,8 @@ in PyTorch (counterpart of `s3od_tpu/models/vae.py`).
 
 Resnet blocks with GroupNorm + SiLU, a mid block with single-head
 self-attention, 4 down/up stages (8x spatial). The public functions keep
-the JAX package's NHWC layout; the modules run NCHW on cuDNN. Parameters
+the JAX package's NHWC layout; the modules run NCHW, every conv through
+`ops/conv.conv2d` (cuDNN, or K9a under `S3OD_WINOGRAD=1`). Parameters
 mirror the JAX `{enc, dec}` trees path for path (`down.0.resnets.0.conv1.
 weight` <-> `down/0/resnets/0/conv1/kernel`, HWIO -> OIHW).
 
@@ -26,6 +27,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from s3od_torch.ops.conv import conv2d
 from s3od_torch.ops.flash_attention import query_chunk, row_chunks
 from s3od_torch.ops.precision import default_dtype
 from s3od_torch.utils import resolve_device
@@ -48,8 +50,9 @@ def tiny_vae_config() -> VAEConfig:
 
 
 def _conv(mod: nn.Conv2d, x, stride: int = 1, padding: int = 0):
-    return F.conv2d(x, mod.weight.to(x.dtype), mod.bias.to(x.dtype),
-                    stride=stride, padding=padding)
+    """Through `ops/conv.conv2d`, as the JAX VAE calls its `conv2d`: with
+    `S3OD_WINOGRAD=1` an eligible bf16 3x3 conv runs K9a."""
+    return conv2d(x, mod.weight, mod.bias, stride, padding)
 
 
 def _group_norm(x, gn: nn.GroupNorm, groups: int, eps: float = 1e-6):

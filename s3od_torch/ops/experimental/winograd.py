@@ -1,0 +1,367 @@
+"""K9a, the Winograd F(2x2, 3x3) conv, and K9b, the chained
+ResidualConvUnit (CUDA), with their plain versions, eligibility rules and
+gradients.
+
+Replaces the TPU kernels `s3od_tpu/ops/experimental/winograd.py:_kernel`
+(via `conv3x3_winograd`) and `:_rcu_kernel` (via `rcu_winograd`). The
+kernel sources and their design notes are in `s3od_torch/csrc/winograd.cu`.
+
+Layout: the public functions take the JAX layout — x (B, H, W, C) in NHWC
+*logical* order with any strides, weights HWIO (3, 3, C, K). The decoder
+hands in `x_nchw.permute(0, 2, 3, 1)`, a view: the kernels read and write
+through strides, and the output is allocated in the input's memory order
+(NCHW memory for an NCHW view), so no permute or copy runs around a call.
+
+Rounding points (the TPU kernels'): the 4x4 input patches are widened to
+fp32; V = B^T d B is computed in fp32 and rounded to the compute dtype;
+U = G w G^T is computed in fp32 from the weights already cast to that
+dtype, then rounded to it; each of the 16 products accumulates in fp32;
+A^T M A folds into four fp32 accumulators, the bias (in the compute dtype,
+widened) is added, and the result is rounded once. K9b reads relu(x),
+rounds its intermediate relu(conv1 + b1) once and holds it at zero outside
+the image, and sums conv2 + b2 + x in fp32 before one rounding. The plain
+versions are the Winograd algorithm in torch ops, in the TPU kernel's
+order of additions, not `F.conv2d`: in bf16 the two differ by up to twice
+the conv's own error.
+
+Eligibility (`winograd_available`, `rcu_winograd_available`, `_pick_rows`,
+`_pick_rows_rcu`) is copied from the JAX package unchanged, VMEM budget
+included. It decides which convs compute in the Winograd domain, which
+in bf16 changes the rounding, so the port routes exactly the convs the JAX
+package routes; the Hopper kernels pick their own tiling inside it.
+
+Gradients mirror the JAX `custom_vjp` rules: K9a's dx is itself a 3x3
+conv with the space-flipped, channel-transposed weights and goes through
+K9a whenever the rule admits the gradient's shape; dw and db, and all of
+K9b's backward, are the vjp of the plain `F.conv2d` reference.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from s3od_torch import _build
+from s3od_torch.ops.autograd import plain_vjp
+
+# F(2x2, 3x3) transform matrices; B^T and A^T hold only 0 and +-1.
+_BT = ((1, 0, -1, 0), (0, 1, 1, 0), (0, -1, 1, 0), (0, 1, 0, -1))
+_AT = ((1, 1, 1, 0), (0, 1, -1, -1))
+_G = ((1.0, 0.0, 0.0), (0.5, 0.5, 0.5), (0.5, -0.5, 0.5), (0.0, 0.0, 1.0))
+
+# The JAX package's VMEM budget for its block picker (`winograd.py:60-63`).
+_VMEM_BUDGET = 11 * 1024 * 1024
+
+MAX_SMEM = 232448  # bytes of shared memory one H100 block may use
+
+
+_G_ON: dict = {}  # device -> G: one host-to-device copy, not one a call
+
+
+def transform_weights(w: torch.Tensor) -> torch.Tensor:
+    """(3, 3, C, K) HWIO -> (16, C, K) Winograd-domain weights, fp32."""
+    g = _G_ON.get(w.device)
+    if g is None:
+        g = _G_ON[w.device] = torch.tensor(_G, dtype=torch.float32, device=w.device)
+    u = torch.einsum("uk,vl,klio->uvio", g, g, w.float())
+    return u.reshape(16, w.shape[2], w.shape[3])
+
+
+# ----------------------------------------------------------------------------
+# Eligibility, as in the JAX package
+# ----------------------------------------------------------------------------
+
+
+def _pick_rows(h_tiles: int, w2p: int, c: int, k: int, dtype_bytes: int):
+    """Largest row-block (divisor of h_tiles) whose VMEM footprint fits."""
+    for th in (16, 8, 4, 2, 1):
+        if h_tiles % th:
+            continue
+        x_bytes = (th + 1) * w2p * 4 * c * dtype_bytes
+        u_bytes = 16 * c * k * dtype_bytes
+        out_bytes = 2 * th * (w2p - 1) * 4 * k * dtype_bytes
+        live = 8 * (w2p - 1) * max(c, k) * 4
+        if x_bytes + u_bytes + out_bytes + live <= _VMEM_BUDGET:
+            return th
+    return None
+
+
+def winograd_available(h: int, w: int, c: int, k: int,
+                       dtype=torch.bfloat16) -> bool:
+    """Whether a 3x3/s1/p1 conv of this shape computes in the Winograd
+    domain (`winograd.py:167-179`)."""
+    if h % 2 or w % 16 or h < 16 or w < 16:
+        return False
+    if c % 128 or k % 128:
+        return False
+    if w // 2 < 64:
+        return False
+    w2p = -(-(w // 2 + 1) // 8) * 8
+    return _pick_rows(h // 2, w2p, c, k, dtype.itemsize) is not None
+
+
+def _pick_rows_rcu(h_tiles: int, w2p: int, c: int, dtype_bytes: int):
+    for th in (16, 8, 4, 2):
+        if h_tiles % th:
+            continue
+        x_bytes = (th + 3) * w2p * 4 * c * dtype_bytes
+        h_bytes = (th + 3) * w2p * 4 * c * dtype_bytes
+        u_bytes = 2 * 16 * c * c * dtype_bytes
+        out_bytes = 2 * th * (w2p - 1) * 4 * c * dtype_bytes
+        live = 8 * (w2p - 1) * c * 4
+        if x_bytes + h_bytes + u_bytes + out_bytes + live <= _VMEM_BUDGET:
+            return th
+    return None
+
+
+def rcu_winograd_available(h: int, w: int, c: int,
+                           dtype=torch.bfloat16) -> bool:
+    """Whether a BN-folded RCU of this shape runs chained
+    (`winograd.py:388-395`)."""
+    if h % 2 or w % 16 or h < 16 or w < 16:
+        return False
+    if c % 128 or w // 2 < 64:
+        return False
+    w2p = -(-(w // 2 + 1) // 8) * 8
+    return _pick_rows_rcu(h // 2, w2p, c, dtype.itemsize) is not None
+
+
+# ----------------------------------------------------------------------------
+# Plain versions
+# ----------------------------------------------------------------------------
+
+
+def _wino_fold(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """A^T (V U) A for every 2x2 output tile of a 3x3/s1/p1 conv: x (B, H,
+    W, C) in the compute dtype (H, W even), u (16, C, K) rounded to it.
+    Returns the fp32 accumulators as (B, H, W, K), in the TPU kernel's
+    order of additions (`_wino_row`)."""
+    bsz, h, w, c = x.shape
+    k = u.shape[-1]
+    ht, wt = h // 2, w // 2
+    dt = x.dtype
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    uf = u.float()
+
+    def slab(p, q):  # input-patch position (p, q) of every tile: (B, Ht, Wt, C)
+        return xp[:, p: p + 2 * ht: 2, q: q + 2 * wt: 2]
+
+    acc = [[None, None], [None, None]]
+    for uu in range(4):
+        t = []
+        for q in range(4):
+            s = None
+            for p in range(4):
+                cf = _BT[uu][p]
+                if cf:
+                    term = slab(p, q) if cf > 0 else -slab(p, q)
+                    s = term if s is None else s + term
+            t.append(s)
+        for vv in range(4):
+            v = None
+            for q in range(4):
+                cf = _BT[vv][q]
+                if cf:
+                    term = t[q] if cf > 0 else -t[q]
+                    v = term if v is None else v + term
+            m = torch.matmul(v.to(dt).float().reshape(-1, c), uf[uu * 4 + vv])
+            for a in range(2):
+                for b in range(2):
+                    cf = _AT[a][uu] * _AT[b][vv]
+                    if cf:
+                        term = m if cf > 0 else -m
+                        acc[a][b] = term if acc[a][b] is None else acc[a][b] + term
+    y = torch.stack([torch.stack(row, 0) for row in acc], 0)  # (2, 2, P, K)
+    y = y.reshape(2, 2, bsz, ht, wt, k).permute(2, 3, 0, 4, 1, 5)
+    return y.reshape(bsz, h, w, k)
+
+
+def _u(w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """U = G w G^T from the weights cast to the compute dtype, rounded to
+    it (`conv.py:54` casts before `_forward` transforms)."""
+    return transform_weights(w.to(dt)).to(dt)
+
+
+def winograd_conv_plain(x, w, b):
+    """Plain version of K9a: x (B, H, W, C), w (3, 3, C, K), b (K,) ->
+    (B, H, W, K) in x's dtype."""
+    dt = x.dtype
+    return (_wino_fold(x, _u(w, dt)) + b.to(dt).float()).to(dt)
+
+
+def winograd_rcu_plain(x, w1, b1, w2, b2):
+    """Plain version of K9b: x + conv2(relu(conv1(relu(x)) + b1)) + b2,
+    both convs C -> C; x (B, H, W, C), w HWIO (3, 3, C, C)."""
+    dt = x.dtype
+    h = (_wino_fold(torch.relu(x), _u(w1, dt)) + b1.to(dt).float())
+    h = torch.relu(h).to(dt)
+    y = _wino_fold(h, _u(w2, dt)) + b2.to(dt).float()
+    return (y + x.float()).to(dt)
+
+
+def _reference(x, w, b):
+    """The direct conv + bias in x's dtype (`winograd.py:_reference`), NHWC
+    / HWIO: what the gradients differentiate."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype).permute(3, 2, 0, 1),
+                 padding=1)
+    return y.permute(0, 2, 3, 1) + b.to(x.dtype)
+
+
+def _rcu_reference(x, w1, b1, w2, b2):
+    h = _reference(torch.relu(x), w1, b1)
+    return _reference(torch.relu(h), w2, b2) + x
+
+
+# ----------------------------------------------------------------------------
+# Kernel wrappers
+# ----------------------------------------------------------------------------
+
+
+def _empty_like_layout(x: torch.Tensor, k: int) -> torch.Tensor:
+    """A (B, H, W, k) NHWC-logical output in x's memory order: NCHW memory
+    when x is a permuted NCHW tensor, else NHWC."""
+    bsz, h, w, _ = x.shape
+    if x.permute(0, 3, 1, 2).is_contiguous():
+        return torch.empty(bsz, k, h, w, dtype=x.dtype,
+                           device=x.device).permute(0, 2, 3, 1)
+    return torch.empty(bsz, h, w, k, dtype=x.dtype, device=x.device)
+
+
+def rcu_smem_bytes(c: int) -> int:
+    """Dynamic shared memory of one K9b block at width `c` (mirrors the
+    kernel's `rcu_smem_bytes`): the intermediate (6 x 36 x (c + 8)), the
+    input chunk (at most 10 x 34 x 24), V (16 x 64 x 24) and U (16 x 16 x
+    72), bf16."""
+    return 2 * (6 * 36 * (c + 8) + 10 * 34 * 24 + 16 * 64 * 24 + 16 * 16 * 72)
+
+
+def winograd_conv(x, w, b):
+    """K9a: the 3x3/s1/p1 conv + bias through the Winograd domain.
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel or
+    raise: bf16 x (B, H, W, C) with H and W even, C a multiple of 16; w
+    (3, 3, C, K) with K a multiple of 64; b (K,)."""
+    if x.device.type == "cpu":
+        return winograd_conv_plain(x, w, b)
+    bsz, h, wd, c = x.shape
+    k = w.shape[-1]
+    if x.dtype != torch.bfloat16:
+        raise ValueError("winograd_conv kernel: bf16 inputs only")
+    if (tuple(w.shape) != (3, 3, c, k) or tuple(b.shape) != (k,)
+            or h % 2 or wd % 2 or c % 16 or k % 64 or not x.numel()):
+        raise ValueError(f"winograd_conv kernel: unsupported x={tuple(x.shape)} "
+                         f"w={tuple(w.shape)} b={tuple(b.shape)}")
+    u = _u(w, x.dtype).contiguous()
+    bias = b.to(x.dtype).contiguous()
+    out = _empty_like_layout(x, k)
+    lib = _build.load_library()
+    code = lib.s3od_winograd_conv(
+        x.data_ptr(), u.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        bsz, c, h, wd, k, *x.stride(), *out.stride(), _build.stream_ptr(x))
+    _build.check(code, "winograd_conv")
+    _build.count_launch(winograd_conv)
+    return out
+
+
+winograd_conv.launches = 0
+
+
+def winograd_rcu(x, w1, b1, w2, b2):
+    """K9b: x + conv2(relu(conv1(relu(x)) + b1)) + b2 with the
+    intermediate kept on chip.
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel or
+    raise: bf16 x (B, H, W, C) with H and W even and C a multiple of 64 up
+    to 256; w1, w2 (3, 3, C, C); b1, b2 (C,)."""
+    if x.device.type == "cpu":
+        return winograd_rcu_plain(x, w1, b1, w2, b2)
+    bsz, h, wd, c = x.shape
+    if x.dtype != torch.bfloat16:
+        raise ValueError("winograd_rcu kernel: bf16 inputs only")
+    if (any(tuple(t.shape) != (3, 3, c, c) for t in (w1, w2))
+            or any(tuple(t.shape) != (c,) for t in (b1, b2))
+            or h % 2 or wd % 2 or c % 64 or not x.numel()
+            or rcu_smem_bytes(c) > MAX_SMEM):
+        raise ValueError(f"winograd_rcu kernel: unsupported x={tuple(x.shape)} "
+                         f"w1={tuple(w1.shape)} w2={tuple(w2.shape)}")
+    u1, u2 = _u(w1, x.dtype).contiguous(), _u(w2, x.dtype).contiguous()
+    b1, b2 = b1.to(x.dtype).contiguous(), b2.to(x.dtype).contiguous()
+    out = _empty_like_layout(x, c)
+    lib = _build.load_library()
+    code = lib.s3od_winograd_rcu(
+        x.data_ptr(), u1.data_ptr(), b1.data_ptr(), u2.data_ptr(),
+        b2.data_ptr(), out.data_ptr(), bsz, c, h, wd, *x.stride(),
+        *out.stride(), _build.stream_ptr(x))
+    _build.check(code, "winograd_rcu")
+    _build.count_launch(winograd_rcu)
+    return out
+
+
+winograd_rcu.launches = 0
+
+
+# ----------------------------------------------------------------------------
+# Gradients (`_bwd_rule`, `_rcu_bwd`) and the public functions
+# ----------------------------------------------------------------------------
+
+
+class _WinogradConv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w, b)
+        return winograd_conv(x, w, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, b = ctx.saved_tensors
+        need_x, need_w, need_b = ctx.needs_input_grad
+        db = g.sum((0, 1, 2)).to(b.dtype) if need_b else None
+        dw = (plain_vjp(_reference, (x, w, b), (False, True, False), (g,))[1]
+              if need_w else None)
+        dx = None
+        if need_x:
+            _, h, wd, _ = g.shape
+            c, k = w.shape[2], w.shape[3]
+            w_t = w.flip(0, 1).transpose(2, 3)  # (3, 3, K, C)
+            zero = torch.zeros(c, dtype=g.dtype, device=g.device)
+            if winograd_available(h, wd, k, c, g.dtype):
+                dx = winograd_conv(g, w_t, zero)
+            else:
+                dx = _reference(g, w_t, zero)
+            dx = dx.to(x.dtype)
+        return dx, dw, db
+
+
+class _WinogradRCU(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        return winograd_rcu(x, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, g):
+        return plain_vjp(_rcu_reference, ctx.saved_tensors,
+                         ctx.needs_input_grad, (g,))
+
+
+winograd_conv_autograd = _WinogradConv.apply
+winograd_rcu_autograd = _WinogradRCU.apply
+
+
+def conv3x3_winograd(x: torch.Tensor, p: dict) -> torch.Tensor:
+    """Drop-in for a 3x3/s1/p1 conv + optional bias (zeros when absent):
+    x (B, H, W, C), p = {kernel: (3, 3, C, K), bias?: (K,)}. The caller
+    checks `winograd_available` first."""
+    w = p["kernel"]
+    b = p.get("bias")
+    if b is None:
+        b = torch.zeros(w.shape[-1], dtype=x.dtype, device=x.device)
+    return winograd_conv_autograd(x, w, b)
+
+
+def rcu_winograd(x: torch.Tensor, p1: dict, p2: dict) -> torch.Tensor:
+    """The whole BN-folded ResidualConvUnit in one kernel: x (B, H, W, C),
+    p1, p2 = {kernel: (3, 3, C, C), bias: (C,)}. The caller checks
+    `rcu_winograd_available` first."""
+    return winograd_rcu_autograd(x, p1["kernel"], p1["bias"], p2["kernel"],
+                                 p2["bias"])

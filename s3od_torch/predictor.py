@@ -260,7 +260,7 @@ class BackgroundRemoval:
         argmax-IoU mask's fp32 sigmoid x 255 rounded half to even;
         "best_small" the same after a 2x2 mean, (B, S/2, S/2)."""
         x = ((x_u8.float() - self._mean) * self._inv_std).to(self.compute_dtype)
-        out = self.model(x)
+        out = self.model(x, serving_fast_output=True)
         ious = torch.sigmoid(out["pred_iou"])
         if payload == "full":
             return torch.sigmoid(out["pred_masks"]), ious

@@ -1,8 +1,10 @@
 """s3od_torch kernels K1-K6: each plain PyTorch version against its JAX
 Pallas kernel in interpret mode (float32, CPU; K5 also in bf16), the
 wrappers' dispatch and shape gates, and — on a CUDA card only — each
-kernel, K8 included, against its plain version in bf16 (K8's plain
-version against the JAX backward: tests/test_torch_training.py).
+kernel, K7-K10 included, against its plain version in bf16 (K8's plain
+version against the JAX backward: tests/test_torch_training.py; K9a,
+K9b and K10's against the Pallas kernels:
+tests/test_torch_decoder_kernels.py).
 
 Tolerances (float32): the same math in the same order up to the
 summation order of the products and reductions, so 1e-5 (2e-5 for the
@@ -512,4 +514,76 @@ def test_flash_attention_online_matches_plain_on_cuda(cuda, d):
     o_ref, lse_ref = fa.flash_attention_online_plain(q, k, v, n_valid)
     _close([o], [o_ref])
     assert float((lse - lse_ref).abs().max()) <= 1e-3
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["nchw", "nhwc"])
+def test_decoder_kernels_match_plain_on_cuda(cuda, layout):
+    """K9a, K9b and K10 against their plain versions in bf16, on NCHW
+    memory seen through an NHWC view (the decoder's call) and on NHWC
+    memory; shapes with ragged blocks (a partial tile-column block, rows
+    not a multiple of the block), batch 2, nonzero biases; one launch
+    counted per call, the output in the input's memory order."""
+    from s3od_torch.ops.experimental import mask_tail as tm
+    from s3od_torch.ops.experimental import winograd as tw
+
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    bf = torch.bfloat16
+    r = lambda *s, scale=1.0: (torch.randn(*s, generator=gen, device=cuda)
+                               * scale).to(bf)
+
+    def act(b, h, w, c, scale=1.0):
+        if layout == "nchw":
+            return r(b, c, h, w, scale=scale).permute(0, 2, 3, 1)
+        return r(b, h, w, c, scale=scale)
+
+    x = act(2, 38, 136, 128)
+    w, bias = r(3, 3, 128, 192, scale=0.05), r(192, scale=0.1)
+    before = tw.winograd_conv.launches
+    y = tw.winograd_conv(x, w, bias)
+    assert tw.winograd_conv.launches == before + 1
+    assert y.permute(0, 3, 1, 2).is_contiguous() == (layout == "nchw")
+    _close([y], [tw.winograd_conv_plain(x, w, bias)])
+    for c in (128, 256):
+        x = act(2, 34, 60, c)
+        w1, w2 = r(3, 3, c, c, scale=0.03), r(3, 3, c, c, scale=0.03)
+        b1, b2 = r(c, scale=0.3), r(c, scale=0.1)
+        _close([tw.winograd_rcu(x, w1, b1, w2, b2)],
+               [tw.winograd_rcu_plain(x, w1, b1, w2, b2)])
+    x = act(2, 30, 100, 64, scale=0.5)
+    args = (x, r(3, 3, 64, 64, scale=0.05), r(64, scale=0.1),
+            r(3, 3, 64, 96, scale=0.05), r(96, scale=0.1), r(96, 3, scale=0.1),
+            r(3, scale=0.1))
+    before = tm.mask_tail.launches
+    got = tm.mask_tail(*args)
+    assert tm.mask_tail.launches == before + 1
+    _close([got], [tm.mask_tail_plain(*args)])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_winograd_conv_dx_runs_the_kernel_on_cuda(cuda):
+    """K9a's autograd on the card: dx through K9a where the rule admits
+    the gradient's shape, against the plain version's dx."""
+    from s3od_torch.ops.experimental import winograd as tw
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    r = lambda *s, scale=1.0: (torch.randn(*s, generator=gen, device=cuda)
+                               * scale).to(torch.bfloat16)
+    x = r(1, 128, 32, 32).permute(0, 2, 3, 1).requires_grad_()
+    w, b = r(3, 3, 128, 128, scale=0.05), r(128, scale=0.1)
+    g = r(1, 32, 32, 128)
+    assert tw.winograd_available(32, 32, 128, 128) is False
+    before = tw.winograd_conv.launches
+    y = tw.conv3x3_winograd(x, {"kernel": w, "bias": b})
+    (dx,) = torch.autograd.grad(y, x, g)
+    assert tw.winograd_conv.launches == before + 1  # 32 wide: dx by cuDNN
+    x2 = r(1, 128, 16, 128).permute(0, 2, 3, 1).requires_grad_()
+    y2 = tw.conv3x3_winograd(x2, {"kernel": w, "bias": b})
+    g2 = r(*y2.shape)
+    (dx2,) = torch.autograd.grad(y2, x2, g2)
+    assert tw.winograd_conv.launches == before + 3  # forward and dx
+    w_t = w.flip(0, 1).transpose(2, 3)
+    _close([dx2], [tw.winograd_conv_plain(g2, w_t, torch.zeros_like(b))])
     torch.cuda.synchronize()

@@ -238,7 +238,8 @@ def test_kernel_build_hash_covers_every_source(tmp_path, monkeypatch):
     srcs = {p.name for p in _build._sources()}
     assert {"mma.cuh", "qkv_project.cu", "flash_attention.cu",
             "flash_attention_bwd.cu", "attn_epilogue.cu",
-            "mlp_fused.cu", "flash_attention_online.cu"} <= srcs
+            "mlp_fused.cu", "flash_attention_online.cu", "winograd.cu",
+            "mask_tail.cu"} <= srcs
     h0 = _build.source_hash()
     for src in _build._sources():
         (tmp_path / src.name).write_bytes(src.read_bytes())
@@ -250,7 +251,8 @@ def test_kernel_build_hash_covers_every_source(tmp_path, monkeypatch):
     assert set(_build._SIGNATURES) == {
         "s3od_qkv_project_rope", "s3od_flash_attention_fwd",
         "s3od_flash_attention_bwd", "s3od_attn_epilogue", "s3od_mlp_fused",
-        "s3od_flash_attention_online_fwd"}
+        "s3od_flash_attention_online_fwd", "s3od_winograd_conv",
+        "s3od_winograd_rcu", "s3od_mask_tail"}
 
 
 FAKE_NVCC = """\
