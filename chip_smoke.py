@@ -64,6 +64,18 @@ all started together) and the Triton kernel, then:
      n_valid 4098, 3840 tokens; and D = 64) and on adversarial logits
      (+-600, row maxima rising along the keys), timed beside its bound and
      SDPA;
+ 10b. runs each script's `main()` of `s3od_torch.experiments`, the ports
+     of the Pallas experiments of `benchmarks/`, once at its defaults, with
+     the launches of E1-E4 counted around them: E1 (online-softmax
+     variants), E4 (single-block variants with lse), E3a (the base-2
+     static-bound forward, at the DIS and the ViT shape), E3b (the
+     exponential throughput loop) and E2 (the single-pass LayerNorm,
+     Triton). Each main compares every variant's kernel with its plain
+     version and times both; the phase holds those numbers to the limits
+     (E3b bit-equal, also at 1-4 steps, where exp and exp2 stay finite),
+     adds bounds, the exponentials' time and SDPA or F.layer_norm on the
+     scripts' inputs, and a planted E1 exp2_bf16 fault (o x 1.01) must
+     fail the per-call check;
  11. drives the synthetic-data factory at FLUX.1-dev width and depth with
      seeded weights in bf16 (T5-XXL + CLIP-L -> 28 MMDiT steps with the
      concept stream on the last 3 -> FLUX VAE -> ViT-L FluxDPT teacher
@@ -123,6 +135,17 @@ KERNELS = {
                          "s3od_tpu/ops/experimental/winograd.py:420"),
     "K10_mask_tail": ("cuda", "s3od_torch/csrc/mask_tail.cu",
                       "s3od_tpu/ops/experimental/mask_tail.py:138"),
+    "E1_flash_softmax": ("cuda", "s3od_torch/csrc/exp_flash_variants.cu",
+                         "benchmarks/exp_flash_softmax.py:83"),
+    "E2_layer_norm_single_pass": ("triton",
+                                  "s3od_torch/experiments/exp_layernorm.py",
+                                  "benchmarks/exp_layernorm.py:92"),
+    "E3_exp2_flash": ("cuda", "s3od_torch/csrc/exp_flash_variants.cu",
+                      "benchmarks/exp_exp2.py:124"),
+    "E3_exp_loop": ("cuda", "s3od_torch/csrc/exp_loop.cu",
+                    "benchmarks/exp_exp2.py:172"),
+    "E4_flash_single": ("cuda", "s3od_torch/csrc/exp_flash_variants.cu",
+                        "benchmarks/exp_flash_single.py:81"),
 }
 # Published dense peaks of one H100 SXM at 700 W (bf16 tensor cores, fp32
 # outside them) and its HBM rate: the bound of a kernel is the larger of
@@ -674,6 +697,208 @@ def k7_phase(results):
                       4 * 2 * bh * n * d + 4 * bh * n)
         del q, k, v, qs, ks, vs
         torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------------------
+# The experiments of benchmarks/ (E1-E4), s3od_torch.experiments
+# ----------------------------------------------------------------------------
+
+# ||kernel - plain|| / ||plain|| of E1 exp2_bf16's o per call: two bf16
+# roundings of o are at most 2^-8 apart; the planted o x 1.01 reads 1e-2.
+E_CALL_TOL = 5e-3
+# Exponentials per second on the H100's special-function units: 3.9e12
+# (FlashAttention-3, Shah et al. 2024, arXiv 2407.08608).
+EXP_RATE = 3.9e12
+
+
+def e_held(label, e, lse=False):
+    """A script's kernel-vs-plain numbers for one variant against REL_TOL
+    (and LSE_TOL for lse); a NaN fails."""
+    msg = f"  {label}: max|d| {e['max_abs_err']:.3e} rel {e['rel_vs_plain']:.3e}"
+    log(msg + (f", lse max|d| {e['lse_max_abs_err']:.3e}" if lse else ""))
+    check(e["rel_vs_plain"] <= REL_TOL, f"{label} rel {e['rel_vs_plain']} > {REL_TOL}")
+    if lse:
+        check(e["lse_max_abs_err"] <= LSE_TOL,
+              f"{label} lse max|d| {e['lse_max_abs_err']} > {LSE_TOL}")
+
+
+def e_flash_entry(entry, bh, n, extra_bytes, library_ms=None, window=None):
+    """Bound (4 BH N^2 D on the tensor cores against q, k, v, o and
+    `extra_bytes`), the exponentials' time at EXP_RATE, and the SDPA
+    yardstick's time where given; `window` (the row maxima of the logits)
+    says whether SDPA computes the same function under a static bound."""
+    set_bound({"e": entry}, "e", 4.0 * bh * n * n * 64,
+              4 * 2 * bh * n * 64 + extra_bytes)
+    entry["exp_ms"] = bh * n * n / EXP_RATE * 1e3
+    entry["library_ms"] = library_ms
+    if library_ms is not None:
+        entry["library_same_function"] = (
+            window is None or -40.0 <= window[0] and window[1] <= 40.0)
+    log(f"  {entry['ms']:.4f} ms (plain {entry['plain_ms']:.4f}), bound "
+        f"{entry['bound_ms']:.4f} ms, exponentials {entry['exp_ms']:.4f} ms, "
+        f"SDPA {library_ms}")
+
+
+def e_fold(results, name, variants, row_variant):
+    """Row `name` holds the numbers of `row_variant`; every variant's go
+    under "variants"; max_abs_err is the largest over them."""
+    r = results.setdefault(name, {})
+    r.update(variants[row_variant])
+    r["row_variant"] = row_variant
+    r["variants"] = variants
+    r["max_abs_err"] = max(v["max_abs_err"] for v in variants.values())
+
+
+def experiments_phase(results):
+    """Each script's `main()` once at its defaults on the card, the launches
+    of E1-E4 counted around those runs. The mains compare every variant's
+    kernel with its plain version and time both (slope between CUDA
+    events), E3a at the DIS and the ViT shape. Added here: those numbers
+    held to the limits, E3b against its plain version at 1-4 steps and
+    timed at 4, the bounds, the exponentials' time, SDPA or F.layer_norm on the
+    scripts' own inputs, and a planted E1 fault."""
+    import torch
+    import torch.nn.functional as F
+
+    from s3od_torch.experiments import (exp_exp2, exp_flash_single,
+                                        exp_flash_softmax, exp_layernorm)
+    from s3od_torch.profiling import slope_time
+
+    dev = torch.device("cuda")
+    # E1, E3a and E4 share one CUDA kernel behind three wrappers
+    wrappers_e = {"E1_flash_softmax": exp_flash_softmax.flash_softmax,
+                  "E2_layer_norm_single_pass": exp_layernorm.layer_norm_single_pass,
+                  "E3_exp2_flash": exp_exp2.exp2_flash,
+                  "E3_exp_loop": exp_exp2.exp_loop,
+                  "E4_flash_single": exp_flash_single.flash_single}
+    for fn in wrappers_e.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    mains = {}
+    for mod in (exp_flash_softmax, exp_layernorm, exp_exp2, exp_flash_single):
+        log(f"phase {mod.__name__}.main() at its defaults")
+        mains[mod.__name__.rsplit(".", 1)[1]] = mod.main([])
+    main_s = time.perf_counter() - t0
+    counts = {name: fn.launches for name, fn in wrappers_e.items()}
+    log(f"  the four scripts in {main_s:.1f} s; launches {counts}")
+    for name, cnt in counts.items():
+        check(cnt > 0, f"{name} was not launched by its script")
+        results.setdefault(name, {})["launches"] = cnt
+    r_all = results["_experiments"] = {"main_s": main_s, "launches": counts}
+
+    # E1 at (96, 4104, 64): q, k ~ 0.3 N(0, 1), v ~ N(0, 1), scale 1/8
+    bh, n, scale = 96, 4104, 64 ** -0.5
+    q, k, v = exp_flash_softmax.inputs(bh, n, dev)
+    log(f"phase E1 flash_softmax ({bh} x {n} x 64)")
+    variants = mains["exp_flash_softmax"]
+    for var, e in variants.items():
+        e_held(f"E1[{var}]", e)
+        sdpa_ms = None
+        if var == "base":  # the same function: softmax(q k^T / 8) v
+            sdpa_ms = run_ms(lambda: F.scaled_dot_product_attention(
+                q[None], k[None], v[None], scale=scale), 10)
+        e_flash_entry(e, bh, n, 0, sdpa_ms)
+    o_k = exp_flash_softmax.flash_softmax(q, k, v, scale, "exp2_bf16").float()
+    o_p = exp_flash_softmax.flash_softmax_plain(q, k, v, scale, "exp2_bf16").float()
+    honest = float((o_k - o_p).norm() / o_p.norm())
+    planted = float((o_k * 1.01 - o_p).norm() / o_p.norm())
+    log(f"  E1 exp2_bf16 per call ||d|| / ||plain||: {honest:.3e}; planted o x "
+        f"1.01: {planted:.3e} (tolerance {E_CALL_TOL})")
+    check(honest <= E_CALL_TOL, f"E1 exp2_bf16 {honest} > {E_CALL_TOL}")
+    check(planted > E_CALL_TOL, "the planted E1 fault (o x 1.01) was not caught")
+    r_all["e1_planted"] = {"honest": honest, "planted": planted,
+                           "tolerance": E_CALL_TOL}
+    e_fold(results, "E1_flash_softmax", variants, "base")
+    del q, k, v, o_k, o_p
+
+    # E4 at (96, 4104, 64): q, k, v ~ N(0, 1), -1e30 on the last 3 keys
+    q, k, v, bias = exp_flash_single.inputs(bh, n, dev)
+    log(f"phase E4 flash_single ({bh} x {n} x 64, -1e30 on the last 3 keys)")
+    window = row_max_window((q.float() * scale).to(torch.bfloat16), k, n - 3)
+    (qs, ks, vs), mask = sdpa_inputs(q, k, v, n - 3)
+    sdpa_ms = run_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=mask, scale=scale), 10)
+    log(f"  row maxima of the logits in [{window[0]:.2f}, {window[1]:.2f}]")
+    variants = mains["exp_flash_single"]
+    for var, e in variants.items():
+        e_held(f"E4[{var}]", e, lse=True)
+        e_flash_entry(e, bh, n, 4 * n + 4 * bh * n, sdpa_ms,
+                      None if var == "base" else window)
+    e_fold(results, "E4_flash_single", variants, "nomax_clip2")
+    del q, k, v, qs, ks, vs
+
+    # E3a at the DIS shape (the row) and the ViT shape, K3/K6 beside it
+    x, flash = exp_exp2.inputs(dev)
+    shapes = mains["exp_exp2"]["flash"]
+    for tag, (q, k, v) in flash.items():
+        bh3, n3, _ = q.shape
+        e = shapes[tag]
+        log(f"phase E3a exp2_flash [{tag}] ({bh3} x {n3} x 64, blocks "
+            f"{e['blocks']}; K3/K6 on the same inputs {e['static_ms']:.4f} ms)")
+        e_held(f"E3a[{tag}]", e, lse=True)
+        window = row_max_window(exp_exp2._scaled(q, scale), k, n3)
+        sdpa_ms = run_ms(lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], scale=scale), 10)
+        e_flash_entry(e, bh3, n3, 4 * bh3 * n3, sdpa_ms, window)
+    e_fold(results, "E3_exp2_flash", shapes, "DIS-2048")
+    del flash, q, k, v
+    torch.cuda.empty_cache()
+
+    # E3b: bit-equal at the script's 16 steps, where exp and exp2 are inf
+    # everywhere; so also at 1-4 steps, where exp and exp2 stay finite and
+    # move every value at every step: a kernel that drops steps differs
+    b, programs, reps = x.shape[0], exp_exp2.LOOP_PROGRAMS, exp_exp2.REPS
+    log(f"phase E3b exp_loop ({programs} programs x {b}^2 x {reps})")
+    variants = mains["exp_exp2"]["loop"]
+    for var, e in variants.items():
+        log(f"  E3b[{var}]: bit-equal to plain {e['bit_equal']}, inf positions "
+            f"equal {e['inf_positions_equal']} ({e['inf_share']:.3f} inf)")
+        check(e["inf_positions_equal"], f"E3b {var}: inf positions differ")
+        check(e["bit_equal"], f"E3b {var}: kernel differs from its plain version")
+        prev = x
+        for r in (1, 2, 3, 4):
+            ref = exp_exp2.exp_loop_plain(x, var, r)
+            check(torch.equal(exp_exp2.exp_loop(x, var, programs, reps=r), ref),
+                  f"E3b {var} at {r} steps differs from its plain version")
+            if var in ("exp", "exp2"):
+                check(bool(ref[:b].isfinite().all() and (ref[:b] != prev).all()),
+                      f"E3b {var}: step {r} does not move every value")
+            prev = ref[:b]
+        # the 16-step rows of exp and exp2 run on inf from step 5 on: their
+        # rate on finite values is read at 4 steps
+        e["finite4_ms"] = slope_time(
+            lambda _v=var: exp_exp2.exp_loop(x, _v, programs, reps=4),
+            lambda o: float(o[::64, ::64].sum()), n_small=2, n_large=10,
+            device=dev) * 1e3
+        e["finite4_gelem_s"] = programs * 4 * b * b / e["finite4_ms"] / 1e6
+        set_bound({"e": e}, "e", 0.0, 4 * b * b + 4 * 8 * b * b,
+                  fp32_ops=b * b * reps)
+        e.update(library_ms=None, sfu_ms=programs * reps * b * b / EXP_RATE * 1e3)
+        log(f"    {e['ms']:.4f} ms ({e['gelem_s']:.1f} Gelem/s), plain "
+            f"{e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms ({e['bound_by']}); "
+            f"4 steps {e['finite4_ms']:.4f} ms ({e['finite4_gelem_s']:.1f} Gelem/s)")
+    log("  bit-equal at 1, 2, 3, 4 and 16 steps")
+    e_fold(results, "E3_exp_loop", variants, "exp")
+    del x
+
+    # E2 at (8, 4104, 768)
+    rows, c = 8 * 4104, 768
+    xl, w, bb = exp_layernorm.inputs(8, 4104, c, dev)
+    log(f"phase E2 layer_norm_single_pass (8 x 4104 x {c})")
+    e = mains["exp_layernorm"]
+    e_held("E2", e)
+    e["ms"] = e["kernel_ms"]
+    set_bound({"e": e}, "e", 0.0, 2 * 2 * rows * c + 8 * c,
+              fp32_ops=8.0 * rows * c)
+    # F.layer_norm takes no fp32 affine with bf16 x on CUDA: w, b in bf16
+    wb, bbb = w.to(torch.bfloat16), bb.to(torch.bfloat16)
+    e["library_ms"] = run_ms(lambda: F.layer_norm(xl, (c,), wb, bbb, 1e-5))
+    log(f"  {e['ms']:.4f} ms, plain {e['plain_ms']:.4f}, bound "
+        f"{e['bound_ms']:.4f} ({e['bound_by']}), F.layer_norm "
+        f"{e['library_ms']:.4f}, base {e['base_ms']:.4f}, mxu {e['mxu_ms']:.4f}")
+    e_fold(results, "E2_layer_norm_single_pass", {"kernel": e}, "kernel")
+    del xl, w, bb
+    torch.cuda.empty_cache()
 
 
 # ----------------------------------------------------------------------------
@@ -2351,6 +2576,8 @@ def main() -> int:
     highres_train_phase(results)
     torch.cuda.empty_cache()
     k7_phase(results)
+    experiments_phase(results)
+    torch.cuda.empty_cache()
     factory_phase(results)
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "s3od_tpu"))
@@ -2372,6 +2599,7 @@ def main() -> int:
                     "decoder": results["_decoder"],
                     "train": results["_train"],
                     "factory": results["_factory"],
+                    "experiments": results["_experiments"],
                     "kernel_extra": {k: {x: y for x, y in v.items()
                                          if x not in ("launches",)}
                                      for k, v in results.items()
