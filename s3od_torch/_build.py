@@ -60,8 +60,8 @@ _SIGNATURES = {
     "s3od_flash_attention_bwd": [_P] * 9 + [_I] * 4 + [_P],
     # a, wo, bo, x, ls, lw, lb, xn, h, batch, n, c, heads, head_dim, eps, stream
     "s3od_attn_epilogue": [_P] * 9 + [_I] * 5 + [_F, _P],
-    # x, wu, bu, wd, bd, res, ls, out, rows, c, f, stream
-    "s3od_mlp_fused": [_P] * 8 + [_I] * 3 + [_P],
+    # x, wu, bu, wd, bd, res, ls, out, h, rows, c, f, stream
+    "s3od_mlp_fused": [_P] * 9 + [_I] * 3 + [_P],
     # x, u, bias, out, batch, c, h, w, k, x strides (b, h, w, c),
     # out strides (b, h, w, k), stream
     "s3od_winograd_conv": [_P] * 4 + [_I] * 5 + [_L] * 8 + [_P],
@@ -196,6 +196,13 @@ def triton_cache():
                 os.environ.pop("TRITON_CACHE_DIR", None)
             else:
                 os.environ["TRITON_CACHE_DIR"] = old
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """`t` contiguous at a 16-byte aligned address, as TMA needs (a
+    contiguous view can start anywhere in its storage)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def stream_ptr(t: torch.Tensor) -> int:

@@ -1,4 +1,5 @@
-// Shared tile helpers for the port's tensor-core kernels (K2, K3, K4).
+// Shared tile helpers for the port's mma.sync kernels (K2, K3, K4, K8, K9,
+// K10, E1-E4); `hopper.cuh` reuses smem_addr and pack_bf16.
 //
 // All three kernels use the warp-level `mma.sync.m16n8k16` bf16 product
 // with fp32 accumulation, fed from shared memory by `ldmatrix`, and

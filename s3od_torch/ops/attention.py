@@ -52,6 +52,14 @@ def attention(q, k, v, scale: float, n_valid: int = 0, chunk: int = 0):
     return torch.stack(out)
 
 
+def scale_in_dtype(scale: float, dtype: torch.dtype) -> float:
+    """The softmax scale rounded once to `dtype`, on the host. `q * it`
+    equals `q * torch.tensor(scale, dtype=dtype)` bit for bit (both
+    multiply in fp32 and round once) without a host-to-device copy on
+    every attention call."""
+    return float(torch.tensor(scale, dtype=dtype))
+
+
 def resolve_attn_impl(n: int, dtype: torch.dtype, impl: str = "auto") -> str:
     """"auto" -> "flash" for bf16 and N >= 1024 (`ops/attention.py:52-59`:
     the flash kernels' products are bf16-precision, so float32 keeps the
@@ -69,8 +77,9 @@ def multi_head_attention(q, k, v, *, scale: Optional[float] = None,
     """Multi-head attention over (B, N, H, D) tensors -> (B, N, H, D).
 
     "flash": q is scaled IN ITS DTYPE (as `flash_attention.py:743` folds
-    the scale into bf16 q), the heads go to (B*H, N, D), the sequence is
-    padded to a multiple of 64 with `n_valid` masking the padded keys, K7
+    the scale into bf16 q; `scale_in_dtype`), the heads go to (B*H, N,
+    D), the sequence is padded to a multiple of 64 with `n_valid`
+    masking the padded keys, K7
     (or K3/K6 under `static_softmax_bound`) runs, and the padded query
     rows are sliced off. "xla": the exact attention above. `n_valid`: the
     true token count when the sequence carries trailing padding rows
@@ -81,7 +90,7 @@ def multi_head_attention(q, k, v, *, scale: Optional[float] = None,
         return attention(q, k, v, scale, n_valid)
     b, n, h, d = q.shape
     n_valid = n_valid or n
-    q = q * torch.tensor(scale, dtype=q.dtype, device=q.device)
+    q = q * scale_in_dtype(scale, q.dtype)
     n_pad = flash_seq_len(n)
 
     def to_bhnd(t):

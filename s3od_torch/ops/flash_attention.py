@@ -2,7 +2,8 @@
 its plain version; K8: its backward (CUDA, `csrc/flash_attention_bwd.cu`)
 and its plain version; the `autograd.Function` that joins them; and K7,
 the forward with the exact row-max (online) softmax that the MMDiT runs
-(CUDA, `csrc/flash_attention_online.cu`), with its plain version.
+(CUDA, `csrc/flash_attention_online.cu`: TMA, wgmma and warp
+specialisation), with its plain version.
 
 One CUDA kernel replaces two TPU kernels of `s3od_tpu/ops/flash_attention.py`
 (both via `_flash_forward(static_bound=True)`):
@@ -228,6 +229,31 @@ def flash_attention_online_plain(q, k, v, n_valid: int):
     return torch.cat(outs, 1), torch.cat(lses, 1)
 
 
+# The tile plan of `csrc/flash_attention_online.cu` (K7), mirrored so that
+# the CPU tests can check it at every shape the MMDiT and ViT-L give it.
+ONLINE_BLOCK_Q = 128    # query rows of a block (two consumer warpgroups)
+ONLINE_BLOCK_K = 128    # keys of one K or V tile
+ONLINE_STAGES = 2       # depth of the K ring and of the V ring
+ONLINE_THREADS = 384    # producer warpgroup + two consumer warpgroups
+ONLINE_PRODUCER_REGS, ONLINE_CONSUMER_REGS = 24, 240
+MAX_SMEM = 232448       # bytes of shared memory one H100 block may use
+
+
+def online_plan(bh: int, n: int, d: int, n_valid: int) -> dict:
+    """K7's launch at (bh, n, d): the grid (query blocks, heads), the key
+    tiles each block walks, dynamic shared memory (1024 bytes of
+    alignment slack, Q and the two K and V stages as 128 x 64 bf16 atoms,
+    9 mbarriers) and the registers a consumer thread holds for the S
+    (64 x 128) and O (64 x d) fp32 accumulators and the bf16 P fragment."""
+    atom_bytes = ONLINE_BLOCK_K * 64 * 2
+    return {
+        "grid": (-(-n // ONLINE_BLOCK_Q), bh),
+        "key_tiles": -(-n_valid // ONLINE_BLOCK_K),
+        "smem": 1024 + (1 + 2 * ONLINE_STAGES) * (d // 64) * atom_bytes + 9 * 8,
+        "acc_regs": ONLINE_BLOCK_K // 2 + d // 2 + ONLINE_BLOCK_K // 4,
+    }
+
+
 def flash_attention_online(q, k, v, n_valid: int):
     """K7: attention forward with the online (row-max) softmax -> (o, lse);
     kernel source and design note in `s3od_torch/csrc/flash_attention_online.cu`.
@@ -251,7 +277,7 @@ def flash_attention_online(q, k, v, n_valid: int):
         raise ValueError(
             f"flash_attention_online kernel: unsupported N={n} D={d} "
             f"n_valid={n_valid}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (_build.aligned16(t) for t in (q, k, v))
     o = torch.empty_like(q)
     lse = torch.empty((bh, n), device=q.device, dtype=torch.float32)
     lib = _build.load_library()

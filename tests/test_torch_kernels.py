@@ -318,6 +318,110 @@ def test_mlp_fused_plain_bf16_within_one_rounding():
     assert (got != ref).mean() < 1e-2
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mlp_plain_halves_compose_to_the_plain_version(dtype):
+    """The kernel is two launches: the up-projection + GELU into a hidden
+    rounded once to the compute dtype, then the down-projection +
+    residual. Their plain versions, composed, are the one-expression form
+    of K5's rounding points bit for bit (and `mlp_fused_plain`), and the
+    CPU wrapper hands back that hidden when asked."""
+    # _mlp_case: the LayerNorm output, the residual, then the weights in
+    # (in, out) layout, which nn.Linear stores transposed
+    x_ln, res, wu, bu, wd, bd, ls = (
+        torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
+        for a in _mlp_case(scale_x=1.0))
+    wu, wd = wu.t().contiguous(), wd.t().contiguous()
+    hidden = mf.mlp_up_plain(x_ln, wu, bu)
+    assert hidden.dtype == dtype
+    composed = mf.mlp_down_plain(hidden, wd, bd, res, ls)
+    h = torch.matmul(x_ln.float(), wu.float().t()) + bu.float()
+    h = torch.nn.functional.gelu(h, approximate="none").to(dtype)
+    t = torch.matmul(h.float(), wd.float().t()) + bd.float()
+    whole = (res.float() + t * ls.float()).to(dtype)
+    assert torch.equal(composed, whole)
+    assert torch.equal(mf.mlp_fused_plain(x_ln, wu, bu, wd, bd, res, ls), whole)
+    out, got_hidden = mf.mlp_fused(x_ln, wu, bu, wd, bd, res, ls,
+                                   return_hidden=True)
+    assert torch.equal(out, whole) and torch.equal(got_hidden, hidden)
+
+
+# (rows, C, F) that the repo's configs give K5: ViT-B at 1024^2 (4160
+# tokens) at batch 1, 4 (training) and 16, at 2048^2 (16448 tokens); the
+# ViT-L teacher; ViT-S; the tiny fixtures (C 64, F 128; 1024^2 and a
+# ragged 100-row case).
+K5_SHAPES = [(4160, 768, 3072), (4 * 4160, 768, 3072), (16 * 4160, 768, 3072),
+             (16448, 768, 3072), (4160, 1024, 4096), (4160, 384, 1536),
+             (4160, 64, 128), (100, 64, 128)]
+
+
+@pytest.mark.parametrize("rows,c,f", K5_SHAPES)
+def test_mlp_kernel_plan_fits_the_card(rows, c, f):
+    """The Python mirror of the kernel's tile plan: each GEMM's tile width
+    divides its N, the persistent grid covers every tile with at most one
+    block an SM, the ring fits a block's shared memory, the producer's
+    and consumers' register budgets fit the SM, and the accumulator
+    leaves a consumer room for its addressing and epilogue."""
+    plan = mf.plan(rows, c, f)
+    for name, n, k in (("up", f, c), ("down", c, f)):
+        g = plan[name]
+        assert g["bn"] in mf.TILE_WIDTHS and n % g["bn"] == 0, name
+        assert g["tiles"] == -(-rows // mf.ROW_TILE) * (n // g["bn"])
+        assert 0 < g["grid"] <= min(g["tiles"], mf.SMS)
+        assert g["k_blocks"] * mf.K_TILE == k
+        assert g["smem"] <= mf.MAX_SMEM
+        assert g["acc_regs"] + 64 <= mf.CONSUMER_REGS
+    assert (128 * mf.PRODUCER_REGS + 2 * 128 * mf.CONSUMER_REGS
+            <= mf.REGISTERS)
+    assert mf.THREADS == 3 * 128
+    if (rows, c, f) == (4160, 768, 3072):  # ViT-B 1024^2 b1
+        assert (plan["up"]["bn"], plan["up"]["tiles"]) == (256, 396)
+        assert (plan["down"]["bn"], plan["down"]["tiles"]) == (192, 132)
+
+
+# (BH, N, D, n_valid) that K7 meets: the MMDiT's joint sequence at 1024^2,
+# the concept stream (4098 -> 4160, an odd multiple of 64), the 832 x 1024
+# bucket, ViT-L at D = 64, and the CUDA test's 320 = 5 x 64.
+K7_SHAPES = [(24, 4608, 128, 4608), (24, 4160, 128, 4098),
+             (24, 3840, 128, 3840), (16, 4160, 64, 4101),
+             (4, 320, 128, 290), (4, 320, 64, 290)]
+
+
+@pytest.mark.parametrize("bh,n,d,n_valid", K7_SHAPES)
+def test_flash_online_kernel_plan_fits_the_card(bh, n, d, n_valid):
+    """The Python mirror of K7's launch: query blocks cover N (the last
+    one past N where N is an odd multiple of 64, whose rows the kernel
+    does not store), the key tiles cover n_valid and no more, the Q/K/V
+    stages fit a block's shared memory, and the consumers' S, O and P
+    registers fit their budget beside a 24-register producer."""
+    plan = fa.online_plan(bh, n, d, n_valid)
+    blocks, heads = plan["grid"]
+    assert heads == bh
+    assert (blocks - 1) * fa.ONLINE_BLOCK_Q < n <= blocks * fa.ONLINE_BLOCK_Q
+    assert ((plan["key_tiles"] - 1) * fa.ONLINE_BLOCK_K < n_valid
+            <= plan["key_tiles"] * fa.ONLINE_BLOCK_K)
+    assert plan["smem"] <= fa.MAX_SMEM
+    assert plan["acc_regs"] + 48 <= fa.ONLINE_CONSUMER_REGS
+    assert (128 * fa.ONLINE_PRODUCER_REGS + 2 * 128 * fa.ONLINE_CONSUMER_REGS
+            <= 65536)
+    assert fa.ONLINE_THREADS == 3 * 128
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [64, 128])
+def test_attention_scale_in_dtype_is_the_device_tensor_product(dtype, d):
+    """`multi_head_attention` scales q by a Python float rounded once to
+    q's dtype on the host; the product is bit for bit the one with a
+    0-d tensor of that dtype (which cost a host-to-device copy per call
+    on the card)."""
+    gen = torch.Generator().manual_seed(d)
+    q = (torch.randn(2, 300, 4, d, generator=gen) * 3).to(dtype)
+    scale = d**-0.5
+    old = q * torch.tensor(scale, dtype=dtype, device=q.device)
+    new = q * xa.scale_in_dtype(scale, dtype)
+    assert new.dtype == dtype
+    assert torch.equal(new, old)
+
+
 # ----------------------------------------------------------------------------
 # Wrapper dispatch: plain on CPU tensors, shape gates before any launch
 # ----------------------------------------------------------------------------
@@ -390,11 +494,11 @@ def test_kernel_wrappers_raise_on_unsupported_device_inputs(case):
             _meta(1, 64, 64, dtype=torch.float32), _meta(256, 64),
             _meta(256), _meta(64, 256), vec, _meta(1, 64, 64), vec),
         "mlp_rows": lambda: mf.mlp_fused(
-            _meta(1, 48, 64), _meta(256, 64), _meta(256), _meta(64, 256),
-            vec, _meta(1, 48, 64), vec),
+            _meta(1, 0, 64), _meta(256, 64), _meta(256), _meta(64, 256),
+            vec, _meta(1, 0, 64), vec),
         "mlp_width": lambda: mf.mlp_fused(
-            _meta(1, 64, 1088), _meta(256, 1088), _meta(256),
-            _meta(1088, 256), _meta(1088), _meta(1, 64, 1088), _meta(1088)),
+            _meta(1, 64, 96), _meta(256, 96), _meta(256),
+            _meta(96, 256), _meta(96), _meta(1, 64, 96), _meta(96)),
         "mlp_hidden": lambda: mf.mlp_fused(
             _meta(1, 64, 64), _meta(240, 64), _meta(240), _meta(64, 240),
             vec, _meta(1, 64, 64), vec),
@@ -455,6 +559,24 @@ def test_kernels_match_plain_on_cuda(cuda, d):
     args = (x, r(f, c, scale=0.05), r(f, scale=0.1), r(c, f, scale=0.05),
             r(c, scale=0.1), r(b, n, c), r(c, scale=0.5) + 1)
     _close([mf.mlp_fused(*args)], [mf.mlp_fused_plain(*args)])
+    # K5 at ragged row counts (the last 128-row tile part empty), the
+    # widths of the tiny fixtures, ViT-B and ViT-L, and a b16-size batch;
+    # each launch against its plain half; one launch counted per call
+    shapes = [(100, 64, 256), (4160, 64, 128), (4160, 768, 3072),
+              (300, 1024, 4096)]
+    if d == 64:
+        shapes.append((16 * 4160, 768, 3072))
+    for rows, cc, ff in shapes:
+        x, res = r(1, rows, cc), r(1, rows, cc)
+        wts = (r(ff, cc, scale=0.02), r(ff, scale=0.1), r(cc, ff, scale=0.02),
+               r(cc, scale=0.1))
+        ls = r(cc, scale=0.5) + 1
+        before = mf.mlp_fused.launches
+        out, hid = mf.mlp_fused(x, *wts, res, ls, return_hidden=True)
+        assert mf.mlp_fused.launches == before + 1
+        _close([out], [mf.mlp_fused_plain(x, *wts, res, ls)])
+        _close([hid], [mf.mlp_up_plain(x, *wts[:2])])
+        _close([out], [mf.mlp_down_plain(hid, *wts[2:], res, ls)])
     torch.cuda.synchronize()
 
 
@@ -502,18 +624,20 @@ def test_flash_attention_online_matches_plain_on_cuda(cuda, d):
     that skipped the rescale, or clipped at +-40, fails); one launch
     counted per call."""
     gen = torch.Generator(device=cuda).manual_seed(3)
-    bh, n, n_valid = 4, 320, 290
+    bh, n = 4, 320  # 5 x 64: the last 128-key tile and query block ragged
     q, k, v = ((torch.randn(bh, n, d, generator=gen, device=cuda) * s)
                .to(torch.bfloat16) for s in (d**-0.5, 1.0, 1.0))
     u = torch.nn.functional.normalize(torch.randn(d, generator=gen, device=cuda), dim=0)
     q[1] = (torch.linspace(0.5, 1.5, n, device=cuda)[:, None] * u).to(torch.bfloat16)
     k[1] = (torch.linspace(-400, 400, n, device=cuda)[:, None] * u).to(torch.bfloat16)
-    before = fa.flash_attention_online.launches
-    o, lse = fa.flash_attention_online(q, k, v, n_valid)
-    assert fa.flash_attention_online.launches == before + 1
-    o_ref, lse_ref = fa.flash_attention_online_plain(q, k, v, n_valid)
-    _close([o], [o_ref])
-    assert float((lse - lse_ref).abs().max()) <= 1e-3
+    # n_valid inside the last half-tile, at N, and inside the first tile
+    for n_valid in (290, 320, 100):
+        before = fa.flash_attention_online.launches
+        o, lse = fa.flash_attention_online(q, k, v, n_valid)
+        assert fa.flash_attention_online.launches == before + 1
+        o_ref, lse_ref = fa.flash_attention_online_plain(q, k, v, n_valid)
+        _close([o], [o_ref])
+        assert float((lse - lse_ref).abs().max()) <= 1e-3
     torch.cuda.synchronize()
 
 

@@ -236,7 +236,7 @@ def test_kernel_build_hash_covers_every_source(tmp_path, monkeypatch):
     from s3od_torch import _build
 
     srcs = {p.name for p in _build._sources()}
-    assert {"mma.cuh", "qkv_project.cu", "flash_attention.cu",
+    assert {"mma.cuh", "hopper.cuh", "qkv_project.cu", "flash_attention.cu",
             "flash_attention_bwd.cu", "attn_epilogue.cu",
             "mlp_fused.cu", "flash_attention_online.cu", "winograd.cu",
             "mask_tail.cu", "exp_flash_variants.cu", "exp_loop.cu"} <= srcs
