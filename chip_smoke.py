@@ -14,9 +14,13 @@ all started together) and the Triton kernel, then:
      RoPE on the 128 x 128 grid, K1, K2, K4 and K5 at batch 1 and K6 at
      D = 64 and 32),
      including the flash kernel's +-40 edge and adversarial
-     +-1000-scale inputs, and times both at batch 1 (device time from a
-     profiler trace of 20 calls; CUDA events around single calls, median
-     of 25, which include the host launch);
+     +-1000-scale inputs, hot and cold (held to the plain version, o also
+     by its relative norm, with a planted o x 1.01 caught), and times
+     both at batch 1 (device time from a profiler trace of 20 calls;
+     CUDA events around single calls, median of 25, which include the
+     host launch; K3 and K6, and K8 below, also by CUDA events around
+     back-to-back calls, the time they report, with SDPA by the same
+     clocks); it logs which kernel serves D = 32;
   2. drives the 1024^2 path — `BackgroundRemoval.remove_background` and
      `remove_background_batch` (16 images) — at full ViT-B width with
      seeded random weights in bf16, checks that every kernel (K1-K5)
@@ -50,8 +54,8 @@ all started together) and the Triton kernel, then:
      plain version's vjp;
   6. checks K8, the attention backward, against its plain version at the
      training shapes (12 and 48 x 4160 tokens, D = 64 and 32) and at
-     2048^2, with +-1000-scale inputs, and times it beside the SDPA
-     backward;
+     2048^2, with +-1000-scale inputs, hot and cold, and cold rows near
+     the window, and times it beside the SDPA backward (CUDA events);
   7. trains through the entry point, `s3od_torch.training.train.train`:
      ViT-B at 1024^2, batch 4, bf16, on PNG variants of the fixture pair
      (one epoch + validation, 11 x 2 launches of K1-K5 and 11 of K8 per
@@ -160,6 +164,10 @@ HBM = 3.35e12
 REL_TOL = 1e-2   # max|kernel - plain| / max|plain| per output, bf16
 LSE_TOL = 1e-3   # max|kernel - plain| of the fp32 lse
 TAP_TOL = 1.5e-2  # ||bf16 kernel-route tap - fp32 exact tap|| / ||fp32 tap||
+FLASH_NORM_TOL = 5e-3  # ||kernel o - plain o|| / ||plain o|| of K3/K6 per call:
+                  # the two round the same fp32 sums to bf16, which differ in
+                  # order only; half the planted o x 1.01 (1.0e-2), which
+                  # REL_TOL alone sits on the edge of
 BEST_TOL = 1 / 510 + 2.0**-9 + 1e-6  # payload "best" vs "full": the uint8
                   # step plus one bf16 rounding of a sigmoid in [0.5, 1)
 BATCH_TOL = 1e-2  # batch vs single image: max|d| of masks and IoU scores,
@@ -314,20 +322,11 @@ def row_max_window(q, k, n_valid):
     return lo, hi
 
 
-def library_time(results, name, fn, q, k, n_valid):
-    """Device time of the SDPA yardstick, with the check that it computes
-    the same function on these inputs."""
-    lo, hi = row_max_window(q, k, n_valid)
-    same = -40.0 <= lo and hi <= 40.0
-    results[name]["library_ms"] = device_ms(fn)
-    results[name]["library_same_function"] = same
-    log(f"  SDPA yardstick: {results[name]['library_ms']:.4f} ms; row maxima "
-        f"in [{lo:.2f}, {hi:.2f}], inside +-40 (same function): {same}")
-
-
-def compare(name, got, ref, results, lse=None):
+def compare(name, got, ref, results, lse=None, norm_tol=None):
     """Relative max error per output; lse (index into the tuples) is
-    checked in absolute terms. Returns the largest absolute error."""
+    checked in absolute terms; with `norm_tol`, each other output's
+    ||kernel - plain|| / ||plain|| too. Returns the largest absolute
+    error."""
     worst = 0.0
     for i, (g, r) in enumerate(zip(got, ref)):
         g, r = g.float(), r.float()
@@ -339,11 +338,83 @@ def compare(name, got, ref, results, lse=None):
             check(err <= LSE_TOL, f"{name} lse max|d| {err} > {LSE_TOL}")
         else:
             rel = err / max(float(r.abs().max()), 1e-30)
-            log(f"  {name} out{i}: max|d| {err:.3e} rel {rel:.3e}")
+            msg = f"  {name} out{i}: max|d| {err:.3e} rel {rel:.3e}"
+            if norm_tol is not None:
+                nrm = float((g - r).norm()) / max(float(r.norm()), 1e-30)
+                msg += f" rel. norm {nrm:.3e}"
+            log(msg)
             check(rel <= REL_TOL, f"{name} out{i} rel {rel} > {REL_TOL}")
+            if norm_tol is not None:
+                check(nrm <= norm_tol,
+                      f"{name} out{i} rel. norm {nrm} > {norm_tol}")
     results.setdefault(name, {"max_abs_err": 0.0})
     results[name]["max_abs_err"] = max(results[name]["max_abs_err"], worst)
     return worst
+
+
+def flash_adversarial(name, randn, k, v, n_valid, results, plant=False):
+    """K3/K6 against the plain version on +-1000-scale queries (logits
+    ~ +-8000): hot rows saturate the +40 clip; on cold rows (q <= 0,
+    k >= 1) every logit sits below -40, so each key below N weighs e^-80,
+    those from n_valid to N too, and keys past N (zeros in the kernel's
+    last tile) none: o is the mean of v over the N keys, where a key
+    weighed wrongly shows. With `plant`, o x 1.01 on each must fail."""
+    import torch
+
+    from s3od_torch.ops import flash_attention as fa
+
+    bh, n, d = k.shape
+    q_hot = randn(bh, n, d, scale=1000.0)
+    cases = (("hot", q_hot, k),
+             ("cold", (-q_hot.float().abs()).to(torch.bfloat16),
+              (k.float().abs() + 1.0).to(torch.bfloat16)))
+    for label, qq, kk in cases:
+        log(f"  adversarial {label} (+-1000-scale q)")
+        got = fa.flash_attention(qq, kk, v, n_valid)
+        ref = fa.flash_attention_plain(qq, kk, v, n_valid)
+        compare(name, got, ref, results, lse=1, norm_tol=FLASH_NORM_TOL)
+        if plant:
+            planted_o(name, got, ref)
+
+
+def planted_o(name, got, ref):
+    """The comparison must fail on the kernel's o x 1.01."""
+    o, lse = got
+    try:
+        compare(f"{name} (planted o x 1.01)", [(o.float() * 1.01).to(o.dtype),
+                                               lse], ref, {}, lse=1,
+                norm_tol=FLASH_NORM_TOL)
+    except RuntimeError as err:
+        log(f"  planted o x 1.01 caught: {err}")
+        return
+    check(False, f"{name}: the planted o x 1.01 went unnoticed")
+
+
+def time_flash(results, name, kern, plain, lib, q, k, n_valid, iters=20):
+    """K3/K6/K8, their plain versions and the SDPA yardstick by the same
+    clocks: `ms`, `plain_ms` and `library_ms` from CUDA events around
+    `iters` back-to-back calls (`run_ms`), `*event_ms` per call with the
+    host's launch (`cuda_ms`), and the profiler's device time beside
+    them (`*profiler_ms`; it misread K7, PERF.md section 6). SDPA
+    computes the static-bound function only while every row maximum lies
+    inside +-40, which is recorded."""
+    r = results[name]
+    r["ms"], r["event_ms"] = run_ms(kern, iters), cuda_ms(kern, iters)
+    rows = kernel_breakdown(kern, iters)
+    r["profiler_ms"] = sum(ms for _, ms, _ in rows) if rows else None
+    for key, ms, count in rows:
+        log(f"    profiler: {key[:90]}: {ms:.4f} ms x{count}")
+    r["plain_ms"], r["plain_event_ms"] = run_ms(plain, iters), cuda_ms(plain, iters)
+    r["library_ms"], r["library_event_ms"] = run_ms(lib, iters), cuda_ms(lib, iters)
+    r["library_profiler_ms"] = device_ms(lib, iters)
+    lo, hi = row_max_window(q, k, n_valid)
+    r["library_same_function"] = -40.0 <= lo and hi <= 40.0
+    log(f"  {name} (CUDA events): kernel {r['ms']:.4f} ms, SDPA "
+        f"{r['library_ms']:.4f}, plain {r['plain_ms']:.4f}; per call "
+        f"{r['event_ms']:.4f} / {r['library_event_ms']:.4f}; profiler "
+        f"{r['profiler_ms']} / {r['library_profiler_ms']:.4f}; row maxima "
+        f"in [{lo:.2f}, {hi:.2f}], inside +-40 (same function): "
+        f"{r['library_same_function']}")
 
 
 def kernel_phases(results):
@@ -408,43 +479,43 @@ def kernel_phases(results):
               + 3 * 2 * n * c)
 
     # K3
-    log("phase K3 flash_attention (12 x 4160 x 64, n_valid 4101)")
+    log(f"phase K3 flash_attention (12 x 4160 x 64, n_valid 4101): the "
+        f"{fa.kernel_route(d)} kernel; D = 32 takes the "
+        f"{fa.kernel_route(32)} kernel")
+    name = "K3_flash_attention"
     q = randn(h, n, d, scale=0.5 * d**-0.5)
     k, v = randn(h, n, d, scale=0.5), randn(h, n, d)
-    compare("K3_flash_attention", fa.flash_attention(q, k, v, n_valid),
-            fa.flash_attention_plain(q, k, v, n_valid), results, lse=1)
+    got = fa.flash_attention(q, k, v, n_valid)
+    ref = fa.flash_attention_plain(q, k, v, n_valid)
+    compare(name, got, ref, results, lse=1, norm_tol=FLASH_NORM_TOL)
+    planted_o(name, got, ref)
     # row maxima pushed near the +40 edge of the window
     smax = float((q.float() @ k.float().transpose(1, 2))[:, :, :n_valid].max())
     q_edge = (q.float() * (35.0 / smax)).to(bf)
     log(f"  edge case: max logit {smax:.2f} -> ~35")
-    compare("K3_flash_attention", fa.flash_attention(q_edge, k, v, n_valid),
-            fa.flash_attention_plain(q_edge, k, v, n_valid), results, lse=1)
-    # adversarial magnitudes (logits ~ +-8000): finite everywhere
-    q_hot = randn(h, n, d, scale=1000.0)
-    o_hot, lse_hot = fa.flash_attention(q_hot, k, v, n_valid)
-    check(bool(o_hot.isfinite().all() and lse_hot.isfinite().all()),
-          "K3 adversarial (hot) output not finite")
-    k_pos = (k.float().abs() + 1.0).to(bf)
-    o_cold, lse_cold = fa.flash_attention((-q_hot.float().abs()).to(bf), k_pos,
-                                          v, n_valid)
-    check(bool(o_cold.isfinite().all() and lse_cold.isfinite().all()),
-          "K3 adversarial (cold) output not finite")
-    log("  adversarial +-1000-scale inputs: finite")
+    compare(name, fa.flash_attention(q_edge, k, v, n_valid),
+            fa.flash_attention_plain(q_edge, k, v, n_valid), results, lse=1,
+            norm_tol=FLASH_NORM_TOL)
+    flash_adversarial(name, randn, k, v, n_valid, results, plant=True)
     q16, k16, v16 = (randn(B16 * h, n, d, scale=s)
                      for s in (0.5 * d**-0.5, 0.5, 1.0))
     log(f"  at the batch-16 shape ({B16 * h} x {n} x {d})")
     plain16 = [fa.flash_attention_plain(q16[i: i + h], k16[i: i + h],
                                         v16[i: i + h], n_valid)
                for i in range(0, B16 * h, h)]  # per image: bounded memory
-    compare("K3_flash_attention", fa.flash_attention(q16, k16, v16, n_valid),
-            [torch.cat(t) for t in zip(*plain16)], results, lse=1)
+    compare(name, fa.flash_attention(q16, k16, v16, n_valid),
+            [torch.cat(t) for t in zip(*plain16)], results, lse=1,
+            norm_tol=FLASH_NORM_TOL)
+    results[name]["b16_ms"] = run_ms(
+        lambda: fa.flash_attention(q16, k16, v16, n_valid), 5)
+    log(f"  K3 at batch 16 (CUDA events): {results[name]['b16_ms']:.4f} ms")
     del q16, k16, v16, plain16
-    time_pair("K3_flash_attention", lambda: fa.flash_attention(q, k, v, n_valid),
-              lambda: fa.flash_attention_plain(q, k, v, n_valid), results)
     (qs, ks, vs), mask = sdpa_inputs(q, k, v, n_valid)
-    library_time(results, "K3_flash_attention", lambda: F.scaled_dot_product_attention(
-        qs, ks, vs, attn_mask=mask, scale=1.0), q, k, n_valid)
-    set_bound(results, "K3_flash_attention", 4.0 * h * n * n * d,
+    time_flash(results, name, lambda: fa.flash_attention(q, k, v, n_valid),
+               lambda: fa.flash_attention_plain(q, k, v, n_valid),
+               lambda: F.scaled_dot_product_attention(
+                   qs, ks, vs, attn_mask=mask, scale=1.0), q, k, n_valid)
+    set_bound(results, name, 4.0 * h * n * n * d,
               4 * 2 * h * n * d + 4 * h * n)
 
     # K4
@@ -497,36 +568,29 @@ def kernel_phases(results):
     del x2, args2
 
     # K6: the same kernel as K3 at the 2048^2 length
+    name = "K6_flash_attention_stream"
     for d2 in (64, 32):
         log(f"phase K6 flash_attention at 2048^2 ({h} x {n2} x {d2}, "
-            f"n_valid {n2_valid}, {n2 // 64} key tiles)")
+            f"n_valid {n2_valid}, the {fa.kernel_route(d2)} kernel)")
         q2, k2, v2 = (randn(h, n2, d2, scale=s_) for s_ in
                       (0.5 * d2**-0.5, 0.5, 1.0))
-        compare("K6_flash_attention_stream",
-                fa.flash_attention(q2, k2, v2, n2_valid),
-                fa.flash_attention_plain(q2, k2, v2, n2_valid), results, lse=1)
-        q_hot = randn(h, n2, d2, scale=1000.0)
-        o_hot, lse_hot = fa.flash_attention(q_hot, k2, v2, n2_valid)
-        o_cold, lse_cold = fa.flash_attention(
-            (-q_hot.float().abs()).to(bf), (k2.float().abs() + 1.0).to(bf),
-            v2, n2_valid)
-        check(all(bool(t.isfinite().all())
-                  for t in (o_hot, lse_hot, o_cold, lse_cold)),
-              "K6 adversarial output not finite")
-        log("  adversarial +-1000-scale inputs: finite")
+        compare(name, fa.flash_attention(q2, k2, v2, n2_valid),
+                fa.flash_attention_plain(q2, k2, v2, n2_valid), results, lse=1,
+                norm_tol=FLASH_NORM_TOL)
+        flash_adversarial(name, randn, k2, v2, n2_valid, results)
         if d2 == 64:
-            time_pair("K6_flash_attention_stream",
-                      lambda: fa.flash_attention(q2, k2, v2, n2_valid),
-                      lambda: fa.flash_attention_plain(q2, k2, v2, n2_valid),
-                      results, iters=5)
             (qs, ks, vs), mask = sdpa_inputs(q2, k2, v2, n2_valid)
-            library_time(results, "K6_flash_attention_stream",
-                         lambda: F.scaled_dot_product_attention(
-                             qs, ks, vs, attn_mask=mask, scale=1.0),
-                         q2, k2, n2_valid)
-            set_bound(results, "K6_flash_attention_stream",
-                      4.0 * h * n2 * n2 * d2, 4 * 2 * h * n2 * d2 + 4 * h * n2)
-        del q2, k2, v2, q_hot, o_hot, o_cold
+            time_flash(results, name,
+                       lambda: fa.flash_attention(q2, k2, v2, n2_valid),
+                       lambda: fa.flash_attention_plain(q2, k2, v2, n2_valid),
+                       lambda: F.scaled_dot_product_attention(
+                           qs, ks, vs, attn_mask=mask, scale=1.0),
+                       q2, k2, n2_valid, iters=5)
+            set_bound(results, name, 4.0 * h * n2 * n2 * d2,
+                      4 * 2 * h * n2 * d2 + 4 * h * n2)
+            del qs, ks, vs
+        del q2, k2, v2
+        torch.cuda.empty_cache()
 
     k8_phase(results, randn, n, n_valid, n2, n2_valid)
     for name, r in results.items():
@@ -647,8 +711,10 @@ def k8_phase(results, randn, n, n_valid, n2, n2_valid):
     """K8 against its plain version: the training shapes (ViT-B at 1024^2,
     batch 1 and 4; the tiny checkpoint's D = 32) and the 2048^2 length,
     n_valid < N, the padded rows' cotangent zero as the tap slice makes
-    it, and +-1000-scale inputs (finite: the clamp); timed with the
-    plain version, the SDPA backward and the bound at batch 4."""
+    it, and adversarial rows held to the plain version too: hot and cold
+    +-1000-scale queries, and cold rows near the window (logits ~ -50);
+    timed by CUDA events with the plain version, the SDPA backward and
+    the bound at batch 4."""
     import torch
     import torch.nn.functional as F
 
@@ -665,43 +731,50 @@ def k8_phase(results, randn, n, n_valid, n2, n2_valid):
 
     for bh, nn_, nv, d in ((12, n, n_valid, 64), (48, n, n_valid, 64),
                            (12, n, n_valid, 32), (12, n2, n2_valid, 64)):
-        log(f"phase K8 flash_attention_bwd ({bh} x {nn_} x {d}, n_valid {nv})")
+        log(f"phase K8 flash_attention_bwd ({bh} x {nn_} x {d}, n_valid {nv}; "
+            f"the {fa.kernel_route(d)} kernels)")
         q, k, v, o, lse, g = case(bh, nn_, nv, d)
         compare(name, fa.flash_attention_bwd(q, k, v, o, lse, g, nv),
                 fa.flash_attention_bwd_plain(q, k, v, o, lse, g, nv), results)
         q_hot = randn(bh, nn_, d, scale=1000.0)
-        o_hot, lse_hot = fa.flash_attention(q_hot, k, v, nv)
         q_cold = (-q_hot.float().abs()).to(torch.bfloat16)
         k_pos = (k.float().abs() + 1.0).to(torch.bfloat16)
-        o_cold, lse_cold = fa.flash_attention(q_cold, k_pos, v, nv)
-        grads = (fa.flash_attention_bwd(q_hot, k, v, o_hot, lse_hot, g, nv)
-                 + fa.flash_attention_bwd(q_cold, k_pos, v, o_cold, lse_cold,
-                                          g, nv))
-        check(all(bool(t.isfinite().all()) for t in grads),
-              "K8 adversarial gradients not finite")
-        log("  adversarial +-1000-scale inputs: finite gradients")
+        # cold rows near the window: logits about -50, so lse = -40 + log N
+        # and p = exp(min(s - lse, 0)) is small but not zero
+        q_cool = torch.full_like(q, -0.15 * 64 / d)
+        k_cool = (k.float().abs() * 0.5 + 5.0).to(torch.bfloat16)
+        for label, qq, kk in (("hot, +-1000-scale q", q_hot, k),
+                              ("cold, +-1000-scale q", q_cold, k_pos),
+                              ("cold, logits ~ -50", q_cool, k_cool)):
+            log(f"  adversarial {label}")
+            oo, ll = fa.flash_attention(qq, kk, v, nv)
+            compare(name, fa.flash_attention_bwd(qq, kk, v, oo, ll, g, nv),
+                    fa.flash_attention_bwd_plain(qq, kk, v, oo, ll, g, nv),
+                    results)
+            del oo, ll
         if bh == 48:
-            time_pair(name, lambda: fa.flash_attention_bwd(q, k, v, o, lse, g, nv),
-                      lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, g, nv),
-                      results, iters=5)
             (qs, ks, vs), mask = sdpa_inputs(q, k, v, nv)
             qs, ks, vs = (t.detach().requires_grad_() for t in (qs, ks, vs))
             out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
                                                  scale=1.0)
-            library_time(results, name, lambda: torch.autograd.grad(
-                out, (qs, ks, vs), g[None], retain_graph=True), q, k, nv)
+            time_flash(results, name,
+                       lambda: fa.flash_attention_bwd(q, k, v, o, lse, g, nv),
+                       lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, g, nv),
+                       lambda: torch.autograd.grad(out, (qs, ks, vs), g[None],
+                                                   retain_graph=True),
+                       q, k, nv, iters=5)
             set_bound(results, name, 5 * 2.0 * bh * nn_ * nn_ * d,
                       8 * 2 * bh * nn_ * d + 4 * bh * nn_)
             del qs, ks, vs, out
         elif nn_ == n2:
-            results[name]["ms_2048"] = device_ms(
+            results[name]["ms_2048"] = run_ms(
                 lambda: fa.flash_attention_bwd(q, k, v, o, lse, g, nv), 3)
-            log(f"  K8 at 2048^2: {results[name]['ms_2048']:.4f} ms")
+            log(f"  K8 at 2048^2 (CUDA events): {results[name]['ms_2048']:.4f} ms")
         elif d == 64:
-            results[name]["ms_b1"] = device_ms(
+            results[name]["ms_b1"] = run_ms(
                 lambda: fa.flash_attention_bwd(q, k, v, o, lse, g, nv))
-            log(f"  K8 at batch 1: {results[name]['ms_b1']:.4f} ms")
-        del q, k, v, o, lse, g, q_hot, o_hot, q_cold, o_cold, grads
+            log(f"  K8 at batch 1 (CUDA events): {results[name]['ms_b1']:.4f} ms")
+        del q, k, v, o, lse, g, q_hot, q_cold, k_pos, q_cool, k_cool
         torch.cuda.empty_cache()
 
 
@@ -2474,8 +2547,9 @@ def train_step_phase(results):
     tr["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     rows = kernel_breakdown(step, iters=1)
     groups = {"forward kernels K1-K5": ("_ln_fwd", "qkv_rope", "flash_fwd",
-                                        "attn_epilogue", "mlp_fused"),
-              "K8 backward": ("flash_bwd",)}
+                                        "flash_ws_fwd", "attn_epilogue",
+                                        "mlp_fused"),
+              "K8 backward": ("flash_bwd", "bwd_dkv", "bwd_dq", "bwd_delta")}
     split = {g: 0.0 for g in groups}
     split["everything else"] = 0.0
     for key, ms, _ in rows:

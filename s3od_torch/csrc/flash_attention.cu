@@ -7,13 +7,8 @@
 //   K6 `_fwd_kernel_stream_static` (2048^2: 16389 tokens streamed over 33
 //      K blocks of 512, q blocks raised to 2112 rows).
 // Which of the two the TPU runs is a VMEM rule (`_pick_blocks`) and is not
-// ported. Here a block of 4 warps owns 64 query rows and streams over
-// 64-key tiles of K and V through a two-stage cp.async pipeline at every
-// length: 65 tiles at 1024^2 (N = 4160), 257 at 2048^2 (N = 16448). Each
-// thread's share of a row denominator l is a sequential fp32 sum of at most
-// N / 4 terms in [0, 1] (4112 at 2048^2), so its relative rounding error
-// stays below ~2.5e-4 even in the worst case, and lse = 40 + log l
-// below ~2.5e-4 in absolute terms. All offsets are formed in size_t.
+// ported: under the static bound they compute the same thing, and one
+// kernel streams key tiles at every length here.
 //
 // Semantics, kept to the letter:
 //   - the softmax scale is already folded into q (K2), so s = q @ k^T;
@@ -24,15 +19,53 @@
 //   - o = acc / l, lse = 40 + log l.
 // Because the shift is a constant, tiles simply add: no running max and no
 // rescale of the accumulator (exact, by shift invariance, while the row
-// maxima sit inside the window).
+// maxima sit inside the window). The exponential is taken in base 2 with
+// log2(e) folded in, p = exp2(fma(s, log2 e, -40 log2 e)): a few fp32 ulps
+// from exp(s - 40), far below the one bf16 rounding of p.
 //
-// Bound on the H100: at ViT-B, 1024^2 (BH = 12, N = 4160, D = 64) it is
-// 2 x 2 x 12 x 4160^2 x 64 = 53 GFLOP over ~20 MB, at 2048^2 (N = 16448)
-// 831 GFLOP over ~76 MB: compute-bound on the tensor cores, with the exp
-// of every logit on the SFU as the second limit.
-// This first version keeps S and P in registers (FA2 style: the S
-// accumulator fragment is re-packed as the A operand of P @ V) and uses
-// mma.sync; wgmma and exp2 with a folded log2(e) are the next steps.
+// Bound on the H100: 4 BH N^2 D operations (two products). At ViT-B,
+// 1024^2 (BH = 12, N = 4160, D = 64) 53.2 GFLOP, 0.0538 ms at 989
+// TFLOP/s, over ~20 MB (0.006 ms at 3.35 TB/s); at 2048^2 (N = 16448) 831
+// GFLOP, 0.840 ms, over ~76 MB: compute-bound on the tensor cores. At
+// D = 64 the exponentials are a second limit of the same size: BH N^2 of
+// them at ~3.9e12/s on the SFU take as long as the products.
+//
+// Design, chosen by an explicit dispatch on D in the entry point below:
+//   D = 64 (ViT-B, ViT-L: every serving and training path): the
+//     warp-specialised kernel of `flash_fwd_ws.cuh` with STATIC = true
+//     and 3 consumer warpgroups, K7's structure. A block of 512 threads
+//     owns 192 query rows of one head. Warpgroup 0 (32 registers) loads Q
+//     once, then 128-key tiles of K and V into two-stage rings by TMA
+//     through 3-D (D, N, BH) maps with the 128-byte swizzle; warpgroups
+//     1-3 (160 registers; ptxas fits the kernel in 128 without spills)
+//     each own 64 rows: S = Q K^T by SS wgmma m64n128k16 (64 fp32
+//     accumulator registers a thread), O += P V by RS wgmma m64n64k16 from
+//     S's accumulator packed to bf16 in place (32 registers; O 32), taking
+//     turns on named barriers so one's exponentials run under the others'
+//     products. Shared memory: Q 24 KB + 2 x 2 stages x 16 KB of K and V
+//     = 89 KB with alignment and 9 mbarriers. On the H100, three consumer
+//     warpgroups ran faster than two, and one MUFU.EX2 per logit
+//     (`exp2_ftz`) faster than exp2f's range-checked form (side
+//     experiments; PERF.md section 6).
+//     Three kinds of key: below n_valid, their logit; from n_valid to N,
+//     -1e30 then the clip, e^-80 (59 keys at 1024^2); at or past N —
+//     N = 4160 and 16448 are odd multiples of 64, so the last 128-key tile
+//     reaches 64 keys past N, which TMA fills with zeros — p = 0, which a
+//     zero key would otherwise not get (s = 0 gives e^-40). Every tile up
+//     to N is walked: none can be skipped, since masked keys still weigh
+//     e^-80 and, on a row whose logits all sit below -40, weigh as much
+//     as the valid ones. The masks are tested only from the tile that
+//     holds n_valid. Query rows past N are computed on zeros and not
+//     stored. 33 key tiles at 1024^2, 129 at 2048^2; grids of 22 x BH and
+//     86 x BH blocks.
+//   D = 32 (the committed tiny checkpoints): the first, mma.sync kernel
+//     below, a block of 4 warps owning 64 query rows, 64-key tiles through
+//     a two-stage cp.async pipeline, mma.sync from padded shared memory,
+//     exp in base e. Each thread's share of a row denominator l is a sequential fp32
+//     sum of at most N / 4 terms in [0, 1], so its relative rounding error
+//     stays below ~2.5e-4, and lse = 40 + log l below ~2.5e-4 absolute.
+// All offsets are formed in size_t.
+#include "flash_fwd_ws.cuh"
 #include "mma.cuh"
 
 using namespace s3od;
@@ -40,6 +73,7 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
+// The D = 32 route: the mma.sync kernel.
 constexpr int BM = 64, BN = 64, THREADS = 128;
 constexpr float BOUND_HI = 40.f, BOUND_LO = -40.f, NEG_INF = -1e30f;
 
@@ -178,24 +212,19 @@ __global__ void __launch_bounds__(THREADS)
 
 }  // namespace
 
-// q, k, v, o: (bh, n, d) bf16; lse: (bh, n) fp32. n a multiple of 64,
-// d in {32, 64} (checked by the Python wrapper).
+// q, k, v, o: (bh, n, d) bf16, 16-byte aligned; lse: (bh, n) fp32. n a
+// multiple of 64, d in {32, 64}, 0 < n_valid <= n (checked by the Python
+// wrapper). D = 64 takes the wgmma kernel, D = 32 the mma.sync kernel.
 extern "C" int s3od_flash_attention_fwd(const void* q, const void* k, const void* v,
                                         void* o, void* lse, int bh, int n, int d,
                                         int n_valid, void* stream) {
-  dim3 grid(n / BM, bh);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16* qq = static_cast<const bf16*>(q);
-  const bf16* kk = static_cast<const bf16*>(k);
-  const bf16* vv = static_cast<const bf16*>(v);
-  bf16* oo = static_cast<bf16*>(o);
-  float* ll = static_cast<float*>(lse);
-  if (d == 64) {
-    flash_fwd_kernel<64><<<grid, THREADS, 0, st>>>(qq, kk, vv, oo, ll, n, n_valid);
-  } else if (d == 32) {
-    flash_fwd_kernel<32><<<grid, THREADS, 0, st>>>(qq, kk, vv, oo, ll, n, n_valid);
-  } else {
+  if (n <= 0 || n % 64 || n_valid <= 0 || n_valid > n)
     return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (d == 64) return s3od::flash_ws::launch_fwd<64, true, 3>(q, k, v, o, lse, bh, n, n_valid, st);
+  if (d != 32) return static_cast<int>(cudaErrorInvalidValue);
+  flash_fwd_kernel<32><<<dim3(n / BM, bh), THREADS, 0, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), static_cast<float*>(lse), n, n_valid);
   return static_cast<int>(cudaGetLastError());
 }

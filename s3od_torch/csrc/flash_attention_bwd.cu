@@ -8,15 +8,12 @@
 //   K8b `_bwd_dq_kernel` + `_bwd_dkv_kernel` (the split route for longer
 //       sequences: the 2048^2 path).
 // Both compute the same function; which one the TPU runs is a VMEM rule
-// and is not ported. One design serves every length here, two kernels on
-// one stream:
-//   - dkv: a block of 4 warps owns 64 keys (16 per warp, K and V held as
-//     mma A fragments in registers) and loops over every 64-row query
-//     tile, double-buffering Q, dO, lse and delta through cp.async;
-//   - dq: a block owns 64 query rows (Q and dO as A fragments) and loops
-//     over every 64-key tile of K and V.
-// Nothing is shared between blocks, so no atomics and no fp32 scratch in
-// device memory: every output is one block's deterministic sum.
+// and is not ported. One design serves every length here: two kernels on
+// one stream, a dkv kernel that owns keys and loops over query tiles and a
+// dq kernel that owns query rows and loops over key tiles. Nothing is
+// shared between blocks, so no atomics and no fp32 scratch in device
+// memory: every output is one block's sum in a fixed order, bit-identical
+// from run to run, like the TPU's sequential grid.
 //
 // Semantics, kept to the letter (`_bwd_*_kernel`, scale = 1 because K2
 // folds D^-0.5 into q):
@@ -24,25 +21,95 @@
 //   p = exp(min(s - lse, 0)) — the clamp keeps p <= 1 where the static
 //       bound left lse below an out-of-window row max;
 //   dp = dO v^T; ds = p * (dp - delta), delta = rowsum(o * dO) in fp32
-//       (computed by the wrapper, as JAX computes it outside Pallas);
+//       (JAX computes it outside Pallas; here a small pass ahead of the
+//       kernels, `bwd_delta_kernel`, in fp32 from the bf16 o and dO);
 //   dv = bf16(p)^T dO, dk = bf16(ds)^T q, dq = bf16(ds) k, each summed in
 //       fp32 and rounded to bf16 once.
+// The exponential is taken in base 2, p = exp2(min(fma(s, log2 e,
+// -lse log2 e), 0)): a few fp32 ulps from exp(min(s - lse, 0)), far below
+// the bf16 rounding of p and ds.
 //
-// Bound on the H100: at ViT-B, 1024^2, batch 4 (BH = 48, N = 4160, D = 64)
-// the fused algorithm's 5 products are 5 x 2 x 48 x 4160^2 x 64 = 532 GFLOP
-// (0.54 ms at 989 TFLOP/s) over ~100 MB of inputs and outputs (0.03 ms), so
-// it is compute-bound. This split design runs 7 products (s and dp twice)
-// with mma.sync from shared memory; a fused one-pass kernel and wgmma are
-// the later steps.
-#include "mma.cuh"
+// Bound on the H100: the function needs 5 products of 2 BH N^2 D
+// operations (s, dp, dv, dk, dq). At ViT-B, 1024^2, batch 4 (BH = 48,
+// N = 4160, D = 64) that is 532 GFLOP, 0.538 ms at 989 TFLOP/s, over
+// ~100 MB of inputs and outputs (0.03 ms at 3.35 TB/s): compute-bound on
+// the tensor cores, with 2 BH N^2 exponentials (one in each kernel) at
+// ~3.9e12/s on the SFU as the second limit. This split design runs 7
+// products (s and dp in both kernels).
+//
+// Design, chosen by an explicit dispatch on D in the entry point below.
+// Both routes start with `bwd_delta_kernel`, one pass over o and dO in
+// place of three PyTorch passes (two casts to fp32, a product, a sum),
+// which measured several times slower on the H100 (side experiment).
+//   D = 64 (ViT-B and ViT-L training): two warp-specialised wgmma kernels
+//     on `hopper.cuh`, K7's structure. Warpgroup 0 is the producer (one
+//     thread issues TMA loads through 3-D (D, N, BH) bf16 maps with the
+//     128-byte swizzle, and 2-D (N, BH) fp32 maps for lse and delta); the
+//     consumer warpgroups each own 64 of the block's rows and take turns
+//     issuing their products (a ring of named barriers), so one's
+//     exponentials run under the others' products. A turn issues tile j's
+//     two SS products with tile j - 1's two (dkv) or one (dq) RS products,
+//     whose A fragments are tile j - 1's bf16 P or dS packed from the
+//     accumulator in place. A 4-stage ring lets the producer run two tiles
+//     ahead, since a tile stays in use until the turn after its own. p is
+//     one MUFU.EX2 (`exp2_ftz`), which flushes p < 2^-126 to zero: such a
+//     p, and its dS, are below bf16's normal range too.
+//     - dkv: 2 consumer warpgroups (384 threads; 24 and 240 registers); a
+//       block owns 128 keys (K and V loaded once, 32 KB) and walks all
+//       N / 64 query tiles (Q, dO 8 KB each, lse and delta 256 bytes each,
+//       a stage). It computes in the transposed orientation: S^T = K Q^T
+//       and dP^T = V dO^T by SS wgmma m64n64k16 with the keys as M (K and
+//       V as stored are the K-major A operands, Q and dO the K-major B
+//       operands); then P^T and dS^T sit in the accumulator layout and
+//       feed dV += P^T dO and dK += dS^T Q as RS A fragments, with dO and
+//       Q as stored the MN-major B operands. Registers a consumer thread:
+//       S^T, dP^T, dK, dV 32 fp32 each, P^T and dS^T 16 each (160: no
+//       room for a third warpgroup). Shared memory 32 KB + 4 x 16.5 KB =
+//       99 KB (+ alignment and 9 mbarriers).
+//     - dq: 3 consumer warpgroups (512 threads; 32 and 160 registers); a
+//       block owns 192 query rows (Q and dO loaded once, 48 KB; each
+//       thread's two rows of lse and delta read once from global) and
+//       walks 64-key tiles of K and V (16 KB a stage) up to n_valid: tiles
+//       wholly past n_valid give p = exp(-1e30 ...) = 0 exactly and are
+//       skipped. S = Q K^T and dP = dO V^T by SS wgmma m64n64k16 (K and V
+//       the K-major B operands), dQ += dS K by RS wgmma with K the MN-major
+//       B operand. Registers: S, dP, dQ 32 fp32 each, dS 16. Shared
+//       memory 48 KB + 4 x 16 KB = 112 KB (+ alignment, barriers). Three
+//       warpgroups ran the dq kernel faster than two on the H100.
+//     Rows and keys at or past N (N = 4160 and 16448 are odd multiples of
+//     64, so the last 128- or 192-row block reaches past N): TMA fills q,
+//     dO, K and V there with zeros, within the head. The dkv kernel's
+//     64-row query tiles never cross N. In the dq kernel, lse and delta
+//     of rows past N load as 0 (a guarded read, never another head's), so
+//     p = exp(min(0 - 0, 0)) = 1 there: those rows' dS = 1 (0 - 0) = 0
+//     only because dO and V are zero, and they are not stored. Keys past
+//     N are past n_valid, so p = 0 for them in both kernels (and their K
+//     and V rows are zero). No dq, dk or dv row past N is stored.
+//     Why two kernels and not FlashAttention-3's single pass (5 products,
+//     dQ summed across key blocks by fp32 atomics and converted by a
+//     second pass): the split keeps every output one block's sum in a
+//     fixed order, bit-identical from run to run like the TPU's
+//     sequential grid, and it already runs under SDPA's backward; the
+//     single pass was not built, so its time is not measured.
+//   D = 32 (the committed tiny checkpoints): the first, mma.sync kernels
+//     below: dkv, a block of 4 warps owning 64 keys (16 a warp, K and V
+//     held as A fragments) over every 64-row query tile, double-buffering
+//     Q, dO, lse and delta through cp.async; dq, a block owning 64 query
+//     rows over every 64-key tile.
+#include <type_traits>
+
+#include "hopper.cuh"
 
 using namespace s3od;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int BM = 64, BN = 64, THREADS = 128;
 constexpr float NEG_INF = -1e30f;
+
+// ---- D = 32: mma.sync ------------------------------------------------------
+
+constexpr int BM = 64, BN = 64, THREADS = 128;
 
 template <int D, int ROWS>
 __device__ __forceinline__ void load_tile(bf16 (*dst)[D + 8], const bf16* src, int tid) {
@@ -324,9 +391,9 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 template <int D>
-int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* g, const float* lse,
-           const float* delta, bf16* dq, bf16* dk, bf16* dv, int bh, int n, int n_valid,
-           cudaStream_t st) {
+int launch_mma(const bf16* q, const bf16* k, const bf16* v, const bf16* g, const float* lse,
+               const float* delta, bf16* dq, bf16* dk, bf16* dv, int bh, int n, int n_valid,
+               cudaStream_t st) {
   dim3 grid(n / BM, bh);
   flash_bwd_dkv_kernel<D><<<grid, THREADS, 0, st>>>(q, k, v, g, lse, delta, dk, dv, n, n_valid);
   cudaError_t err = cudaGetLastError();
@@ -335,26 +402,467 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* g, const flo
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- D = 64: TMA + wgmma, warp-specialised ---------------------------------
+
+namespace wg {
+
+using namespace s3od::hopper;
+
+constexpr int D = 64;
+// The dkv kernel: 2 consumer warpgroups, 128 keys a block, 240 registers
+// a consumer thread; the dq kernel: 3 consumer warpgroups, 192 query rows
+// a block, 160 registers (its accumulators are a third smaller).
+constexpr int DKV_NC = 2, DQ_NC = 3;
+constexpr int BLOCK = 64 * DKV_NC;   // keys of a dkv block
+constexpr int DQ_ROWS = 64 * DQ_NC;  // query rows of a dq block
+constexpr int T = 64;                // rows of a streamed tile: queries (dkv), keys (dq)
+constexpr int STAGES = 4;
+constexpr int TILE = T * D;  // elements of a 64-row tile (8 KB)
+constexpr uint32_t TILE_BYTES = TILE * 2;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 1024 bytes of alignment slack; K and V (dkv) or Q and dO (dq), 128 rows
+// each; the ring; 1 + 2 STAGES mbarriers.
+constexpr int DKV_SMEM = 1024 + 2 * BLOCK * D * 2 + STAGES * (2 * TILE * 2 + 2 * T * 4) + (1 + 2 * STAGES) * 8;
+constexpr int DQ_SMEM = 1024 + 2 * DQ_ROWS * D * 2 + STAGES * 2 * TILE * 2 + (1 + 2 * STAGES) * 8;
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
+}
+
+// acc (64 x 64) = A B^T over D = 64: A the warpgroup's 64 rows, B a 64-row
+// tile, both as stored (K-major).
+__device__ __forceinline__ void mma_abt(float (&acc)[32], const bf16* a, const bf16* b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    WgmmaSS<64>::mma(acc, desc_sw128(a + kk * 16), desc_sw128(b + kk * 16), kk > 0);
+}
+
+// acc (64 x 64) += A B over 64 rows of B: A the bf16 fragments in
+// registers, B a 64-row tile as stored (MN-major).
+__device__ __forceinline__ void mma_ab(float (&acc)[32], const uint32_t (&a)[4][4], const bf16* b) {
+#pragma unroll
+  for (int kk = 0; kk < T / 16; ++kk) WgmmaRS<64>::mma(acc, a[kk], desc_sw128(b + kk * 16 * 64, TILE * 2), 1);
+}
+
+// Stores this thread's part of a 64 x 64 fp32 accumulator (rows r0 and
+// r0 + 8) as bf16 rows of `out`, rows at or past n skipped.
+__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[32], int r0, int quad,
+                                           int n) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * quad;
+    if (r0 < n)
+      *reinterpret_cast<uint32_t*>(out + (size_t)r0 * D + col) = pack_bf16(acc[4 * j], acc[4 * j + 1]);
+    if (r0 + 8 < n)
+      *reinterpret_cast<uint32_t*>(out + (size_t)(r0 + 8) * D + col) =
+          pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+__global__ void __launch_bounds__(ws_threads(DKV_NC), 1)
+    bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_k,  // boxes of 128 rows
+                   const __grid_constant__ CUtensorMap map_v,
+                   const __grid_constant__ CUtensorMap map_q,  // boxes of 64 rows
+                   const __grid_constant__ CUtensorMap map_g,
+                   const __grid_constant__ CUtensorMap map_l,  // fp32, boxes of 64
+                   const __grid_constant__ CUtensorMap map_d, bf16* __restrict__ dk,
+                   bf16* __restrict__ dv, int n, int n_valid) {
+  extern __shared__ unsigned char smem_raw[];
+  bf16* sK = reinterpret_cast<bf16*>(align1024(smem_raw));  // 128 keys
+  bf16* sV = sK + BLOCK * D;
+  bf16* sQ = sV + BLOCK * D;        // [STAGES][64][64]
+  bf16* sG = sQ + STAGES * TILE;   // [STAGES][64][64]
+  float* sL = reinterpret_cast<float*>(sG + STAGES * TILE);  // [STAGES][64]
+  float* sD = sL + STAGES * T;                               // [STAGES][64]
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sD + STAGES * T);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int bh = blockIdx.y, k0 = blockIdx.x * BLOCK;
+  const int nqt = n / T;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], DKV_NC * 128);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wgi = threadIdx.x / 128;
+  if (wgi == 0) {
+    setmaxnreg_dec<ws_producer_regs(DKV_NC)>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(kv_full, 2 * BLOCK * D * 2);
+      tma_load_3d(sK, &map_k, kv_full, 0, k0, bh);
+      tma_load_3d(sV, &map_v, kv_full, 0, k0, bh);
+      for (int qt = 0; qt < nqt; ++qt) {
+        const int s = qt % STAGES, ph = (qt / STAGES) & 1;
+        mbar_wait(&empty[s], ph ^ 1);
+        mbar_expect_tx(&full[s], 2 * TILE_BYTES + 2 * T * 4);
+        tma_load_3d(sQ + s * TILE, &map_q, &full[s], 0, qt * T, bh);
+        tma_load_3d(sG + s * TILE, &map_g, &full[s], 0, qt * T, bh);
+        tma_load_2d(sL + s * T, &map_l, &full[s], qt * T, bh);
+        tma_load_2d(sD + s * T, &map_d, &full[s], qt * T, bh);
+      }
+    }
+  } else {
+    setmaxnreg_inc<ws_consumer_regs(DKV_NC)>();
+    const int half = wgi - 1, t = threadIdx.x - 128 * wgi, quad = t & 3;
+    // This thread's two keys (rows of S^T); keys at or past n_valid get
+    // the bias -1e30, so p = 0 for them.
+    const int r0 = k0 + half * 64 + (t >> 5) * 16 + ((t & 31) >> 2);
+    const bool any_dead = r0 + 8 >= n_valid;
+    const float bias0 = r0 >= n_valid ? NEG_INF : 0.f, bias1 = r0 + 8 >= n_valid ? NEG_INF : 0.f;
+    const bf16* kh = sK + half * TILE;
+    const bf16* vh = sV + half * TILE;
+
+    float st[32], dpt[32], dka[32], dva[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dka[i] = dva[i] = 0.f;
+    uint32_t pa[4][4], da[4][4];  // bf16 P^T and dS^T of the previous tile
+
+    auto issue_sd = [&](int qt) {  // S^T = K Q^T, dP^T = V dO^T
+      const int s = qt % STAGES;
+      mma_abt(st, kh, sQ + s * TILE);
+      mma_abt(dpt, vh, sG + s * TILE);
+      wgmma_commit();
+    };
+    auto issue_kv = [&](int qt) {  // dV += P^T dO, dK += dS^T Q
+      const int s = qt % STAGES;
+      mma_ab(dva, pa, sG + s * TILE);
+      mma_ab(dka, da, sQ + s * TILE);
+      wgmma_commit();
+    };
+    // P^T and dS^T of query tile qt in place; lse and delta are per
+    // column (query).
+    auto grads = [&](int qt) {
+      const int s = qt % STAGES;
+      const float* ls = sL + s * T;
+      const float* ds = sD + s * T;
+      if (any_dead) {
+#pragma unroll
+        for (int j = 0; j < T / 8; ++j) {
+          st[4 * j] += bias0;
+          st[4 * j + 1] += bias0;
+          st[4 * j + 2] += bias1;
+          st[4 * j + 3] += bias1;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < T / 8; ++j) {
+        const int c = 8 * j + 2 * quad;
+        const float2 l2 = *reinterpret_cast<const float2*>(ls + c);
+        const float2 d2 = *reinterpret_cast<const float2*>(ds + c);
+        const float nl[2] = {-l2.x * LOG2E, -l2.y * LOG2E}, dl[2] = {d2.x, d2.y};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2_ftz(fminf(fmaf(st[4 * j + e], LOG2E, nl[e & 1]), 0.f));
+          st[4 * j + e] = p;
+          dpt[4 * j + e] = p * (dpt[4 * j + e] - dl[e & 1]);
+        }
+      }
+      pack_a(pa, st);
+      pack_a(da, dpt);
+    };
+
+    mbar_wait(kv_full, 0);
+    turns_open<DKV_NC>(half);
+    // Query tile 0: S^T and dP^T only.
+    mbar_wait(&full[0], 0);
+    turn_begin(half);
+    wgmma_fence();
+    issue_sd(0);
+    turn_end<DKV_NC>(half, false);
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+    grads(0);
+    // Tiles 1..: S^T, dP^T of qt with dV, dK of qt - 1.
+    for (int qt = 1; qt < nqt; ++qt) {
+      mbar_wait(&full[qt % STAGES], (qt / STAGES) & 1);
+      turn_begin(half);
+      fence_regs(dva);
+      fence_regs(dka);
+      fence_regs(pa);
+      fence_regs(da);
+      wgmma_fence();
+      issue_sd(qt);
+      issue_kv(qt - 1);
+      turn_end<DKV_NC>(half, false);
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+      fence_regs(dva);
+      fence_regs(dka);
+      fence_regs(pa);
+      fence_regs(da);  // tile qt - 1's fragments stay until its products are done
+      mbar_arrive(&empty[(qt - 1) % STAGES]);
+      grads(qt);
+    }
+    // The last tile's dV and dK.
+    turn_begin(half);
+    fence_regs(dva);
+    fence_regs(dka);
+    fence_regs(pa);
+    fence_regs(da);
+    wgmma_fence();
+    issue_kv(nqt - 1);
+    turn_end<DKV_NC>(half, true);
+    wgmma_wait<0>();
+    fence_regs(dva);
+    fence_regs(dka);
+
+    store_rows(dk + (size_t)bh * n * D, dka, r0, quad, n);
+    store_rows(dv + (size_t)bh * n * D, dva, r0, quad, n);
+  }
+}
+
+__global__ void __launch_bounds__(ws_threads(DQ_NC), 1)
+    bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,  // boxes of 192 rows
+                  const __grid_constant__ CUtensorMap map_g,
+                  const __grid_constant__ CUtensorMap map_k,  // boxes of 64 rows
+                  const __grid_constant__ CUtensorMap map_v, const float* __restrict__ lse,
+                  const float* __restrict__ delta, bf16* __restrict__ dq, int n, int n_valid) {
+  extern __shared__ unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(align1024(smem_raw));  // 192 query rows
+  bf16* sG = sQ + DQ_ROWS * D;
+  bf16* sK = sG + DQ_ROWS * D;        // [STAGES][64][64]
+  bf16* sV = sK + STAGES * TILE;   // [STAGES][64][64]
+  uint64_t* qg_full = reinterpret_cast<uint64_t*>(sV + STAGES * TILE);
+  uint64_t* full = qg_full + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int bh = blockIdx.y, q0 = blockIdx.x * DQ_ROWS;
+  const int nkt = (n_valid + T - 1) / T;  // tiles wholly past n_valid add exact zeros
+  const int edge_tile = n_valid / T;      // the first tile holding a key at or past n_valid
+
+  if (threadIdx.x == 0) {
+    mbar_init(qg_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], DQ_NC * 128);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wgi = threadIdx.x / 128;
+  if (wgi == 0) {
+    setmaxnreg_dec<ws_producer_regs(DQ_NC)>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(qg_full, 2 * DQ_ROWS * D * 2);
+      tma_load_3d(sQ, &map_q, qg_full, 0, q0, bh);
+      tma_load_3d(sG, &map_g, qg_full, 0, q0, bh);
+      for (int kt = 0; kt < nkt; ++kt) {
+        const int s = kt % STAGES, ph = (kt / STAGES) & 1;
+        mbar_wait(&empty[s], ph ^ 1);
+        mbar_expect_tx(&full[s], 2 * TILE_BYTES);
+        tma_load_3d(sK + s * TILE, &map_k, &full[s], 0, kt * T, bh);
+        tma_load_3d(sV + s * TILE, &map_v, &full[s], 0, kt * T, bh);
+      }
+    }
+  } else {
+    setmaxnreg_inc<ws_consumer_regs(DQ_NC)>();
+    const int half = wgi - 1, t = threadIdx.x - 128 * wgi, quad = t & 3;
+    const int r0 = q0 + half * 64 + (t >> 5) * 16 + ((t & 31) >> 2), r1 = r0 + 8;
+    // lse and delta of this thread's two rows; 0 past N (those rows are
+    // zeros of Q and dO, and are not stored).
+    const float* lb = lse + (size_t)bh * n;
+    const float* db = delta + (size_t)bh * n;
+    const float nl0 = r0 < n ? -lb[r0] * LOG2E : 0.f, nl1 = r1 < n ? -lb[r1] * LOG2E : 0.f;
+    const float dl0 = r0 < n ? db[r0] : 0.f, dl1 = r1 < n ? db[r1] : 0.f;
+    const bf16* qh = sQ + half * TILE;
+    const bf16* gh = sG + half * TILE;
+
+    float sa[32], dpa[32], dqa[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dqa[i] = 0.f;
+    uint32_t da[4][4];  // bf16 dS of the previous tile
+
+    auto issue_sd = [&](int kt) {  // S = Q K^T, dP = dO V^T
+      const int s = kt % STAGES;
+      mma_abt(sa, qh, sK + s * TILE);
+      mma_abt(dpa, gh, sV + s * TILE);
+      wgmma_commit();
+    };
+    auto issue_dq = [&](int kt) {  // dQ += dS K
+      mma_ab(dqa, da, sK + (kt % STAGES) * TILE);
+      wgmma_commit();
+    };
+    // dS of key tile kt in place of S. EDGE: the tile holds a key at or
+    // past n_valid, so the key mask is tested.
+    auto grads = [&](auto edge, int kt) {
+      constexpr bool EDGE = decltype(edge)::value;
+#pragma unroll
+      for (int j = 0; j < T / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sa[4 * j + e];
+          if (EDGE && kt * T + 8 * j + 2 * quad + (e & 1) >= n_valid) x += NEG_INF;
+          const float p = exp2_ftz(fminf(fmaf(x, LOG2E, e < 2 ? nl0 : nl1), 0.f));
+          sa[4 * j + e] = p * (dpa[4 * j + e] - (e < 2 ? dl0 : dl1));
+        }
+      }
+      pack_a(da, sa);
+    };
+    auto grads_tile = [&](int kt) {
+      if (kt >= edge_tile)
+        grads(std::true_type(), kt);
+      else
+        grads(std::false_type(), kt);
+    };
+
+    mbar_wait(qg_full, 0);
+    turns_open<DQ_NC>(half);
+    // Key tile 0: S and dP only.
+    mbar_wait(&full[0], 0);
+    turn_begin(half);
+    wgmma_fence();
+    issue_sd(0);
+    turn_end<DQ_NC>(half, false);
+    wgmma_wait<0>();
+    fence_regs(sa);
+    fence_regs(dpa);
+    grads_tile(0);
+    // Tiles 1..: S, dP of kt with dQ of kt - 1.
+    for (int kt = 1; kt < nkt; ++kt) {
+      mbar_wait(&full[kt % STAGES], (kt / STAGES) & 1);
+      turn_begin(half);
+      fence_regs(dqa);
+      fence_regs(da);
+      wgmma_fence();
+      issue_sd(kt);
+      issue_dq(kt - 1);
+      turn_end<DQ_NC>(half, false);
+      wgmma_wait<0>();
+      fence_regs(sa);
+      fence_regs(dpa);
+      fence_regs(dqa);
+      fence_regs(da);
+      mbar_arrive(&empty[(kt - 1) % STAGES]);
+      grads_tile(kt);
+    }
+    // The last tile's dQ.
+    turn_begin(half);
+    fence_regs(dqa);
+    fence_regs(da);
+    wgmma_fence();
+    issue_dq(nkt - 1);
+    turn_end<DQ_NC>(half, true);
+    wgmma_wait<0>();
+    fence_regs(dqa);
+
+    store_rows(dq + (size_t)bh * n * D, dqa, r0, quad, n);
+  }
+}
+
+int launch_wgmma(const bf16* q, const bf16* k, const bf16* v, const bf16* g, const float* lse,
+                 const float* delta, bf16* dq, bf16* dk, bf16* dv, int bh, int n, int n_valid,
+                 cudaStream_t st) {
+  // bf16 (D, N, BH) maps in boxes of 192 rows (Q, dO for dq), 128 (K, V
+  // for dkv) and 64 (the streamed tiles); fp32 (N, BH) maps of lse and
+  // delta in boxes of 64.
+  const uint64_t dims[3] = {(uint64_t)D, (uint64_t)n, (uint64_t)bh};
+  const uint64_t strides[2] = {(uint64_t)D * 2, (uint64_t)n * D * 2};
+  const uint32_t box_kv[3] = {64, BLOCK, 1}, box_qg[3] = {64, DQ_ROWS, 1},
+                 box_tile[3] = {64, T, 1};
+  const uint64_t dims_r[2] = {(uint64_t)n, (uint64_t)bh};
+  const uint64_t strides_r[1] = {(uint64_t)n * 4};
+  const uint32_t box_r[2] = {T, 1};
+  const void* rows[4] = {q, g, k, v};
+  CUtensorMap blk[4], tile[4], map_l, map_d;  // q, g, k, v
+  int err = 0;
+  for (int i = 0; i < 4 && !err; ++i) {
+    err = encode_bf16_map(&blk[i], rows[i], 3, dims, strides, i < 2 ? box_qg : box_kv);
+    if (!err) err = encode_bf16_map(&tile[i], rows[i], 3, dims, strides, box_tile);
+  }
+  if (!err) err = encode_f32_map(&map_l, lse, 2, dims_r, strides_r, box_r);
+  if (!err) err = encode_f32_map(&map_d, delta, 2, dims_r, strides_r, box_r);
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       DKV_SMEM);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DQ_SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  bwd_dkv_kernel<<<dim3((n + BLOCK - 1) / BLOCK, bh), ws_threads(DKV_NC), DKV_SMEM, st>>>(blk[2], blk[3], tile[0], tile[1], map_l, map_d,
+                                                   dk, dv, n, n_valid);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  bwd_dq_kernel<<<dim3((n + DQ_ROWS - 1) / DQ_ROWS, bh), ws_threads(DQ_NC), DQ_SMEM, st>>>(blk[0], blk[1], tile[2], tile[3], lse, delta, dq, n,
+                                                 n_valid);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wg
+
+// ---- delta = rowsum(o * dO) ------------------------------------------------
+
+// One pass ahead of either route: each row of o and dO (D bf16, D / 8
+// chunks of 16 bytes) is read by D / 8 threads, whose fp32 partial sums
+// are joined by shuffles.
+template <int D>
+__global__ void __launch_bounds__(256)
+    bwd_delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ g,
+                     float* __restrict__ delta, size_t rows) {
+  constexpr int PER_ROW = D / 8;
+  const size_t i = (size_t)blockIdx.x * 256 + threadIdx.x, row = i / PER_ROW;
+  float s = 0.f;
+  if (row < rows) {
+    const uint4 a = reinterpret_cast<const uint4*>(o)[i];
+    const uint4 b = reinterpret_cast<const uint4*>(g)[i];
+    const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&a);
+    const __nv_bfloat162* pb = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 fa = __bfloat1622float2(pa[j]), fb = __bfloat1622float2(pb[j]);
+      s = fmaf(fa.x, fb.x, s);
+      s = fmaf(fa.y, fb.y, s);
+    }
+  }
+#pragma unroll
+  for (int off = PER_ROW / 2; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffff, s, off);
+  if (row < rows && i % PER_ROW == 0) delta[row] = s;
+}
+
+template <int D>
+int launch_delta(const bf16* o, const bf16* g, float* delta, int bh, int n, cudaStream_t st) {
+  const size_t rows = (size_t)bh * n, chunks = rows * (D / 8);
+  bwd_delta_kernel<D><<<(unsigned)((chunks + 255) / 256), 256, 0, st>>>(o, g, delta, rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// q, k, v, g (the output's cotangent), dq, dk, dv: (bh, n, d) bf16; lse and
-// delta: (bh, n) fp32. n a multiple of 64, d in {32, 64} (checked by the
-// Python wrapper).
+// q, k, v, o, g (the output's cotangent), dq, dk, dv: (bh, n, d) bf16; lse:
+// (bh, n) fp32; delta: (bh, n) fp32 scratch, written here; all 16-byte
+// aligned. n a multiple of 64, d in {32, 64}, 0 < n_valid <= n (checked by
+// the Python wrapper). D = 64 takes the wgmma kernels, D = 32 the mma.sync
+// kernels; both after the delta pass.
 extern "C" int s3od_flash_attention_bwd(const void* q, const void* k, const void* v,
-                                        const void* g, const void* lse, const void* delta,
-                                        void* dq, void* dk, void* dv, int bh, int n, int d,
-                                        int n_valid, void* stream) {
+                                        const void* o, const void* g, const void* lse,
+                                        void* delta, void* dq, void* dk, void* dv, int bh,
+                                        int n, int d, int n_valid, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n <= 0 || n % 64 || n_valid <= 0 || n_valid > n || (d != 64 && d != 32))
+    return static_cast<int>(cudaErrorInvalidValue);
   const bf16* qq = static_cast<const bf16*>(q);
   const bf16* kk = static_cast<const bf16*>(k);
   const bf16* vv = static_cast<const bf16*>(v);
+  const bf16* oo = static_cast<const bf16*>(o);
   const bf16* gg = static_cast<const bf16*>(g);
   const float* ll = static_cast<const float*>(lse);
-  const float* dd = static_cast<const float*>(delta);
+  float* dd = static_cast<float*>(delta);
   bf16* oq = static_cast<bf16*>(dq);
   bf16* ok = static_cast<bf16*>(dk);
   bf16* ov = static_cast<bf16*>(dv);
-  if (d == 64) return launch<64>(qq, kk, vv, gg, ll, dd, oq, ok, ov, bh, n, n_valid, st);
-  if (d == 32) return launch<32>(qq, kk, vv, gg, ll, dd, oq, ok, ov, bh, n, n_valid, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (d == 64) {
+    const int err = launch_delta<64>(oo, gg, dd, bh, n, st);
+    return err ? err : wg::launch_wgmma(qq, kk, vv, gg, ll, dd, oq, ok, ov, bh, n, n_valid, st);
+  }
+  const int err = launch_delta<32>(oo, gg, dd, bh, n, st);
+  return err ? err : launch_mma<32>(qq, kk, vv, gg, ll, dd, oq, ok, ov, bh, n, n_valid, st);
 }

@@ -1,9 +1,11 @@
 // Shared Hopper (sm_90a) building blocks of the port's warp-specialised
-// kernels (K5, K7), as inline PTX: mbarriers, TMA tensor loads, the wgmma
-// shared-memory descriptor for 128-byte-swizzled tiles, wgmma fences and
-// groups, `wgmma.mma_async` m64nNk16 bf16 -> fp32 (SS: both operands in
-// shared memory; RS: A from registers), `setmaxnreg`, and the host-side
-// encoding of TMA tensor maps.
+// kernels (K5, K8; K7 and K3/K6 through `flash_fwd_ws.cuh`), as inline
+// PTX: mbarriers, TMA tensor loads, the wgmma shared-memory descriptor
+// for 128-byte-swizzled tiles, wgmma fences and groups, `wgmma.mma_async`
+// m64nNk16 bf16 -> fp32 (SS: both operands in shared memory; RS: A from
+// registers), `setmaxnreg`, the SFU's exp2, the turns of the consumer
+// warpgroups, and the host-side encoding of TMA tensor maps (bf16
+// swizzled tiles, fp32 rows).
 //
 // No CuTe or CUTLASS: every source builds with its own nvcc in seconds.
 // `cuTensorMapEncodeTiled` is a driver function; it is reached through
@@ -157,6 +159,17 @@ __device__ __forceinline__ void fence_regs(uint32_t (&d)[R][C]) {
     for (int j = 0; j < C; ++j) asm volatile("" : "+r"(d[i][j])::"memory");
 }
 
+// ---- the SFU -----------------------------------------------------------------
+
+// 2^x by one MUFU.EX2, subnormal results flushed to zero. exp2f keeps them
+// (ex2.approx.f32), at the cost of a range check and two multiplies per
+// call around the same MUFU.EX2.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // ---- setmaxnreg ------------------------------------------------------------
 
 template <int R>
@@ -168,13 +181,47 @@ __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
 }
 
+// ---- warp specialisation ---------------------------------------------------
+// A block of one producer warpgroup and NC consumer warpgroups; registers a
+// thread after `setmaxnreg`, the whole 64K register file split as
+// CUTLASS and FlashAttention-3 split it.
+__host__ __device__ constexpr int ws_threads(int nc) { return 128 * (nc + 1); }
+__host__ __device__ constexpr int ws_producer_regs(int nc) { return nc == 2 ? 24 : 32; }
+__host__ __device__ constexpr int ws_consumer_regs(int nc) { return nc == 2 ? 240 : 160; }
+
+// The NC consumer warpgroups take turns issuing their products, in a ring
+// (named barriers 1..NC: warpgroup h waits on 1 + h and, once its products
+// are issued, releases the next one's), so one's softmax runs under the
+// others' products. Each takes the same number of turns; the last
+// warpgroup opens the first (`turns_open`) and does not release after its
+// last.
+template <int NC>
+__device__ __forceinline__ void turns_open(int h) {
+  if (h == NC - 1) named_arrive(1, 256);
+}
+__device__ __forceinline__ void turn_begin(int h) { named_sync(1 + h, 256); }
+template <int NC>
+__device__ __forceinline__ void turn_end(int h, bool last) {
+  if (!(last && h == NC - 1)) named_arrive(1 + (h + 1) % NC, 256);
+}
+
 // ---- the accumulator fragment ----------------------------------------------
 // Thread t of a warpgroup holds, of the 64 x N fp32 tile, d[4j + e] at
 // row 16 (t / 32) + (t % 32) / 4 + 8 (e / 2) and column 8 j + 2 (t % 4) +
 // e % 2. The A fragment of an RS wgmma over k16 slice s is the same
 // layout's columns 16 s .. 16 s + 15, packed to bf16 pairs:
 // {d[8s], d[8s+1]}, {d[8s+2], d[8s+3]}, {d[8s+4], d[8s+5]}, {d[8s+6], d[8s+7]}
-// (`pack_bf16`).
+// (`pack_a`).
+template <int S>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[S][4], const float (&d)[8 * S]) {
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    a[s][0] = pack_bf16(d[8 * s], d[8 * s + 1]);
+    a[s][1] = pack_bf16(d[8 * s + 2], d[8 * s + 3]);
+    a[s][2] = pack_bf16(d[8 * s + 4], d[8 * s + 5]);
+    a[s][3] = pack_bf16(d[8 * s + 6], d[8 * s + 7]);
+  }
+}
 
 // d (64 x N, fp32) += A (64 x 16) @ B (16 x N): A and B from shared memory
 // through descriptors, both K-major. scale_d == 0 overwrites d.
@@ -354,13 +401,14 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A tensor map over a row-major bf16 tensor of `rank` dimensions, listed
+// A tensor map over a row-major tensor of `rank` dimensions, listed
 // innermost first (`dims`; `strides` in bytes for dims 1..rank-1), read in
-// boxes of `box` elements with the 128-byte swizzle; elements outside the
-// tensor load as zeros. The map holds the pointer, so it is encoded anew
-// on every call. Returns 0 or a CUDA error code.
-inline int encode_bf16_map(CUtensorMap* map, const void* ptr, int rank, const uint64_t* dims,
-                           const uint64_t* strides, const uint32_t* box) {
+// boxes of `box` elements with the given element type and swizzle;
+// elements outside the tensor load as zeros. The map holds the pointer,
+// so it is encoded anew on every call. Returns 0 or a CUDA error code.
+inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int rank,
+                      const uint64_t* dims, const uint64_t* strides, const uint32_t* box,
+                      CUtensorMapSwizzle swizzle) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   cuuint64_t d[3], s[2];
@@ -370,10 +418,23 @@ inline int encode_bf16_map(CUtensorMap* map, const void* ptr, int rank, const ui
     b[i] = box[i];
     if (i + 1 < rank) s[i] = strides[i];
   }
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), d,
-                        s, b, e, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  const CUresult r = fn(map, type, rank, const_cast<void*>(ptr), d, s, b, e,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+// bf16 tiles with the 128-byte swizzle (the wgmma operands above).
+inline int encode_bf16_map(CUtensorMap* map, const void* ptr, int rank, const uint64_t* dims,
+                           const uint64_t* strides, const uint32_t* box) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, rank, dims, strides, box,
+                    CU_TENSOR_MAP_SWIZZLE_128B);
+}
+// fp32 rows without swizzle (per-row statistics such as lse); the box's
+// innermost extent must span a multiple of 16 bytes.
+inline int encode_f32_map(CUtensorMap* map, const void* ptr, int rank, const uint64_t* dims,
+                          const uint64_t* strides, const uint32_t* box) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ptr, rank, dims, strides, box,
+                    CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 // Streaming multiprocessors of the current device (persistent grids).

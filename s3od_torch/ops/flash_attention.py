@@ -12,8 +12,12 @@ One CUDA kernel replaces two TPU kernels of `s3od_tpu/ops/flash_attention.py`
 - K6 `_fwd_kernel_stream_static`, streaming over K blocks — the 2048^2
   path (16389 tokens, padded to 16448 here; 16896 on the TPU).
 Under the static bound the two compute the same thing: the kernel streams
-64-key tiles with no running max and no rescale at every length. The
-kernel source and its design note are in `s3od_torch/csrc/flash_attention.cu`.
+key tiles with no running max and no rescale at every length. At D = 64
+it is K7's warp-specialised TMA + wgmma kernel (`csrc/flash_fwd_ws.cuh`)
+with the static bound; at D = 32 (the tiny checkpoints) the first,
+mma.sync kernel, by an explicit dispatch on D (`kernel_route`). The design
+note is in `s3od_torch/csrc/flash_attention.cu`; K8's, with the same
+dispatch, in `s3od_torch/csrc/flash_attention_bwd.cu`.
 
 The softmax subtracts the constant SOFTMAX_BOUND_HI instead of the row max
 after clipping the logits to [LO, HI]: exact by shift invariance while the
@@ -92,6 +96,13 @@ def flash_attention_plain(q, k, v, n_valid: int, chunk: int = 0):
     return torch.cat(outs, 1), torch.cat(lses, 1)
 
 
+def kernel_route(d: int) -> str:
+    """The kernel that serves head dimension d in K3/K6 and K8: the
+    TMA + wgmma kernels at D = 64, the mma.sync ones at D = 32 (the C
+    entry points dispatch on D the same way)."""
+    return {64: "wgmma", 32: "mma.sync"}[d]
+
+
 def flash_attention(q, k, v, n_valid: int):
     """Static-bound attention forward -> (o, lse).
 
@@ -108,7 +119,7 @@ def flash_attention(q, k, v, n_valid: int):
         raise ValueError(
             f"flash_attention kernel: unsupported N={n} D={d} "
             f"n_valid={n_valid}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (_build.aligned16(t) for t in (q, k, v))
     o = torch.empty_like(q)
     lse = torch.empty((bh, n), device=q.device, dtype=torch.float32)
     lib = _build.load_library()
@@ -167,8 +178,9 @@ def flash_attention_bwd(q, k, v, o, lse, g, n_valid: int):
 
     CPU tensors take the plain version. CUDA tensors launch the kernel or
     raise: bf16 (BH, N, D) q, k, v, o, g with N a multiple of 64 and D in
-    {32, 64}, fp32 (BH, N) lse. delta = rowsum(o g) is computed here in
-    fp32, as the JAX package computes it outside its kernels."""
+    {32, 64}, fp32 (BH, N) lse. delta = rowsum(o g) in fp32, which the JAX
+    package computes outside its kernels, is the kernel's first pass,
+    into a scratch allocated here."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, g, n_valid)
     bh, n, d = q.shape
@@ -182,12 +194,12 @@ def flash_attention_bwd(q, k, v, o, lse, g, n_valid: int):
         raise ValueError(
             f"flash_attention_bwd kernel: unsupported N={n} D={d} "
             f"n_valid={n_valid}")
-    q, k, v, g, lse = (t.contiguous() for t in (q, k, v, g, lse))
-    delta = (o.float() * g.float()).sum(-1)
+    q, k, v, o, g, lse = (_build.aligned16(t) for t in (q, k, v, o, g, lse))
+    delta = torch.empty((bh, n), device=q.device, dtype=torch.float32)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     lib = _build.load_library()
     code = lib.s3od_flash_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), bh, n, d, n_valid, _build.stream_ptr(q),
     )
@@ -252,6 +264,68 @@ def online_plan(bh: int, n: int, d: int, n_valid: int) -> dict:
         "smem": 1024 + (1 + 2 * ONLINE_STAGES) * (d // 64) * atom_bytes + 9 * 8,
         "acc_regs": ONLINE_BLOCK_K // 2 + d // 2 + ONLINE_BLOCK_K // 4,
     }
+
+
+# K3/K6's D = 64 launch: the kernel of `csrc/flash_fwd_ws.cuh` with the
+# static bound and three consumer warpgroups (K7 has two).
+STATIC_WARPGROUPS = 3
+STATIC_BLOCK_Q = 64 * STATIC_WARPGROUPS   # query rows of a block
+STATIC_THREADS = 128 * (STATIC_WARPGROUPS + 1)
+STATIC_PRODUCER_REGS, STATIC_CONSUMER_REGS = 32, 160
+
+
+def static_plan(bh: int, n: int, d: int, n_valid: int) -> dict:
+    """K3/K6's D = 64 launch at (bh, n, d): the grid (blocks of 192 query
+    rows, heads), the 128-key tiles it walks — to N and not to n_valid,
+    since keys in [n_valid, N) weigh e^-80, the last one reaching past N
+    where N is an odd multiple of 64 — dynamic shared memory (1024 bytes
+    of alignment slack, Q, the two K and V stages, 9 mbarriers) and the
+    registers a consumer thread holds for S (64 x 128) and O (64 x d) in
+    fp32 and the bf16 P fragment."""
+    atoms = d // 64
+    return {
+        "grid": (-(-n // STATIC_BLOCK_Q), bh),
+        "key_tiles": -(-n // ONLINE_BLOCK_K),
+        "smem": 1024 + atoms * (STATIC_BLOCK_Q + 2 * ONLINE_STAGES
+                                * ONLINE_BLOCK_K) * 64 * 2 + 9 * 8,
+        "acc_regs": ONLINE_BLOCK_K // 2 + d // 2 + ONLINE_BLOCK_K // 4,
+    }
+
+
+# The tile plan of K8's D = 64 kernels (`csrc/flash_attention_bwd.cu`),
+# mirrored for the CPU tests: a dkv kernel of two consumer warpgroups (240
+# registers each) and a dq kernel of three (160 each).
+BWD_TILE = 64                       # rows of a streamed tile: queries (dkv), keys (dq)
+BWD_STAGES = 4                      # depth of each kernel's ring
+BWD_WARPGROUPS = {"dkv": 2, "dq": 3}
+BWD_CONSUMER_REGS = {"dkv": 240, "dq": 160}
+BWD_PRODUCER_REGS = {"dkv": 24, "dq": 32}
+
+
+def bwd_plan(bh: int, n: int, d: int, n_valid: int) -> dict:
+    """K8's two launches at (bh, n, d): for each kernel the grid (blocks of
+    64 x warpgroups rows — keys in dkv, queries in dq — and heads), the
+    tiles it walks (dkv: every 64-row query tile, none crossing N; dq:
+    the 64-key tiles up to n_valid), dynamic shared memory (1024 bytes of
+    alignment slack, the block's two resident tiles, the 4-stage ring, 9
+    mbarriers) and the registers a consumer thread holds: fp32
+    accumulators of 64 x 64 (dkv: S^T, dP^T, dK, dV; dq: S, dP, dQ) and
+    the bf16 A fragments (dkv: P^T and dS^T; dq: dS). `products`: the
+    2 BH N^2 D products both run."""
+    tile_bytes = BWD_TILE * d * 2
+    acc, frag = BWD_TILE * d // 128, BWD_TILE // 4
+    plan = {"products": 7}
+    for kernel, ring, tiles, regs in (
+            ("dkv", 2 * tile_bytes + 2 * BWD_TILE * 4, n // BWD_TILE,
+             4 * acc + 2 * frag),
+            ("dq", 2 * tile_bytes, -(-n_valid // BWD_TILE), 3 * acc + frag)):
+        rows = 64 * BWD_WARPGROUPS[kernel]
+        plan[kernel] = {"grid": (-(-n // rows), bh), "rows": rows,
+                        "tiles": tiles,
+                        "smem": 1024 + 2 * rows * d * 2 + BWD_STAGES * ring
+                        + (1 + 2 * BWD_STAGES) * 8,
+                        "acc_regs": regs}
+    return plan
 
 
 def flash_attention_online(q, k, v, n_valid: int):

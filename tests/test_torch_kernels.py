@@ -406,6 +406,67 @@ def test_flash_online_kernel_plan_fits_the_card(bh, n, d, n_valid):
     assert fa.ONLINE_THREADS == 3 * 128
 
 
+# (BH, N, D, n_valid) that K3/K6 and K8 meet at D = 64: ViT-B at 1024^2
+# batch 1 and 16 (4101 tokens padded to 4160, an odd multiple of 64), at
+# 2048^2 (16389 -> 16448), the training step's batch 4, and the CUDA
+# tests' 320 = 5 x 64.
+STATIC_SHAPES = [(12, 4160, 64, 4101), (192, 4160, 64, 4101),
+                 (12, 16448, 64, 16389), (48, 4160, 64, 4101),
+                 (4, 320, 64, 300)]
+
+
+@pytest.mark.parametrize("bh,n,d,n_valid", STATIC_SHAPES)
+def test_flash_static_kernel_plan_fits_the_card(bh, n, d, n_valid):
+    """The Python mirror of K3/K6's D = 64 launch (K7's kernel with the
+    static bound and three consumer warpgroups): 192-row query blocks
+    cover N, the key tiles run to N and not to n_valid (keys in
+    [n_valid, N) weigh e^-80), the last tile reaching 64 keys past N where
+    N is an odd multiple of 64; Q and the K/V stages fit a block's shared
+    memory, the consumers' S, O and P registers their 160 beside a
+    32-register producer, and the four warpgroups the register file.
+    D = 64 takes this kernel and D = 32 the mma.sync one."""
+    plan = fa.static_plan(bh, n, d, n_valid)
+    blocks, heads = plan["grid"]
+    assert heads == bh
+    assert (blocks - 1) * fa.STATIC_BLOCK_Q < n <= blocks * fa.STATIC_BLOCK_Q
+    tiles = plan["key_tiles"]
+    assert (tiles - 1) * fa.ONLINE_BLOCK_K < n <= tiles * fa.ONLINE_BLOCK_K
+    assert tiles * fa.ONLINE_BLOCK_K - n == (64 if n % 128 else 0)
+    assert tiles >= fa.online_plan(bh, n, d, n_valid)["key_tiles"]
+    assert plan["smem"] <= fa.MAX_SMEM
+    assert plan["acc_regs"] + 32 <= fa.STATIC_CONSUMER_REGS
+    assert (128 * fa.STATIC_PRODUCER_REGS + (fa.STATIC_THREADS - 128)
+            * fa.STATIC_CONSUMER_REGS <= 65536)
+    assert fa.kernel_route(d) == "wgmma" and fa.kernel_route(32) == "mma.sync"
+
+
+@pytest.mark.parametrize("bh,n,d,n_valid", STATIC_SHAPES)
+def test_flash_bwd_kernel_plan_fits_the_card(bh, n, d, n_valid):
+    """The Python mirror of K8's two D = 64 launches: each kernel's blocks
+    (128 keys in dkv, 192 query rows in dq) cover N, the last one reaching
+    past N, whose rows are not stored; the dkv kernel walks every 64-row
+    query tile, none crossing N; the dq kernel the 64-key tiles up to
+    n_valid; each kernel's resident tiles and 4-stage ring fit a block's
+    shared memory, and the consumers' accumulators and bf16 fragments
+    their registers, every warpgroup within the register file. Seven
+    products run where the function needs five."""
+    plan = fa.bwd_plan(bh, n, d, n_valid)
+    for kernel in ("dkv", "dq"):
+        p = plan[kernel]
+        blocks, heads = p["grid"]
+        assert heads == bh
+        assert (blocks - 1) * p["rows"] < n <= blocks * p["rows"]
+        assert p["smem"] <= fa.MAX_SMEM
+        regs = fa.BWD_CONSUMER_REGS[kernel]
+        assert p["acc_regs"] + 48 <= regs
+        assert (128 * fa.BWD_PRODUCER_REGS[kernel]
+                + 128 * fa.BWD_WARPGROUPS[kernel] * regs <= 65536)
+    assert plan["dkv"]["tiles"] * fa.BWD_TILE == n
+    tiles = plan["dq"]["tiles"]
+    assert (tiles - 1) * fa.BWD_TILE < n_valid <= tiles * fa.BWD_TILE
+    assert plan["products"] == 7
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("d", [64, 128])
 def test_attention_scale_in_dtype_is_the_device_tensor_product(dtype, d):
@@ -529,6 +590,14 @@ def _close(got, ref, rel=1e-2):
         assert float((g - r).abs().max()) <= rel * float(r.abs().max())
 
 
+def _cold_inputs(q, k):
+    """Queries of -0.15 and keys in [5, 5.5 + |k| / 2]: logits of about
+    -50 at D = 64 (-25 at D = 32, scaled to -50), every one below -40."""
+    d = q.shape[-1]
+    q_cold = torch.full_like(q, -0.15 * 64 / d)
+    return q_cold, (k.float().abs() * 0.5 + 5.0).to(k.dtype)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [32, 64])
 def test_kernels_match_plain_on_cuda(cuda, d):
@@ -550,6 +619,14 @@ def test_kernels_match_plain_on_cuda(cuda, d):
     q, k, v = r(b * h, n, d, scale=0.1), r(b * h, n, d), r(b * h, n, d)
     o, lse = fa.flash_attention(q, k, v, n - 7)
     o_ref, lse_ref = fa.flash_attention_plain(q, k, v, n - 7)
+    _close([o], [o_ref])
+    assert float((lse - lse_ref).abs().max()) <= 1e-3
+    # cold rows: every logit below -40, so each key below N weighs e^-80,
+    # those past n_valid too, and the 64 keys past N (zeros in the last
+    # 128-key tile at D = 64) none
+    q_cold, k_pos = _cold_inputs(q, k)
+    o, lse = fa.flash_attention(q_cold, k_pos, v, n - 7)
+    o_ref, lse_ref = fa.flash_attention_plain(q_cold, k_pos, v, n - 7)
     _close([o], [o_ref])
     assert float((lse - lse_ref).abs().max()) <= 1e-3
     args = (r(b * h, n, d), r(c, c, scale=0.05), r(c, scale=0.1), x,
@@ -588,10 +665,11 @@ def test_flash_attention_long_sequence_on_cuda(cuda, d):
     n, n_valid = fa.flash_seq_len(16389), 16389
     q, k, v = ((torch.randn(2, n, d, generator=gen, device=cuda) * s)
                .to(torch.bfloat16) for s in (0.5 * d**-0.5, 0.5, 1.0))
-    o, lse = fa.flash_attention(q, k, v, n_valid)
-    o_ref, lse_ref = fa.flash_attention_plain(q, k, v, n_valid)
-    _close([o], [o_ref])
-    assert float((lse - lse_ref).abs().max()) <= 1e-3
+    for qq, kk in ((q, k), _cold_inputs(q, k)):  # normal and cold rows
+        o, lse = fa.flash_attention(qq, kk, v, n_valid)
+        o_ref, lse_ref = fa.flash_attention_plain(qq, kk, v, n_valid)
+        _close([o], [o_ref])
+        assert float((lse - lse_ref).abs().max()) <= 1e-3
     torch.cuda.synchronize()
 
 
@@ -612,6 +690,12 @@ def test_flash_attention_bwd_matches_plain_on_cuda(cuda, d):
     got = fa.flash_attention_bwd(q, k, v, o, lse, g, n_valid)
     assert fa.flash_attention_bwd.launches == before + 1
     _close(got, fa.flash_attention_bwd_plain(q, k, v, o, lse, g, n_valid))
+    # cold rows: lse = -40 + log N, so p = exp(min(s - lse, 0)) is small
+    # but not zero, and keys past n_valid still get p = 0
+    q_cold, k_pos = _cold_inputs(q, k)
+    o, lse = fa.flash_attention(q_cold, k_pos, v, n_valid)
+    _close(fa.flash_attention_bwd(q_cold, k_pos, v, o, lse, g, n_valid),
+           fa.flash_attention_bwd_plain(q_cold, k_pos, v, o, lse, g, n_valid))
     torch.cuda.synchronize()
 
 
