@@ -44,12 +44,14 @@ all started together) and the Triton kernel, then:
   5b. runs the decoder's gated kernels (`S3OD_WINOGRAD`: K9a, the
      Winograd conv, and K9b, the chained RCU; `MASK_TAIL_FUSED`: K10, the
      fused mask tail): each against its plain version at the 1024^2
-     shapes, timed beside the cuDNN chain and the bound; the 1024^2 path
+     shapes (K9b also at the 2048^2 path's refinenet1 shape), timed beside
+     the cuDNN chain and the bound; the 1024^2 path
      with both gates on (b1 and b16: launches as the copied rule gives
      them, every gated call against its plain version on its own inputs,
      a planted K9b x 1.01 caught there, results against fp32 exact mode,
      device time and img/s beside the gates off); one 2048^2 forward and
-     stream the same way; one ViT-B 1024^2 b4 train step with the
+     stream the same way, and its device time with the gates off and on;
+     one ViT-B 1024^2 b4 train step with the
      Winograd gate (K9a forward and dx launches) and K9a's dx against the
      plain version's vjp;
   6. checks K8, the attention backward, against its plain version at the
@@ -81,8 +83,10 @@ all started together) and the Triton kernel, then:
      version and times both; the phase holds those numbers to the limits
      (E3b bit-equal, also at 1-4 steps, where exp and exp2 stay finite),
      adds bounds, the exponentials' time and SDPA or F.layer_norm on the
-     scripts' inputs, and a planted E1 exp2_bf16 fault (o x 1.01) must
-     fail the per-call check;
+     scripts' inputs, and holds one call of each of the five template
+     instances of E1/E3a/E4 (E1's three variants, E4 base and nomax_clip2,
+     E3a at both shapes) to its plain version by relative norm, where a
+     planted o x 1.01 must fail;
  11. drives the synthetic-data factory at FLUX.1-dev width and depth with
      seeded weights in bf16 (T5-XXL + CLIP-L -> 28 MMDiT steps with the
      concept stream on the last 3 -> FLUX VAE -> ViT-L FluxDPT teacher
@@ -870,8 +874,9 @@ def k7_phase(results):
 # The experiments of benchmarks/ (E1-E4), s3od_torch.experiments
 # ----------------------------------------------------------------------------
 
-# ||kernel - plain|| / ||plain|| of E1 exp2_bf16's o per call: two bf16
-# roundings of o are at most 2^-8 apart; the planted o x 1.01 reads 1e-2.
+# ||kernel - plain|| / ||plain|| of o per call, for each template instance
+# of E1/E3a/E4: two bf16 roundings of o are at most 2^-8 apart; the planted
+# o x 1.01 reads 1e-2.
 E_CALL_TOL = 5e-3
 # Exponentials per second on the H100's special-function units: 3.9e12
 # (FlashAttention-3, Shah et al. 2024, arXiv 2407.08608).
@@ -906,6 +911,21 @@ def e_flash_entry(entry, bh, n, extra_bytes, library_ms=None, window=None):
         f"SDPA {library_ms}")
 
 
+def e_call(r_all, label, code, o_k, o_p):
+    """One call of template instance `code` against its plain version:
+    ||d|| / ||plain|| of o within E_CALL_TOL, and the planted o x 1.01
+    caught."""
+    o_k, o_p = o_k.float(), o_p.float()
+    honest = float((o_k - o_p).norm() / o_p.norm())
+    planted = float((o_k * 1.01 - o_p).norm() / o_p.norm())
+    log(f"  {label} (instance {code}) per call ||d|| / ||plain||: {honest:.3e}; "
+        f"planted o x 1.01: {planted:.3e} (tolerance {E_CALL_TOL})")
+    check(honest <= E_CALL_TOL, f"{label} {honest} > {E_CALL_TOL}")
+    check(planted > E_CALL_TOL, f"the planted {label} fault (o x 1.01) was not caught")
+    r_all.setdefault("per_call", {})[label] = {"code": code, "honest": honest,
+                                               "planted": planted}
+
+
 def e_fold(results, name, variants, row_variant):
     """Row `name` holds the numbers of `row_variant`; every variant's go
     under "variants"; max_abs_err is the largest over them."""
@@ -923,12 +943,15 @@ def experiments_phase(results):
     events), E3a at the DIS and the ViT shape. Added here: those numbers
     held to the limits, E3b against its plain version at 1-4 steps and
     timed at 4, the bounds, the exponentials' time, SDPA or F.layer_norm on the
-    scripts' own inputs, and a planted E1 fault."""
+    scripts' own inputs, and one call of each template instance of
+    E1/E3a/E4 held to its plain version by relative norm, with a planted
+    o x 1.01 caught."""
     import torch
     import torch.nn.functional as F
 
     from s3od_torch.experiments import (exp_exp2, exp_flash_single,
-                                        exp_flash_softmax, exp_layernorm)
+                                        exp_flash_softmax, exp_layernorm,
+                                        flash_variants)
     from s3od_torch.profiling import slope_time
 
     dev = torch.device("cuda")
@@ -965,18 +988,12 @@ def experiments_phase(results):
             sdpa_ms = run_ms(lambda: F.scaled_dot_product_attention(
                 q[None], k[None], v[None], scale=scale), 10)
         e_flash_entry(e, bh, n, 0, sdpa_ms)
-    o_k = exp_flash_softmax.flash_softmax(q, k, v, scale, "exp2_bf16").float()
-    o_p = exp_flash_softmax.flash_softmax_plain(q, k, v, scale, "exp2_bf16").float()
-    honest = float((o_k - o_p).norm() / o_p.norm())
-    planted = float((o_k * 1.01 - o_p).norm() / o_p.norm())
-    log(f"  E1 exp2_bf16 per call ||d|| / ||plain||: {honest:.3e}; planted o x "
-        f"1.01: {planted:.3e} (tolerance {E_CALL_TOL})")
-    check(honest <= E_CALL_TOL, f"E1 exp2_bf16 {honest} > {E_CALL_TOL}")
-    check(planted > E_CALL_TOL, "the planted E1 fault (o x 1.01) was not caught")
-    r_all["e1_planted"] = {"honest": honest, "planted": planted,
-                           "tolerance": E_CALL_TOL}
+    for var in exp_flash_softmax.VARIANTS:  # instances 0, 2, 6
+        e_call(r_all, f"E1 {var}", exp_flash_softmax.softmax_for(var, scale).code,
+               exp_flash_softmax.flash_softmax(q, k, v, scale, var),
+               exp_flash_softmax.flash_softmax_plain(q, k, v, scale, var))
     e_fold(results, "E1_flash_softmax", variants, "base")
-    del q, k, v, o_k, o_p
+    del q, k, v
 
     # E4 at (96, 4104, 64): q, k, v ~ N(0, 1), -1e30 on the last 3 keys
     q, k, v, bias = exp_flash_single.inputs(bh, n, dev)
@@ -991,6 +1008,10 @@ def experiments_phase(results):
         e_held(f"E4[{var}]", e, lse=True)
         e_flash_entry(e, bh, n, 4 * n + 4 * bh * n, sdpa_ms,
                       None if var == "base" else window)
+    for var in ("base", "nomax_clip2"):  # instances 0 (bias, lse) and 1
+        e_call(r_all, f"E4 {var}", exp_flash_single.softmax_for(var, scale).code,
+               exp_flash_single.flash_single(q, k, v, bias, scale, var)[0],
+               exp_flash_single.flash_single_plain(q, k, v, bias, scale, var)[0])
     e_fold(results, "E4_flash_single", variants, "nomax_clip2")
     del q, k, v, qs, ks, vs
 
@@ -1007,6 +1028,13 @@ def experiments_phase(results):
         sdpa_ms = run_ms(lambda: F.scaled_dot_product_attention(
             q[None], k[None], v[None], scale=scale), 10)
         e_flash_entry(e, bh3, n3, 4 * bh3 * n3, sdpa_ms, window)
+        blocks = e["blocks"]
+        e_call(r_all, f"E3a {tag}", exp_exp2.SOFTMAX.code,
+               exp_exp2.exp2_flash(q, k, v, scale, *blocks, n3)[0],
+               exp_exp2.exp2_flash_plain(q, k, v, scale, *blocks, n3)[0])
+    codes = {c["code"] for c in r_all["per_call"].values()}
+    check(codes == set(flash_variants.KERNEL_CODES),
+          f"per-call checks cover instances {codes}")
     e_fold(results, "E3_exp2_flash", shapes, "DIS-2048")
     del flash, q, k, v
     torch.cuda.empty_cache()
@@ -2052,22 +2080,46 @@ def decoder_kernel_checks(results):
               2 * (s * s * c + 9 * c * k + k + s * s * k),
               fp32_ops=tiles * (32.0 * c + 40.0 * k))
 
-    # K9b at refinenet1: (1, 256, 256, 256)
-    log(f"phase K9b winograd_rcu (1, {s}, {s}, {c}), refinenet1")
-    x = nchw_view(1, c, s, s)
-    w1, w2 = randn(3, 3, c, c, scale=0.03), randn(3, 3, c, c, scale=0.03)
-    b1, b2 = randn(c, scale=0.3), randn(c, scale=0.1)
-    args = (x, w1, b1, w2, b2)
-    compare(K9B, [wg.winograd_rcu(*args)], [wg.winograd_rcu_plain(*args)], results)
-    time_pair(K9B, lambda: wg.winograd_rcu(*args),
-              lambda: wg.winograd_rcu_plain(*args), results, iters=5)
-    xc = nchw(x)
-    results[K9B]["library_ms"] = device_ms(lambda: xc + F.conv2d(
-        F.relu(F.conv2d(F.relu(xc), oihw(w1), b1, padding=1)), oihw(w2), b2,
-        padding=1))
-    set_bound(results, K9B, 2 * 2.0 * 16 * tiles * c * c,
-              2 * (2 * s * s * c + 2 * 9 * c * c + 2 * c),
-              fp32_ops=2 * tiles * 72.0 * c)
+    # K9b at refinenet1 of the 1024^2 path (1, 256, 256, 256): the row; and
+    # of the 2048^2 path (1, 512, 512, 256). Four device launches a call
+    # (each conv's transform and GEMM): the profiler sums them; CUDA events
+    # around back-to-back calls beside it, for kernel and chain alike.
+    for s9 in (256, 512):
+        log(f"phase K9b winograd_rcu (1, {s9}, {s9}, {c}), refinenet1 at "
+            f"{4 * s9}^2")
+        x = nchw_view(1, c, s9, s9)
+        w1, w2 = randn(3, 3, c, c, scale=0.03), randn(3, 3, c, c, scale=0.03)
+        b1, b2 = randn(c, scale=0.3), randn(c, scale=0.1)
+        args = (x, w1, b1, w2, b2)
+        got, ref = wg.winograd_rcu(*args), wg.winograd_rcu_plain(*args)
+        compare(K9B, [got], [ref], results)
+        nrm = rel_norm(got, ref)
+        log(f"  K9b ||d|| / ||plain|| {nrm:.3e} (bound {DEC_CALL_TOL:.1e})")
+        check(nrm <= DEC_CALL_TOL, f"K9b at {s9}^2: rel. norm {nrm} > {DEC_CALL_TOL}")
+        xc = nchw(x)
+        chain = lambda: xc + F.conv2d(F.relu(F.conv2d(
+            F.relu(xc), oihw(w1), b1, padding=1)), oihw(w2), b2, padding=1)
+        t9 = (s9 // 2) ** 2
+        r9 = {"rel_norm": nrm}
+        time_pair("k", lambda: wg.winograd_rcu(*args),
+                  lambda: wg.winograd_rcu_plain(*args), {"k": r9}, iters=5)
+        r9["library_ms"] = device_ms(chain)
+        r9["run_ms"] = run_ms(lambda: wg.winograd_rcu(*args))
+        r9["library_run_ms"] = run_ms(chain)
+        set_bound({"k": r9}, "k", 2 * 2.0 * 16 * t9 * c * c,
+                  2 * (2 * s9 * s9 * c + 2 * 9 * c * c + 2 * c),
+                  fp32_ops=2 * t9 * 72.0 * c)
+        r9["by_kernel"] = [(key[:80], ms) for key, ms, _ in
+                           kernel_breakdown(lambda: wg.winograd_rcu(*args), 5)]
+        log(f"  K9b {r9['ms']:.4f} ms (events {r9['run_ms']:.4f}), cuDNN chain "
+            f"{r9['library_ms']:.4f} (events {r9['library_run_ms']:.4f}), plain "
+            f"{r9['plain_ms']:.4f}, bound {r9['bound_ms']:.4f} by {r9['bound_by']}; "
+            + ", ".join(f"{key[:40]} {ms:.4f}" for key, ms in r9["by_kernel"]))
+        if s9 == 256:
+            results[K9B].update(r9)
+        else:
+            results[K9B]["at_2048"] = r9
+        del args, x, got, ref
 
     # K10 at the 1024^2 tail: (1, 1024, 1024, 64 -> 64 -> 96 -> 3)
     s, ci, cm, n = 1024, 64, 96, 3
@@ -2245,6 +2297,18 @@ def decoder_highres(results, wrappers, cfg, imgs):
         check(d_best <= BEST_TOL and d_iou <= 1e-5,
               f"2048^2 gated stream vs full ({d_best}, {d_iou})")
         dec.update(per_call_2048=worst, best_vs_full_2048=d_best)
+    # device time of the 2048^2 forward, gates off and on in turns
+    canvas = pred._preprocess(imgs[0])[0][None]
+    c1 = torch.from_numpy(canvas).cuda()
+    times = {False: [], True: []}
+    for on in (False, True, True, False):
+        with decoder_gates(on):
+            times[on].append(cuda_ms(lambda: pred._forward_device(c1, "full"), iters=5))
+    dec["fwd_ms_2048_off"] = statistics.mean(times[False])
+    dec["fwd_ms_2048_on"] = statistics.mean(times[True])
+    log(f"  forward 2048^2 b1: gates off {times[False]} ms, on {times[True]} ms")
+    with decoder_gates(True):
+        forward_profile(pred, canvas, "2048_gated", dec)
     del pred, model
     torch.cuda.empty_cache()
 

@@ -65,8 +65,9 @@ _SIGNATURES = {
     # x, u, bias, out, batch, c, h, w, k, x strides (b, h, w, c),
     # out strides (b, h, w, k), stream
     "s3od_winograd_conv": [_P] * 4 + [_I] * 5 + [_L] * 8 + [_P],
-    # x, u1, b1, u2, b2, out, batch, c, h, w, x strides, out strides, stream
-    "s3od_winograd_rcu": [_P] * 6 + [_I] * 4 + [_L] * 8 + [_P],
+    # x, u1, b1, u2, b2, h scratch, V scratch, out, batch, c, h, w,
+    # x strides, out strides, stream
+    "s3od_winograd_rcu": [_P] * 8 + [_I] * 4 + [_L] * 8 + [_P],
     # x, w1, b1, w0, b0, k1, bk, out, batch, h, w, c_in, c_mid, n_out,
     # x strides (b, h, w, c), out strides (b, h, w, n), stream
     "s3od_mask_tail": [_P] * 8 + [_I] * 6 + [_L] * 8 + [_P],

@@ -1,9 +1,10 @@
 // Shared Hopper (sm_90a) building blocks of the port's warp-specialised
-// kernels (K5, K8; K7 and K3/K6 through `flash_fwd_ws.cuh`), as inline
-// PTX: mbarriers, TMA tensor loads, the wgmma shared-memory descriptor
-// for 128-byte-swizzled tiles, wgmma fences and groups, `wgmma.mma_async`
-// m64nNk16 bf16 -> fp32 (SS: both operands in shared memory; RS: A from
-// registers), `setmaxnreg`, the SFU's exp2, the turns of the consumer
+// kernels (K5, K8, K9b's Winograd GEMM, E1/E3a/E4; K7 and K3/K6 through
+// `flash_fwd_ws.cuh`), as inline PTX: mbarriers, TMA tensor loads, the
+// wgmma shared-memory descriptor for 128-byte-swizzled tiles, wgmma fences
+// and groups, `wgmma.mma_async` m64nNk16 bf16 -> fp32 (SS: both operands
+// in shared memory, B K-major or MN-major; RS: A from registers),
+// `setmaxnreg`, the SFU's exp2, the turns of the consumer
 // warpgroups, and the host-side encoding of TMA tensor maps (bf16
 // swizzled tiles, fp32 rows).
 //
@@ -332,6 +333,28 @@ struct WgmmaSS<256> {
           "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
           "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+// SS with B MN-major (N contiguous, wgmma's transpose bit), as TMA loads a
+// row-major (K, N) tile: the Winograd GEMM's U.
+template <int N>
+struct WgmmaSSBt;
+
+template <>
+struct WgmmaSSBt<64> {
+  __device__ __forceinline__ static void mma(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
         : "l"(da), "l"(db), "r"(scale_d));
   }
 };

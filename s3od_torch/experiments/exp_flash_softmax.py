@@ -10,7 +10,7 @@ zero key bias, no lse, no mask. Variants:
   exp2_bf16: p = exp2(bf16(s - m)), itself bf16, and l sums those values
 
 Here every variant is one launch of the shared CUDA forward
-(`flash_variants.py`), which streams 64-key tiles whatever the TPU's
+(`flash_variants.py`), which streams 128-key tiles whatever the TPU's
 blocks were; the plain version keeps the TPU kernel's key blocks.
 
     python -m s3od_torch.experiments.exp_flash_softmax [--bh 96] \

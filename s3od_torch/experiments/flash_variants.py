@@ -1,6 +1,7 @@
 """The attention forward that E1, E3a and E4 share: its softmax variants,
 its CUDA launch (`s3od_torch/csrc/exp_flash_variants.cu`, design note
-there) and its plain version.
+there: the warp-specialised TMA + wgmma body of K3/K6/K7 at D = 64) and
+its plain version.
 
 A `Softmax` names what the three experiments vary: the row max against a
 static bound, base e against base 2, exp2 on bf16 operands, the multiplier
@@ -17,7 +18,7 @@ import math
 import torch
 
 from s3od_torch import _build
-from s3od_torch.ops.flash_attention import NEG_INF, query_chunk, row_chunks
+from s3od_torch.ops.flash_attention import MAX_SMEM, NEG_INF, query_chunk, row_chunks
 
 LOG2E = math.log2(math.e)
 LN2 = math.log(2.0)
@@ -51,6 +52,29 @@ class Softmax:
 
 # The template instances `csrc/exp_flash_variants.cu` holds.
 KERNEL_CODES = (0, 1, 2, 3, 6)
+
+# Its launch, mirrored for the CPU tests: blocks of 192 query rows (three
+# consumer warpgroups of 64 beside a TMA producer), 128-key tiles in
+# two-stage K and V rings.
+BLOCK_Q, BLOCK_K, STAGES = 192, 128, 2
+
+
+def kernel_instance(sm: Softmax) -> tuple:
+    """The template arguments (ONLINE, BASE2, BF16_ARG) of the instance
+    that computes `sm` (the C entry point's switch on `sm.code`)."""
+    if sm.code not in KERNEL_CODES:
+        raise ValueError(f"exp_flash kernel: no instance for {sm}")
+    code = sm.code
+    return (not code & 1, bool(code & 2), bool(code & 4))
+
+
+def plan(bh: int, n: int) -> dict:
+    """The launch at (bh, n, 64): the grid, the key tiles a block walks
+    (to n: keys past n in the last one get p = 0) and the dynamic shared
+    memory (1024 bytes of alignment slack, Q, the K and V rings, 9
+    mbarriers)."""
+    return {"grid": (-(-n // BLOCK_Q), bh), "key_tiles": -(-n // BLOCK_K),
+            "smem": 1024 + (BLOCK_Q + 2 * STAGES * BLOCK_K) * HEAD_DIM * 2 + 9 * 8}
 
 
 def attention_plain(q, k, v, bias, sm: Softmax, block_k: int = 0):
@@ -127,8 +151,7 @@ def check_inputs(name, q, k, v, bias=None):
 def launch(q, k, v, bias, sm: Softmax, *, want_lse: bool, extra_keys: int = 0):
     """One launch of the CUDA forward on checked CUDA inputs -> (o, lse or
     None). The caller counts the launch."""
-    if sm.code not in KERNEL_CODES:
-        raise ValueError(f"exp_flash kernel: no instance for {sm}")
+    kernel_instance(sm)
     bh, n, _ = q.shape
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     bias = None if bias is None else bias.contiguous()

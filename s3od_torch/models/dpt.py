@@ -5,7 +5,7 @@ keys). Every conv runs cuDNN (every 3x3 through `ops/conv.conv2d`) unless
 one of the JAX package's two gates is on, as there:
 - `S3OD_WINOGRAD=1` (`ops/conv.py`): eligible 3x3 convs run K9a, and a
   BN-folded ResidualConvUnit (BN Identity, conv biases, both rules true)
-  runs K9b as one kernel (`dpt.py:76-95`).
+  runs K9b as one call (`dpt.py:76-95`).
 - `MASK_TAIL_FUSED` (below): the serving forward's mask-head tail runs
   K10 (`dpt.py:364-382`).
 Both are off by default, and both act on the bf16 route only. Structure:
@@ -116,7 +116,7 @@ class ResidualConvUnit(nn.Module):
 
     def _chained(self, x) -> bool:
         """The BN-folded form with the Winograd gate on and both rules
-        true: the whole unit is one K9b launch (`dpt.py:76-95`)."""
+        true: the whole unit is one K9b call (`dpt.py:76-95`)."""
         if not (isinstance(self.bn1, nn.Identity)
                 and isinstance(self.bn2, nn.Identity)
                 and self.conv1.bias is not None):

@@ -34,6 +34,11 @@ Gradients mirror the JAX `custom_vjp` rules: K9a's dx is itself a 3x3
 conv with the space-flipped, channel-transposed weights and goes through
 K9a whenever the rule admits the gradient's shape; dw and db, and all of
 K9b's backward, are the vjp of the plain `F.conv2d` reference.
+
+K9b runs as two convs, each an input transform and a Winograd GEMM
+(`winograd_transform_plain` and `winograd_gemm_plain` are those launches'
+plain halves); its intermediate h is rounded once and zero-padded by
+conv2 as in the TPU kernel.
 """
 
 from __future__ import annotations
@@ -63,8 +68,10 @@ def transform_weights(w: torch.Tensor) -> torch.Tensor:
     g = _G_ON.get(w.device)
     if g is None:
         g = _G_ON[w.device] = torch.tensor(_G, dtype=torch.float32, device=w.device)
-    u = torch.einsum("uk,vl,klio->uvio", g, g, w.float())
-    return u.reshape(16, w.shape[2], w.shape[3])
+    # G w over k, then G over l: two matmuls (an einsum lowered to far
+    # slower kernels on the card), bit-identical to it on the CPU
+    t = torch.matmul(g, w.float().reshape(3, -1)).reshape(4, 3, -1)
+    return torch.matmul(g, t).reshape(16, w.shape[2], w.shape[3])
 
 
 # ----------------------------------------------------------------------------
@@ -131,22 +138,20 @@ def rcu_winograd_available(h: int, w: int, c: int,
 # ----------------------------------------------------------------------------
 
 
-def _wino_fold(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """A^T (V U) A for every 2x2 output tile of a 3x3/s1/p1 conv: x (B, H,
-    W, C) in the compute dtype (H, W even), u (16, C, K) rounded to it.
-    Returns the fp32 accumulators as (B, H, W, K), in the TPU kernel's
-    order of additions (`_wino_row`)."""
+def winograd_transform_plain(x: torch.Tensor, relu: bool = False) -> torch.Tensor:
+    """V = B^T d B of every 2x2 output tile's 4x4 input patch (zero
+    padding 1), in the TPU kernel's order of additions, rounded to x's
+    dtype: x (B, H, W, C) (H, W even) -> (16, B (H/2) (W/2), C), a row per
+    tile in (b, tile row, tile col) order — the layout K9b's transform
+    launch writes. With `relu`, x is ReLU'd first."""
     bsz, h, w, c = x.shape
-    k = u.shape[-1]
     ht, wt = h // 2, w // 2
-    dt = x.dtype
-    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
-    uf = u.float()
+    xp = F.pad((torch.relu(x) if relu else x).float(), (0, 0, 1, 1, 1, 1))
 
     def slab(p, q):  # input-patch position (p, q) of every tile: (B, Ht, Wt, C)
         return xp[:, p: p + 2 * ht: 2, q: q + 2 * wt: 2]
 
-    acc = [[None, None], [None, None]]
+    out = []
     for uu in range(4):
         t = []
         for q in range(4):
@@ -164,16 +169,50 @@ def _wino_fold(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
                 if cf:
                     term = t[q] if cf > 0 else -t[q]
                     v = term if v is None else v + term
-            m = torch.matmul(v.to(dt).float().reshape(-1, c), uf[uu * 4 + vv])
-            for a in range(2):
-                for b in range(2):
-                    cf = _AT[a][uu] * _AT[b][vv]
-                    if cf:
-                        term = m if cf > 0 else -m
-                        acc[a][b] = term if acc[a][b] is None else acc[a][b] + term
+            out.append(v.to(x.dtype).reshape(-1, c))
+    return torch.stack(out, 0)
+
+
+def _fold(v: torch.Tensor, u: torch.Tensor, shape) -> torch.Tensor:
+    """A^T (V U) A: v (16, P, C) and u (16, C, K) in the compute dtype,
+    `shape` = (B, H, W) -> the fp32 accumulators (B, H, W, K), summed over
+    uv in order (`_wino_row`)."""
+    bsz, h, w = shape
+    k = u.shape[-1]
+    uf = u.float()
+    acc = [[None, None], [None, None]]
+    for uv in range(16):
+        uu, vv = divmod(uv, 4)
+        m = torch.matmul(v[uv].float(), uf[uv])
+        for a in range(2):
+            for b in range(2):
+                cf = _AT[a][uu] * _AT[b][vv]
+                if cf:
+                    term = m if cf > 0 else -m
+                    acc[a][b] = term if acc[a][b] is None else acc[a][b] + term
     y = torch.stack([torch.stack(row, 0) for row in acc], 0)  # (2, 2, P, K)
-    y = y.reshape(2, 2, bsz, ht, wt, k).permute(2, 3, 0, 4, 1, 5)
+    y = y.reshape(2, 2, bsz, h // 2, w // 2, k).permute(2, 3, 0, 4, 1, 5)
     return y.reshape(bsz, h, w, k)
+
+
+def _wino_fold(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """A^T (V U) A for every 2x2 output tile of a 3x3/s1/p1 conv: x (B, H,
+    W, C) in the compute dtype (H, W even), u (16, C, K) rounded to it.
+    Returns the fp32 accumulators as (B, H, W, K), in the TPU kernel's
+    order of additions (`_wino_row`)."""
+    return _fold(winograd_transform_plain(x), u, x.shape[:3])
+
+
+def winograd_gemm_plain(v, u, shape, bias, res=None):
+    """Plain version of K9b's GEMM launch: the fold of v (16, P, C) with u
+    (16, C, K) for tiles of `shape` = (B, H, W), + bias; then ReLU (conv1)
+    or, given `res` (B, H, W, K), + res (conv2); rounded once to v's dtype.
+    """
+    dt = v.dtype
+    y = _fold(v, u, shape) + bias.to(dt).float()
+    if res is None:
+        return torch.relu(y).to(dt)
+    return (y + res.float()).to(dt)
 
 
 def _u(w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
@@ -227,12 +266,60 @@ def _empty_like_layout(x: torch.Tensor, k: int) -> torch.Tensor:
     return torch.empty(bsz, h, w, k, dtype=x.dtype, device=x.device)
 
 
-def rcu_smem_bytes(c: int) -> int:
-    """Dynamic shared memory of one K9b block at width `c` (mirrors the
-    kernel's `rcu_smem_bytes`): the intermediate (6 x 36 x (c + 8)), the
-    input chunk (at most 10 x 34 x 24), V (16 x 64 x 24) and U (16 x 16 x
-    72), bf16."""
-    return 2 * (6 * 36 * (c + 8) + 10 * 34 * 24 + 16 * 64 * 24 + 16 * 16 * 72)
+# K9b's launches (`csrc/winograd.cu`), mirrored for the CPU tests: the
+# transform's blocks (32 tiles of one tile row x 64 channels) and the GEMM's
+# (64 tiles x 128 output channels; a producer and two consumer warpgroups).
+RCU_TRANSFORM_TILES = 32
+RCU_TRANSFORM_CHANNELS = 64
+RCU_GEMM_TILES = 64
+RCU_GEMM_CHANNELS = 128
+RCU_GEMM_STAGES = 6
+RCU_CONSUMER_REGS, RCU_PRODUCER_REGS = 232, 40
+
+
+def rcu_plan(b: int, h: int, w: int, c: int) -> dict:
+    """K9b's four launches at x (b, h, w, c): the transform's grid, the
+    GEMM's block count, its dynamic shared memory (1024 bytes of alignment
+    slack, the ring of V (64 x 64) and U (64 x 128) bf16 tiles, 13
+    mbarriers, two offsets a tile, conv2's bf16 tile of x: 128 channels x
+    256 pixels)
+    and the registers a consumer thread holds in fp32 (M, a stage's
+    product and the four output accumulators, 64 x 64 each per
+    warpgroup); the scratch the
+    wrapper allocates: V (16, P, c) and the intermediate h (b, h, w, c),
+    bf16."""
+    ht, wt = h // 2, w // 2
+    p = b * ht * wt
+    return {
+        "transform_grid": (-(-wt // RCU_TRANSFORM_TILES), ht,
+                           b * (c // RCU_TRANSFORM_CHANNELS)),
+        "gemm_blocks": -(-p // RCU_GEMM_TILES) * (c // RCU_GEMM_CHANNELS),
+        "smem": 1024 + RCU_GEMM_STAGES * (RCU_GEMM_TILES * 64
+                                          + 64 * RCU_GEMM_CHANNELS) * 2
+        + (2 * RCU_GEMM_STAGES + 1) * 8 + RCU_GEMM_TILES * 16
+        + RCU_GEMM_CHANNELS * 4 * RCU_GEMM_TILES * 2,
+        "acc_regs": 6 * 64 * 64 // 128,
+        "v_shape": (16, p, c),
+        "h_shape": (b, h, w, c),
+    }
+
+
+def check_rcu_inputs(x, w1, b1, w2, b2) -> None:
+    """Raise on inputs the K9b kernel does not take: bf16 x (B, H, W, C)
+    with H and W even and C a multiple of 128 (the copied rule admits only
+    such widths), w1, w2 (3, 3, C, C), b1, b2 (C,), and the grid's limits."""
+    bsz, h, wd, c = x.shape
+    if x.dtype != torch.bfloat16:
+        raise ValueError("winograd_rcu kernel: bf16 inputs only")
+    if (any(tuple(t.shape) != (3, 3, c, c) for t in (w1, w2))
+            or any(tuple(t.shape) != (c,) for t in (b1, b2))
+            or h % 2 or wd % 2 or c % RCU_GEMM_CHANNELS or not x.numel()):
+        raise ValueError(f"winograd_rcu kernel: unsupported x={tuple(x.shape)} "
+                         f"w1={tuple(w1.shape)} w2={tuple(w2.shape)}")
+    plan = rcu_plan(bsz, h, wd, c)
+    if (max(plan["transform_grid"][1:]) > 65535
+            or plan["gemm_blocks"] > 2**31 - 1):
+        raise ValueError(f"winograd_rcu kernel: x={tuple(x.shape)} exceeds the grid")
 
 
 def winograd_conv(x, w, b):
@@ -267,31 +354,27 @@ winograd_conv.launches = 0
 
 
 def winograd_rcu(x, w1, b1, w2, b2):
-    """K9b: x + conv2(relu(conv1(relu(x)) + b1)) + b2 with the
-    intermediate kept on chip.
+    """K9b: x + conv2(relu(conv1(relu(x)) + b1)) + b2, one call of four
+    device launches (each conv: its input transform, then the Winograd
+    GEMM); the intermediate goes through a bf16 scratch tensor.
 
-    CPU tensors take the plain version. CUDA tensors launch the kernel or
-    raise: bf16 x (B, H, W, C) with H and W even and C a multiple of 64 up
-    to 256; w1, w2 (3, 3, C, C); b1, b2 (C,)."""
+    CPU tensors take the plain version. CUDA tensors launch the kernels or
+    raise (`check_rcu_inputs`)."""
     if x.device.type == "cpu":
         return winograd_rcu_plain(x, w1, b1, w2, b2)
+    check_rcu_inputs(x, w1, b1, w2, b2)
     bsz, h, wd, c = x.shape
-    if x.dtype != torch.bfloat16:
-        raise ValueError("winograd_rcu kernel: bf16 inputs only")
-    if (any(tuple(t.shape) != (3, 3, c, c) for t in (w1, w2))
-            or any(tuple(t.shape) != (c,) for t in (b1, b2))
-            or h % 2 or wd % 2 or c % 64 or not x.numel()
-            or rcu_smem_bytes(c) > MAX_SMEM):
-        raise ValueError(f"winograd_rcu kernel: unsupported x={tuple(x.shape)} "
-                         f"w1={tuple(w1.shape)} w2={tuple(w2.shape)}")
     u1, u2 = _u(w1, x.dtype).contiguous(), _u(w2, x.dtype).contiguous()
     b1, b2 = b1.to(x.dtype).contiguous(), b2.to(x.dtype).contiguous()
+    plan = rcu_plan(bsz, h, wd, c)
+    hbuf = torch.empty(plan["h_shape"], dtype=x.dtype, device=x.device)
+    vbuf = torch.empty(plan["v_shape"], dtype=x.dtype, device=x.device)
     out = _empty_like_layout(x, c)
     lib = _build.load_library()
     code = lib.s3od_winograd_rcu(
         x.data_ptr(), u1.data_ptr(), b1.data_ptr(), u2.data_ptr(),
-        b2.data_ptr(), out.data_ptr(), bsz, c, h, wd, *x.stride(),
-        *out.stride(), _build.stream_ptr(x))
+        b2.data_ptr(), hbuf.data_ptr(), vbuf.data_ptr(), out.data_ptr(), bsz,
+        c, h, wd, *x.stride(), *out.stride(), _build.stream_ptr(x))
     _build.check(code, "winograd_rcu")
     _build.count_launch(winograd_rcu)
     return out

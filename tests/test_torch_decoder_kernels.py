@@ -116,6 +116,70 @@ def test_mask_tail_plain_matches_pallas_interpret(kind):
     _check(kind, got, ref, 2e-6, absolute=True)
 
 
+@pytest.mark.parametrize("layout", ["nhwc", "nchw"])
+def test_winograd_rcu_launch_halves_compose_to_the_plain_version(layout):
+    """K9b's four launches from their plain halves — conv1's transform of
+    relu(x), its GEMM with the relu(acc + b1) -> bf16 epilogue into h, then
+    conv2's transform of h (zero padding) and its GEMM with the + b2 + x
+    epilogue — equal `winograd_rcu_plain` bit for bit, and the JAX chained
+    kernel (interpret) within one bf16 step, at (1, 16, 128, 128) in bf16,
+    x in NHWC memory and as an NHWC view of NCHW memory."""
+    from s3od_tpu.ops.experimental.winograd import rcu_winograd
+
+    rng = np.random.default_rng(12)
+    (xj, xt), (w1j, w1t), (b1j, b1t), (w2j, w2t), (b2j, b2t) = _inputs(
+        rng, "bfloat16", ((1, 16, 128, 128), 1.0), ((3, 3, 128, 128), 0.05),
+        ((128,), 0.3), ((3, 3, 128, 128), 0.05), ((128,), 0.1))
+    if layout == "nchw":
+        xt = xt.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+        assert not xt.is_contiguous()
+    shape = tuple(xt.shape[:3])
+    u1, u2 = tw._u(w1t, torch.bfloat16), tw._u(w2t, torch.bfloat16)
+    v1 = tw.winograd_transform_plain(xt, relu=True)
+    assert v1.shape == (16, 8 * 64, 128) and v1.dtype == torch.bfloat16
+    h = tw.winograd_gemm_plain(v1, u1, shape, b1t)
+    assert h.dtype == torch.bfloat16 and float(h.float().min()) >= 0.0
+    got = tw.winograd_gemm_plain(tw.winograd_transform_plain(h), u2, shape, b2t,
+                                 res=xt)
+    ref = tw.winograd_rcu_plain(xt, w1t, b1t, w2t, b2t)
+    assert torch.equal(got, ref)
+    jax_ref = _np(rcu_winograd(xj, {"kernel": w1j, "bias": b1j},
+                               {"kernel": w2j, "bias": b2j}, interpret=True))
+    _within_one_bf16_step(got.float().numpy(), jax_ref)
+
+
+def test_winograd_rcu_kernel_takes_every_shape_the_rule_admits():
+    """Every (H, W, C) the copied rule sends to K9b, at batch 1 and 16,
+    passes the wrapper's input check (on meta tensors, which need no card),
+    and the mirror of its launches fits the card: the transform's grid,
+    the GEMM's shared memory, the consumers' six 64 x 64 fp32 tiles in
+    their 232 registers beside a 40-register producer."""
+    sizes = (16, 32, 64, 112, 128, 256, 512, 1024)
+    admitted = 0
+    for h in sizes:
+        for w in sizes:
+            for c in (64, 128, 256, 384, 512, 1024):
+                if not tw.rcu_winograd_available(h, w, c):
+                    continue
+                for b in (1, 16):
+                    x = _meta(b, h, w, c)
+                    wc, bc = _meta(3, 3, c, c), _meta(c)
+                    tw.check_rcu_inputs(x, wc, bc, wc, bc)
+                    plan = tw.rcu_plan(b, h, w, c)
+                    tiles, rows, planes = plan["transform_grid"]
+                    assert tiles * tw.RCU_TRANSFORM_TILES >= w // 2 and rows == h // 2
+                    assert planes * tw.RCU_TRANSFORM_CHANNELS == b * c <= 65535 * 64
+                    assert plan["gemm_blocks"] * tw.RCU_GEMM_TILES * tw.RCU_GEMM_CHANNELS \
+                        >= b * (h // 2) * (w // 2) * c
+                    assert plan["v_shape"] == (16, b * (h // 2) * (w // 2), c)
+                    admitted += 1
+    assert admitted >= 8  # the decoder's 1024^2 and 2048^2 RCUs among them
+    assert tw.rcu_winograd_available(256, 256, 256)
+    assert tw.rcu_plan(1, 256, 256, 256)["smem"] <= tw.MAX_SMEM
+    assert tw.rcu_plan(1, 256, 256, 256)["acc_regs"] + 32 <= tw.RCU_CONSUMER_REGS
+    assert 128 * tw.RCU_PRODUCER_REGS + 256 * tw.RCU_CONSUMER_REGS <= 65536
+
+
 def _relaxed(h, w, c, *a, **kw):
     """The JAX decoder test's relaxation (`test_experimental_ops.py:251-259`):
     the W >= 128 floor is a TPU speed heuristic; drop it at small shapes."""
@@ -239,7 +303,7 @@ def _meta(*shape, dtype=torch.bfloat16):
 
 @pytest.mark.parametrize("case", [
     "conv_dtype", "conv_channels", "conv_outputs", "conv_odd", "conv_bias",
-    "rcu_width", "rcu_shape", "tail_widths", "tail_outputs", "tail_dtype",
+    "rcu_width", "rcu_narrow", "rcu_shape", "tail_widths", "tail_outputs", "tail_dtype",
 ])
 def test_kernel_wrappers_raise_on_unsupported_device_inputs(case):
     """Non-CPU tensors go to the kernels, which take only what they were
@@ -260,6 +324,9 @@ def test_kernel_wrappers_raise_on_unsupported_device_inputs(case):
         "rcu_width": lambda: tw.winograd_rcu(
             _meta(1, 4, 4, 320), _meta(3, 3, 320, 320), v(320),
             _meta(3, 3, 320, 320), v(320)),
+        "rcu_narrow": lambda: tw.winograd_rcu(
+            _meta(1, 4, 4, 64), _meta(3, 3, 64, 64), v(64),
+            _meta(3, 3, 64, 64), v(64)),
         "rcu_shape": lambda: tw.winograd_rcu(
             _meta(1, 4, 4, 64), _meta(3, 3, 64, 128), v(64),
             _meta(3, 3, 64, 64), v(64)),

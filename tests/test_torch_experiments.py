@@ -401,6 +401,38 @@ def test_every_variant_has_a_kernel_instance():
     assert e3.SOFTMAX.hi == pytest.approx(40.0 * fv.LOG2E)
 
 
+SCRIPT_SOFTMAXES = ([(f"E1 {v}", e1.softmax_for(v, 0.125)) for v in e1.VARIANTS]
+                    + [(f"E4 {v}", e4.softmax_for(v, 0.125)) for v in e4.VARIANTS]
+                    + [("E3a", e3.SOFTMAX)])
+
+
+@pytest.mark.parametrize("label,sm", SCRIPT_SOFTMAXES,
+                         ids=[lbl for lbl, _ in SCRIPT_SOFTMAXES])
+def test_script_softmax_maps_to_a_kernel_instance(label, sm):
+    """Every Softmax the three scripts build reaches a template instance
+    whose arguments are its own (online, base 2, bf16 argument), and the
+    launch at the scripts' shapes — E1/E4 (96, 4104), E3a DIS (12, 16389)
+    and ViT (96, 4101), a length of 1 mod 128 — fits the card: 192-row
+    blocks and 128-key tiles cover N, Q and the K/V rings fit a block's
+    shared memory."""
+    assert fv.kernel_instance(sm) == (sm.online, sm.base2, sm.bf16_arg)
+    for bh, n in ((96, 4104), (12, 16389), (96, 4101), (3, 385)):
+        p = fv.plan(bh, n)
+        blocks, heads = p["grid"]
+        assert heads == bh and (blocks - 1) * fv.BLOCK_Q < n <= blocks * fv.BLOCK_Q
+        assert (p["key_tiles"] - 1) * fv.BLOCK_K < n <= p["key_tiles"] * fv.BLOCK_K
+        assert p["smem"] <= fv.MAX_SMEM
+
+
+def test_unmade_instances_raise():
+    """Codes 4, 5 and 7 (bf16 argument in base e, or under the static
+    bound) have no instance: the launch raises before reaching the card."""
+    for sm in (fv.Softmax(online=True, bf16_arg=True),
+               fv.Softmax(online=False, base2=True, bf16_arg=True)):
+        with pytest.raises(ValueError, match="no instance"):
+            fv.kernel_instance(sm)
+
+
 def test_unknown_variant_raises_on_the_cpu_route():
     q = torch.zeros(1, 8, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="unknown variant"):
@@ -458,6 +490,50 @@ def test_flash_experiments_match_plain_on_cuda(cuda, n):
     o_ref, lse_ref = e3.exp2_flash_plain(q, k, v, 0.125, *blocks, n - 5)
     assert _rel(o, o_ref) <= 1e-2
     assert float((lse - lse_ref).abs().max()) <= 1e-3
+    torch.cuda.synchronize()
+
+
+def _plain_with_extra_keys(q, k, v, bias, sm, extra):
+    """attention_plain over the n keys and `extra` appended zero keys with
+    bias -1e30: the function the kernel computes with `extra_keys`."""
+    if extra:
+        pad = lambda t: torch.nn.functional.pad(t, (0, 0, 0, extra))
+        k, v = pad(k), pad(v)
+        bias = torch.cat([bias, torch.full((extra,), fv.NEG_INF, device=q.device)])
+    return fv.attention_plain(q, k, v, bias, sm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [385, 4104])
+def test_every_kernel_instance_matches_attention_plain_on_cuda(cuda, n):
+    """Each template instance (codes 0, 1, 2, 3, 6) against
+    `attention_plain` at a length of 1 mod 128 (the last key tile holds one
+    key) and at the scripts' 4104, with the scripts' arguments: no bias and
+    no lse (E1), a -1e30 bias on the last 3 keys and lse (E4), E3a's
+    base-2 bound with the masked tail and extra keys. o within 1e-2 of
+    max|plain| and 5e-3 by relative norm, lse within 1e-3."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = (torch.randn(3, n, 64, generator=gen, device=cuda)
+               .to(torch.bfloat16) for _ in range(3))
+    bias = torch.zeros(n, device=cuda)
+    bias[-3:] = -1e30
+    cases = [(e1.softmax_for(var, 0.125), q, None, False, 0) for var in e1.VARIANTS]
+    cases += [(e4.softmax_for(var, 0.125), e4._prepare(q, var, 0.125), bias, True, 0)
+              for var in e4.VARIANTS]
+    cases += [(e3.SOFTMAX, e3._scaled(q, 0.125), e3.key_bias(n, n - 5, cuda), True, 40)]
+    codes = set()
+    for sm, qq, bb, want_lse, extra in cases:
+        o, lse = fv.launch(qq, k, v, bb, sm, want_lse=want_lse, extra_keys=extra)
+        o_ref, lse_ref = _plain_with_extra_keys(qq, k, v, bb, sm, extra)
+        assert _rel(o, o_ref) <= 1e-2, sm
+        nrm = float((o.float() - o_ref.float()).norm() / o_ref.float().norm())
+        assert nrm <= 5e-3, (sm, nrm)
+        if want_lse:
+            assert float((lse - lse_ref).abs().max()) <= 1e-3, sm
+        else:
+            assert lse is None
+        codes.add(sm.code)
+    assert codes == set(fv.KERNEL_CODES)
     torch.cuda.synchronize()
 
 

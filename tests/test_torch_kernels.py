@@ -771,6 +771,36 @@ def test_decoder_kernels_match_plain_on_cuda(cuda, layout):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["nchw", "nhwc"])
+def test_winograd_rcu_matches_plain_on_cuda(cuda, layout):
+    """K9b (four device launches, one counted) against its plain version at
+    the 1024^2 path's refinenet1 shape (1, 256, 256, 256) and at batch 2
+    (2, 128, 128, 256), bf16, x in NCHW memory seen through an NHWC view
+    and in NHWC memory: the output in x's memory order, max|d| within
+    1e-2 of max|plain| and ||d|| / ||plain|| within 1.5e-4 (chip_smoke.py's
+    DEC_CALL_TOL)."""
+    from s3od_torch.ops.experimental import winograd as tw
+
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    r = lambda *s, scale=1.0: (torch.randn(*s, generator=gen, device=cuda)
+                               * scale).to(torch.bfloat16)
+    for b, s, c in ((1, 256, 256), (2, 128, 256)):
+        x = (r(b, c, s, s).permute(0, 2, 3, 1) if layout == "nchw"
+             else r(b, s, s, c))
+        w1, w2 = r(3, 3, c, c, scale=0.03), r(3, 3, c, c, scale=0.03)
+        b1, b2 = r(c, scale=0.3), r(c, scale=0.1)
+        before = tw.winograd_rcu.launches
+        got = tw.winograd_rcu(x, w1, b1, w2, b2)
+        assert tw.winograd_rcu.launches == before + 1
+        assert got.permute(0, 3, 1, 2).is_contiguous() == (layout == "nchw")
+        ref = tw.winograd_rcu_plain(x, w1, b1, w2, b2)
+        _close([got], [ref])
+        nrm = float((got.float() - ref.float()).norm() / ref.float().norm())
+        assert nrm <= 1.5e-4, nrm
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 def test_winograd_conv_dx_runs_the_kernel_on_cuda(cuda):
     """K9a's autograd on the card: dx through K9a where the rule admits
     the gradient's shape, against the plain version's dx."""
