@@ -8,7 +8,10 @@ all started together) and the Triton kernel, then:
   1. checks each kernel (K1-K6) against its plain PyTorch version in bf16
      (K5, two wgmma GEMMs a call, also at ViT-B b4, ViT-L, ViT-S and the
      tiny widths, each launch against its plain half, with a planted
-     hidden x 1.01 caught) at the main paths' shapes (DINOv3-ViT-B/16 at
+     hidden x 1.01 caught; K2 at ViT-B b1 and b16, ViT-L and D = 32, by
+     max error and relative norm, with a planted q x 1.01 caught, timed
+     by CUDA events beside F.linear and the unfused route) at the main
+     paths' shapes (DINOv3-ViT-B/16 at
      1024^2: 4101 tokens padded to 4160, C = 768, F = 3072, 12 heads of
      64; batch 1 and batch 16; at 2048^2: 16389 tokens padded to 16448,
      RoPE on the 128 x 128 grid, K1, K2, K4 and K5 at batch 1 and K6 at
@@ -44,11 +47,14 @@ all started together) and the Triton kernel, then:
   5b. runs the decoder's gated kernels (`S3OD_WINOGRAD`: K9a, the
      Winograd conv, and K9b, the chained RCU; `MASK_TAIL_FUSED`: K10, the
      fused mask tail): each against its plain version at the 1024^2
-     shapes (K9b also at the 2048^2 path's refinenet1 shape), timed beside
+     shapes (K9a at each of its three 1024^2 b1 convs and the training
+     step's 256 -> 512 dx, by relative norm too, with U's transform timed
+     apart; K9b also at the 2048^2 path's refinenet1 shape), timed beside
      the cuDNN chain and the bound; the 1024^2 path
      with both gates on (b1 and b16: launches as the copied rule gives
      them, every gated call against its plain version on its own inputs,
-     a planted K9b x 1.01 caught there, results against fp32 exact mode,
+     a planted K9b x 1.01 and a planted K9a x 1.01 caught there, results
+     against fp32 exact mode,
      device time and img/s beside the gates off); one 2048^2 forward and
      stream the same way, and its device time with the gates off and on;
      one ViT-B 1024^2 b4 train step with the
@@ -462,25 +468,10 @@ def kernel_phases(results):
     set_bound(results, "K1_layer_norm", 0.0, 2 * 2 * n * c + 2 * 2 * c + 8 * n,
               fp32_ops=8.0 * n * c)
 
-    # K2
-    log("phase K2 qkv_project_rope (1 x 4160 x 768 -> 3 x (1, 12, 4160, 64))")
-    x = randn(1, n, c)
-    wq, bq = randn(3 * c, c, scale=0.02), randn(3 * c, scale=0.1)
-    bq[c: 2 * c] = 0  # no key bias
-    cos, sin = _full_tables(64, 64, d, 100.0, 5, n, dev)
-    args = (x, wq, bq, cos, sin, h, d**-0.5)
-    compare("K2_qkv_project_rope", qp.qkv_project_rope(*args),
-            qp.qkv_project_rope_plain(*args), results)
-    args16 = (randn(B16, n, c),) + args[1:]
-    log(f"  at the batch-16 shape ({B16} x {n} x {c})")
-    compare("K2_qkv_project_rope", qp.qkv_project_rope(*args16),
-            qp.qkv_project_rope_plain(*args16), results)
-    time_pair("K2_qkv_project_rope", lambda: qp.qkv_project_rope(*args),
-              lambda: qp.qkv_project_rope_plain(*args), results)
-    results["K2_qkv_project_rope"]["library_ms"] = None  # no one call ropes
-    set_bound(results, "K2_qkv_project_rope", 2.0 * n * c * 3 * c,
-              2 * n * c + 2 * 3 * c * c + 2 * 3 * c + 2 * 4 * n * d
-              + 3 * 2 * n * c)
+    # K2: each shape of the repo's configs, held by max and relative norm,
+    # a planted q x 1.01 caught; CUDA-event timings beside F.linear and the
+    # unfused route
+    wq, bq = k2_phase(results, randn, n, c, h, d, dev)
 
     # K3
     log(f"phase K3 flash_attention (12 x 4160 x 64, n_valid 4101): the "
@@ -558,7 +549,11 @@ def kernel_phases(results):
     cos2, sin2 = _full_tables(128, 128, d, 100.0, 5, n2, dev)
     args2 = (randn(1, n2, c), wq, bq, cos2, sin2, h, d**-0.5)
     compare("K2_qkv_project_rope", qp.qkv_project_rope(*args2),
-            qp.qkv_project_rope_plain(*args2), results)
+            qp.qkv_project_rope_plain(*args2), results, norm_tol=K2_NORM_TOL)
+    results["K2_qkv_project_rope"]["at_2048"] = {
+        "ms": run_ms(lambda: qp.qkv_project_rope(*args2), 10),
+        "library_ms": run_ms(lambda: F.linear(args2[0], wq, bq), 10)}
+    log(f"  K2 at 2048^2 (CUDA events): {results['K2_qkv_project_rope']['at_2048']}")
     args2 = (randn(h, n2, d, scale=0.5), wo, bo, randn(1, n2, c), ls, lw, lb,
              1e-5)
     compare("K4_attn_epilogue", ae.attn_epilogue(*args2),
@@ -601,6 +596,94 @@ def kernel_phases(results):
         log(f"  {name}: device time kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms; with host launch (CUDA events) kernel "
             f"{r['event_ms']:.4f} ms, plain {r['plain_event_ms']:.4f} ms")
+
+
+# ||kernel q, k, v - plain|| / ||plain|| of each K2 call: the two round the
+# same fp32 values to bf16 (the sums in another order), about 6e-5 on the
+# H100; half the planted q x 1.01 (1.0e-2), which REL_TOL alone sits on the
+# edge of (as on K3, PERF.md section 2).
+K2_NORM_TOL = 5e-3
+
+
+def k2_phase(results, randn, n, c, h, d, dev):
+    """K2 against its plain version at ViT-B 1024^2 b1 and b16, ViT-L (C =
+    1024, 16 heads) and the tiny checkpoints' D = 32 (the mma.sync kernel, by
+    the dispatch on D), each output by max error and relative norm, one
+    launch counted a call, a planted q x 1.01 caught; then kernel, plain
+    version, F.linear of the same product (the library call) and the
+    unfused route (F.linear, RoPE, scale and head split in PyTorch) by CUDA
+    events around back-to-back calls at b1 and b16, the profiler's device
+    time beside them, and the bound. Returns ViT-B's weight and bias."""
+    import torch.nn.functional as F
+
+    from s3od_torch.models.dinov3 import _full_tables
+    from s3od_torch.ops import qkv_project as qp
+
+    name = "K2_qkv_project_rope"
+
+    def inputs(b, nn, cc, hh, grid):
+        dd = cc // hh
+        w, bias = randn(3 * cc, cc, scale=0.02), randn(3 * cc, scale=0.1)
+        bias[cc: 2 * cc] = 0  # no key bias
+        cos, sin = _full_tables(grid, grid, dd, 100.0, 5, nn, dev)
+        return (randn(b, nn, cc), w, bias, cos, sin, hh, dd**-0.5)
+
+    def unfused(x, w, bias, cos, sin, hh, scale):
+        b, nn, cc = x.shape
+        y = F.linear(x, w, bias).view(b, nn, 3, hh, cc // hh).permute(2, 0, 3, 1, 4)
+        rope = lambda t: t * cos + qp.rotate_half(t) * sin
+        return (rope(y[0]) * scale).to(x.dtype), rope(y[1]).to(x.dtype), y[2].contiguous()
+
+    args = inputs(1, n, c, h, 64)
+    r = results.setdefault(name, {"max_abs_err": 0.0})
+    cases = (("ViT-B 1024^2 b1", args), ("ViT-B 1024^2 b16", (randn(B16, n, c),) + args[1:]),
+             ("ViT-L 1024^2 b1", inputs(1, n, 1024, 16, 64)),
+             ("tiny, D = 32", inputs(2, n, 64, 2, 64)))
+    for label, a in cases:
+        b, nn, cc = a[0].shape
+        dd = cc // a[5]
+        plan = qp.plan(b, nn, cc)
+        log(f"phase K2 qkv_project_rope ({label}: {b} x {nn} x {cc} -> 3 x ({b}, "
+            f"{a[5]}, {nn}, {dd}); the {qp.kernel_route(dd)} kernel"
+            + (f", {plan['row_tiles']} row tiles a batch element x {plan['col_tiles']} "
+               f"of {plan['bn']} columns, grid {plan['grid']})" if dd == 64 else ")"))
+        before = qp.qkv_project_rope.launches
+        got = qp.qkv_project_rope(*a)
+        check(qp.qkv_project_rope.launches == before + 1, "K2 counts one launch a call")
+        ref = qp.qkv_project_rope_plain(*a)
+        compare(name, got, ref, results, norm_tol=K2_NORM_TOL)
+        if label == "ViT-B 1024^2 b1":
+            planted = [(got[0].float() * 1.01).to(got[0].dtype)] + list(got[1:])
+            try:
+                compare(f"{name} (planted q x 1.01)", planted, ref, {},
+                        norm_tol=K2_NORM_TOL)
+            except RuntimeError as err:
+                log(f"  planted q x 1.01 caught: {err}")
+            else:
+                check(False, "K2: the planted q x 1.01 went unnoticed")
+        del got, ref
+    timed = {}
+    for label, a, iters in (("b1", args, 20), ("b16", cases[1][1], 5)):
+        kern = lambda: qp.qkv_project_rope(*a)
+        t = {"ms": run_ms(kern, iters),
+             "library_ms": run_ms(lambda: F.linear(a[0], a[1], a[2]), iters),
+             "unfused_ms": run_ms(lambda: unfused(*a), iters)}
+        t["plain_ms"] = run_ms(lambda: qp.qkv_project_rope_plain(*a), max(2, iters // 4))
+        timed[label] = t
+        log(f"  K2 {label} (CUDA events): kernel {t['ms']:.4f} ms, F.linear "
+            f"{t['library_ms']:.4f}, unfused route {t['unfused_ms']:.4f}, plain "
+            f"{t['plain_ms']:.4f}")
+    r.update(timed["b1"])
+    r["b16"] = timed["b16"]
+    r["event_ms"] = cuda_ms(lambda: qp.qkv_project_rope(*args))  # with the host's launch
+    r["plain_event_ms"] = cuda_ms(lambda: qp.qkv_project_rope_plain(*args))
+    r["profiler_ms"] = device_ms(lambda: qp.qkv_project_rope(*args))
+    r["library_profiler_ms"] = device_ms(lambda: F.linear(args[0], args[1], args[2]))
+    set_bound(results, name, 2.0 * n * c * 3 * c,
+              2 * n * c + 2 * 3 * c * c + 2 * 3 * c + 2 * 4 * n * d + 3 * 2 * n * c)
+    log(f"  K2 profiler device time {r['profiler_ms']:.4f} ms (F.linear "
+        f"{r['library_profiler_ms']:.4f}); bound {r['bound_ms']:.4f} ms by {r['bound_by']}")
+    return args[1], args[2]
 
 
 # ||launch - plain half|| / ||plain half|| of each K5 launch on its own
@@ -2065,25 +2148,15 @@ def decoder_kernel_checks(results):
     oihw = lambda w: w.permute(3, 2, 0, 1)
     nchw = lambda x: x.permute(0, 3, 1, 2)
 
-    # K9a at layer1_rn: (1, 256, 256, 256 -> 256)
-    s, c, k = 256, 256, 256
-    log(f"phase K9a winograd_conv (1, {s}, {s}, {c} -> {k}), layer1_rn")
-    x, w, b = nchw_view(1, c, s, s), randn(3, 3, c, k, scale=0.03), randn(k, scale=0.1)
-    compare(K9A, [wg.winograd_conv(x, w, b)], [wg.winograd_conv_plain(x, w, b)],
-            results)
-    time_pair(K9A, lambda: wg.winograd_conv(x, w, b),
-              lambda: wg.winograd_conv_plain(x, w, b), results, iters=5)
-    results[K9A]["library_ms"] = device_ms(
-        lambda: F.conv2d(nchw(x), oihw(w), b, padding=1))
-    tiles = (s // 2) ** 2
-    set_bound(results, K9A, 2.0 * 16 * tiles * c * k,
-              2 * (s * s * c + 9 * c * k + k + s * s * k),
-              fp32_ops=tiles * (32.0 * c + 40.0 * k))
+    # K9a at each of its 1024^2 b1 shapes and at the training step's dx of
+    # layer2_rn (batch 4, 256 -> 512 at 128^2: the two-launch route)
+    k9a_phase(results, randn, nchw_view)
 
     # K9b at refinenet1 of the 1024^2 path (1, 256, 256, 256): the row; and
-    # of the 2048^2 path (1, 512, 512, 256). Four device launches a call
-    # (each conv's transform and GEMM): the profiler sums them; CUDA events
+    # of the 2048^2 path (1, 512, 512, 256). Six device launches a call
+    # (U1, U2, each conv's transform and GEMM): the profiler sums them; CUDA events
     # around back-to-back calls beside it, for kernel and chain alike.
+    c = 256
     for s9 in (256, 512):
         log(f"phase K9b winograd_rcu (1, {s9}, {s9}, {c}), refinenet1 at "
             f"{4 * s9}^2")
@@ -2145,6 +2218,77 @@ def decoder_kernel_checks(results):
             f"{r['bound_by']})")
 
 
+# K9a's shapes on the main paths: the three 3x3 convs the copied rule sends
+# to it in a 1024^2 b1 forward, and one dx conv of the training step.
+K9A_SHAPES = (("layer1_rn", 1, 256, 256, 256), ("layer2_rn", 1, 128, 512, 256),
+              ("output_conv1", 1, 512, 256, 128), ("dx of layer2_rn, b4", 4, 128, 256, 512))
+
+
+def k9a_phase(results, randn, nchw_view):
+    """K9a against its plain version at each shape of `K9A_SHAPES` (NCHW
+    memory through an NHWC view, as the decoder calls it), by max error
+    and by relative norm within DEC_CALL_TOL, its route from the plan; then
+    kernel, plain version and cuDNN's conv + bias by CUDA events around
+    back-to-back calls, U = G w G^T apart (the kernel's own launch by the
+    profiler, and the plain version's torch ops), and the bound; the
+    forward's convs also at batch 16 beside cuDNN's. The row of the kernel
+    table is layer1_rn; every shape goes under "shapes"."""
+    import torch
+    import torch.nn.functional as F
+
+    from s3od_torch.ops.experimental import winograd as wg
+
+    oihw = lambda w: w.permute(3, 2, 0, 1)
+    shapes = {}
+    for label, b, s, c, k in K9A_SHAPES:
+        x = nchw_view(b, c, s, s)
+        w, bias = randn(3, 3, c, k, scale=0.03), randn(k, scale=0.1)
+        plan = wg.conv_plan(b, s, s, c, k, tma=wg.tma_layout(x))
+        route = "fused" if plan["route"] == wg.FUSED else "two launches"
+        log(f"phase K9a winograd_conv ({b}, {s}, {s}, {c} -> {k}), {label}: {route}, "
+            f"scratch {plan['scratch_bytes'] / 2**20:.1f} MiB")
+        got, ref = wg.winograd_conv(x, w, bias), wg.winograd_conv_plain(x, w, bias)
+        compare(K9A, [got], [ref], results)
+        nrm = rel_norm(got, ref)
+        log(f"  K9a ||d|| / ||plain|| {nrm:.3e} (bound {DEC_CALL_TOL:.1e})")
+        check(nrm <= DEC_CALL_TOL, f"K9a {label}: rel. norm {nrm} > {DEC_CALL_TOL}")
+        del got, ref
+        xc = x.permute(0, 3, 1, 2)
+        kern = lambda: wg.winograd_conv(x, w, bias)
+        r = {"route": route, "rel_norm": nrm, "scratch_mib": plan["scratch_bytes"] / 2**20,
+             "ms": run_ms(kern, 10),
+             "plain_ms": run_ms(lambda: wg.winograd_conv_plain(x, w, bias), 2),
+             "library_ms": run_ms(lambda: F.conv2d(xc, oihw(w), bias, padding=1), 10),
+             "u_plain_ms": run_ms(lambda: wg._u(w, x.dtype).contiguous(), 10)}
+        r["by_kernel"] = [(key[:80], ms) for key, ms, _ in kernel_breakdown(kern, 5)]
+        r["u_kernel_ms"] = sum(ms for key, ms in r["by_kernel"] if "weights" in key)
+        tiles = b * (s // 2) ** 2
+        set_bound({"k": r}, "k", 2.0 * 16 * tiles * c * k,
+                  2 * (b * s * s * c + 9 * c * k + k + b * s * s * k),
+                  fp32_ops=tiles * (32.0 * c + 40.0 * k))
+        log(f"  K9a {r['ms']:.4f} ms (CUDA events; U's kernel {r['u_kernel_ms']:.4f} by the "
+            f"profiler, U by torch ops {r['u_plain_ms']:.4f}), cuDNN conv + bias "
+            f"{r['library_ms']:.4f}, plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+            f"{r['bound_by']}; " + ", ".join(f"{key[:40]} {ms:.4f}" for key, ms in r["by_kernel"]))
+        if b == 1:  # the same conv at batch 16, as remove_background_batch runs it
+            x16 = nchw_view(B16, c, s, s)
+            x16c = x16.permute(0, 3, 1, 2)
+            r["b16_ms"] = run_ms(lambda: wg.winograd_conv(x16, w, bias), 3)
+            r["b16_library_ms"] = run_ms(lambda: F.conv2d(x16c, oihw(w), bias, padding=1), 3)
+            log(f"  at batch 16: K9a {r['b16_ms']:.4f} ms, cuDNN conv + bias "
+                f"{r['b16_library_ms']:.4f} (CUDA events)")
+            del x16, x16c
+        shapes[label] = r
+        if label == "layer1_rn":
+            results[K9A].update({key: r[key] for key in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+            results[K9A]["event_ms"] = cuda_ms(kern, 5)
+            results[K9A]["plain_event_ms"] = r["plain_ms"]
+        del x
+        torch.cuda.empty_cache()
+    results[K9A]["shapes"] = shapes
+
+
 def decoder_phase(results, pred, pred32):
     """The gated decoder on the main paths: kernel checks at the 1024^2
     shapes; `remove_background` and `remove_background_batch` (16) at
@@ -2193,13 +2337,16 @@ def decoder_phase(results, pred, pred32):
             f"{k} {v:.3e}" for k, v in worst.items()))
         check(all(v <= DEC_CALL_TOL for v in worst.values()),
               f"a gated kernel call out of bound {worst}")
-        faulty = {}
-        with decoder_shadowed(results, faulty, fault=K9B):
-            pred.remove_background(image)
-        log(f"  planted K9b x 1.01, per call: {faulty[K9B]:.3e} "
-            f"(bound {DEC_CALL_TOL:.1e})")
-        check(faulty[K9B] > DEC_CALL_TOL, "the planted K9b fault went unnoticed")
-        dec.update(per_call=worst, planted_k9b=faulty[K9B])
+        planted = {}
+        for name in (K9B, K9A):
+            faulty = {}
+            with decoder_shadowed(results, faulty, fault=name):
+                pred.remove_background(image)
+            log(f"  planted {name} x 1.01, per call: {faulty[name]:.3e} "
+                f"(bound {DEC_CALL_TOL:.1e})")
+            check(faulty[name] > DEC_CALL_TOL, f"the planted {name} fault went unnoticed")
+            planted[name] = faulty[name]
+        dec.update(per_call=worst, planted_k9b=planted[K9B], planted_k9a=planted[K9A])
 
         # against float32 exact mode, image by image
         d_iou, agree = 0.0, 1.0

@@ -50,7 +50,7 @@ _L = ctypes.c_longlong
 # C entry points: name -> argument types (every pointer and the stream as
 # c_void_p, or ctypes would cut them to 32 bits).
 _SIGNATURES = {
-    # x, w, b, cos, sin, q, k, v, rows, n, c, heads, head_dim, scale, stream
+    # x, w, b, cos, sin, q, k, v, batch, n, c, heads, head_dim, scale, stream
     "s3od_qkv_project_rope": [_P] * 8 + [_I] * 5 + [_F, _P],
     # q, k, v, o, lse, bh, n, head_dim, n_valid, stream
     "s3od_flash_attention_fwd": [_P] * 5 + [_I] * 4 + [_P],
@@ -62,12 +62,13 @@ _SIGNATURES = {
     "s3od_attn_epilogue": [_P] * 9 + [_I] * 5 + [_F, _P],
     # x, wu, bu, wd, bd, res, ls, out, h, rows, c, f, stream
     "s3od_mlp_fused": [_P] * 9 + [_I] * 3 + [_P],
-    # x, u, bias, out, batch, c, h, w, k, x strides (b, h, w, c),
-    # out strides (b, h, w, k), stream
-    "s3od_winograd_conv": [_P] * 4 + [_I] * 5 + [_L] * 8 + [_P],
-    # x, u1, b1, u2, b2, h scratch, V scratch, out, batch, c, h, w,
-    # x strides, out strides, stream
-    "s3od_winograd_rcu": [_P] * 8 + [_I] * 4 + [_L] * 8 + [_P],
+    # x, w, bias, out, U scratch, V scratch, batch, c, h, w, k, chunk rows,
+    # route, w strides (kernel row, kernel column, c, k), x strides
+    # (b, h, w, c), out strides (b, h, w, k), stream
+    "s3od_winograd_conv": [_P] * 6 + [_I] * 7 + [_L] * 12 + [_P],
+    # x, w1, b1, w2, b2, U scratch, h scratch, V scratch, out, batch, c,
+    # h, w, w1 strides, w2 strides, x strides, out strides, stream
+    "s3od_winograd_rcu": [_P] * 9 + [_I] * 4 + [_L] * 16 + [_P],
     # x, w1, b1, w0, b0, k1, bk, out, batch, h, w, c_in, c_mid, n_out,
     # x strides (b, h, w, c), out strides (b, h, w, n), stream
     "s3od_mask_tail": [_P] * 8 + [_I] * 6 + [_L] * 8 + [_P],

@@ -1,12 +1,12 @@
 // Shared Hopper (sm_90a) building blocks of the port's warp-specialised
-// kernels (K5, K8, K9b's Winograd GEMM, E1/E3a/E4; K7 and K3/K6 through
+// kernels (K2, K5, K8, K9a/K9b's Winograd kernels, E1/E3a/E4; K7 and K3/K6 through
 // `flash_fwd_ws.cuh`), as inline PTX: mbarriers, TMA tensor loads, the
 // wgmma shared-memory descriptor for 128-byte-swizzled tiles, wgmma fences
 // and groups, `wgmma.mma_async` m64nNk16 bf16 -> fp32 (SS: both operands
 // in shared memory, B K-major or MN-major; RS: A from registers),
 // `setmaxnreg`, the SFU's exp2, the turns of the consumer
 // warpgroups, and the host-side encoding of TMA tensor maps (bf16
-// swizzled tiles, fp32 rows).
+// swizzled tiles, bf16 plain boxes, fp32 rows).
 //
 // No CuTe or CUTLASS: every source builds with its own nvcc in seconds.
 // `cuTensorMapEncodeTiled` is a driver function; it is reached through
@@ -80,6 +80,15 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
       : "memory");
 }
 // Shared -> global tensor stores, completed through a bulk group.
@@ -424,7 +433,7 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A tensor map over a row-major tensor of `rank` dimensions, listed
+// A tensor map over a row-major tensor of `rank` (<= 4) dimensions, listed
 // innermost first (`dims`; `strides` in bytes for dims 1..rank-1), read in
 // boxes of `box` elements with the given element type and swizzle;
 // elements outside the tensor load as zeros. The map holds the pointer,
@@ -434,8 +443,8 @@ inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* pt
                       CUtensorMapSwizzle swizzle) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  cuuint64_t d[3], s[2];
-  cuuint32_t b[3], e[3] = {1, 1, 1};
+  cuuint64_t d[4], s[3];
+  cuuint32_t b[4], e[4] = {1, 1, 1, 1};
   for (int i = 0; i < rank; ++i) {
     d[i] = dims[i];
     b[i] = box[i];
@@ -445,6 +454,13 @@ inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* pt
                         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+// bf16 boxes without swizzle (a region read by plain shared loads); the
+// box's innermost extent must span a multiple of 16 bytes.
+inline int encode_bf16_plain_map(CUtensorMap* map, const void* ptr, int rank, const uint64_t* dims,
+                                 const uint64_t* strides, const uint32_t* box) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, rank, dims, strides, box,
+                    CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 // bf16 tiles with the 128-byte swizzle (the wgmma operands above).
 inline int encode_bf16_map(CUtensorMap* map, const void* ptr, int rank, const uint64_t* dims,

@@ -5,84 +5,61 @@
 // Replace the TPU kernels `s3od_tpu/ops/experimental/winograd.py:_kernel`
 // (via `conv3x3_winograd`) and `:_rcu_kernel` (via `rcu_winograd`). x and
 // out are (B, H, W, C) in NHWC *logical* order with any strides (the DPT
-// decoder passes NCHW memory; W-contiguous rows load coalesced); U = G w
-// G^T is (16, C, K) bf16, transformed and rounded by the Python wrapper.
-// Per 2x2 output tile:
+// decoder passes NCHW memory); w is (3, 3, C, K) bf16, read through its
+// strides. Per 2x2 output tile:
+//   U   = bf16(G w G^T)            fp32, once a call (`wino_weights_kernel`)
 //   V   = bf16(B^T d B)            d the 4x4 input patch, fp32 add/sub
 //   M   = V[uv] @ U[uv]            16 products, fp32 accumulation
 //   acc += A^T M A                 folded into 4 fp32 accumulators
 //   out = bf16(acc + bias)         one rounding (K9b: + b2 + x, one rounding)
 // — the TPU kernels' rounding points. The fold is linear, so where it runs
-// (K9a: per 16-channel chunk of M; K9b: once per M, after its whole C
-// reduction) changes only the fp32 order of the sums.
+// (once per M, or once per 64-channel slice of M) changes only the fp32
+// order of the sums.
 //
 // What bounds them on the H100: F(2,3) needs 16 C K multiplies per tile
 // where a direct 3x3 needs 36, so at the decoder's shapes (e.g. 256^2,
 // 256 -> 256: 3.4e10 FLOP, 67 MB) the tensor-core bound (~0.035 ms) is
-// above the bytes bound (~0.020 ms).
+// above the bytes bound (~0.020 ms). What holds the kernels back is the
+// fold: a block cannot own all K output channels, since the four output
+// accumulators and a product of 64 x 64 fp32 per warpgroup already take
+// 160 registers a thread (192 with K9b's M), so the products run as SS
+// wgmma m64n64k16, whose operands (4 KB per k16 step) take the whole of
+// shared memory's 128 bytes a cycle at the tensor cores' rate.
 //
-// K9a (this file's first kernel): warp-level mma.sync; the input transform
-// and the per-chunk fold are scalar fp32 work of the same order as the
-// products. No space-to-depth: the TPU version copied x into a 2x2-phase
-// layout (and back) around each call so that every Mosaic slice was
-// stride-1 and lane-aligned; here a block reads its halo region straight
-// from x. Read element by element, every thread waits out one load latency
-// per element of it, serially; so a block copies it with cp.async in
-// 16-byte chunks — of one channel's row when x is NCHW memory, of 8
-// channels of one pixel when it is NHWC memory (as the decoder's batch-16
-// tensors are; the transform then reads it through strides) — and issues
-// chunk i+1's copy before chunk i's products. Other strides take the
-// element path. A block: 64 tiles (2 tile rows x 32 tile cols = 4 x 64
-// outputs) x 64 output channels, 8 warps (4 along tiles x 2 along
-// channels, 16 x 32 each: 64 fp32 accumulators a thread), at most 128
-// registers so that two blocks share an SM. Per 16-channel chunk: the
-// input region and U's chunk (cp.async) to shared memory, V to shared
-// memory in bf16, then 16 x 4 mma.sync per warp and the fold. 103 KB of
-// shared memory.
-//
-// K9b: four launches, two of them one Winograd GEMM on TMA + wgmma.
-// The TPU kernel kept a full-width row block and its whole intermediate in
-// 16 MB of VMEM; 227 KB of shared memory holds C = 256 channels of only a
-// few dozen intermediate pixels, so a fused kernel recomputed conv1 on a
-// halo 2.3x conv2's tiles and ran conv1's transform once per output block.
-// Here the intermediate h = bf16(relu(conv1 + b1)) goes to device memory
+// Two routes, both on one Winograd GEMM body (TMA ring of U, two consumer
+// warpgroups of 64 output channels each, the epilogue staged in shared
+// memory and stored in pairs along out's memory order):
+//   1. Two launches (K9b's convs; K9a at k > 256 or on strides TMA cannot
+//      read): the input transform writes V (16, P, C) bf16 to device
+//      memory (a block stages a 4 x 66 pixel x 64 channel region and
+//      writes 32 tiles' 16 V rows in 128-byte runs), then the GEMM reads
+//      it by TMA: a block owns 64 tiles x 128 output channels, one
+//      producer thread loads per (uv, 64-channel chunk) V's 64 x 64 tile
+//      and U's 64 x 128 tile into a 6-stage ring, and each consumer
+//      warpgroup adds each stage's product into M in fp32 and folds M
+//      once per uv. V is 4x the input's bytes; K9a runs in chunks of tile
+//      rows whose V fits a bounded scratch (the wrapper's
+//      `V_SCRATCH_BYTES`), K9b in one chunk.
+//   2. Fused (K9a at k <= 256, `wino_fused_kernel`): V never leaves shared
+//      memory. A block owns 2 x 32 tiles x 128 output channels; per
+//      64-channel chunk of x one thread loads the block's 6-row region by
+//      TMA (zero-filled outside the image) and seven warps of two producer
+//      warpgroups write V in two halves of 8 uv into two 64 KB slots in
+//      the swizzle wgmma reads, while the consumers read the other slot
+//      and fold each (chunk, uv) product as it completes. At k = 128 it
+//      saves V's round trip (1.1 GB at 512^2 x 256) and ran 0.39 ms
+//      against the two launches' 0.58; at k = 256 the transform runs twice
+//      and the two routes measured the same.
+// K9b keeps the intermediate h = bf16(relu(conv1 + b1)) in device memory
 // (NHWC, 33.5 MB at 256^2 x 256: it is rounded once either way, and conv2
-// pads it with zeros either way), and each conv is
-//   1. the input transform: V (16, P, C) bf16, P = B (H/2) (W/2) tiles, a
-//      row per tile and the channels contiguous: a block stages a 4 x 66
-//      pixel x 64 channel region in shared memory (ReLU'd for conv1, zero
-//      outside the image) and writes 32 tiles' 16 V rows in 128-byte runs;
-//   2. the GEMM: a block owns 64 tiles x 128 output channels. One
-//      producer thread loads, per (uv, 64-channel chunk), V's 64 x 64 tile
-//      (K-major) and U's 64 x 128 tile (MN-major, as stored) by TMA into a
-//      6-stage ring; two consumer warpgroups (64 output channels each)
-//      run M = V U by SS wgmma m64n64k16 over the whole C reduction of one
-//      uv, each 64-channel stage in a fresh accumulator added into M in
-//      fp32, then fold M into the four output accumulators with A^T's
-//      signs (compile-time, so 2.25 adds per M element on average): 192
-//      fp32 accumulators a thread, in 232 registers after setmaxnreg. The epilogue
-//      stages acc + bias in fp32 over the ring and stores element pairs in
-//      runs of the output's memory order (conv1: ReLU, into h; conv2: + x,
-//      whose tile the producer warpgroup's other warps copy into shared
-//      memory by cp.async while the products run).
-// Why V goes through device memory: a block cannot own all K output
-// channels (5 accumulators of 64 x K fp32 exceed the register file at K =
-// 256), so a transform inside the GEMM would run K / 128 times and, done
-// one uv at a time (4 shared loads a value), costs as much as the
-// products. V is 4x the input's bytes (134 MB at 256^2 x 256, written
-// once and read K / 128 = 2 times, the second mostly from L2).
+// pads it with zeros either way); conv2's epilogue adds x, whose tile the
+// GEMM's idle producer warps copy into shared memory during the products.
 #include "hopper.cuh"
 
 using namespace s3od;
 typedef __nv_bfloat16 bf16;
 
 namespace {
-
-constexpr int THREADS = 256;
-constexpr int CC = 16;       // input channels per chunk: one k16 step
-constexpr int KB = 64;       // output channels per GEMM block
-constexpr int LDV = CC + 8;  // bf16 row stride of V: [16][tiles][LDV]
-constexpr int LDU = KB + 8;  // bf16 row stride of a U chunk: [16][CC][LDU]
 
 struct Strides {
   long long b, h, w, c;
@@ -113,34 +90,9 @@ __device__ __forceinline__ void bt_d_b(const float (&d)[4][4], float (&o)[16]) {
   }
 }
 
-// V of one 4x4 patch (element (r, s) at src[r * rs + s * cs], ReLU'd first
-// if asked); the 16 values, rounded to bf16, go to dst[uv * dstride].
-template <bool RELU>
-__device__ __forceinline__ void transform_patch(const bf16* src, int rs, int cs, bf16* dst,
-                                                int dstride) {
-  float d[4][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      d[r][s] = __bfloat162float(src[r * rs + s * cs]);
-      if (RELU) d[r][s] = fmaxf(d[r][s], 0.f);
-    }
-  float o[16];
-  bt_d_b(d, o);
-#pragma unroll
-  for (int uv = 0; uv < 16; ++uv) dst[uv * dstride] = __float2bfloat16(o[uv]);
-}
-
-// 16-byte global -> shared copy that fills zeros when `bytes` is 0.
-__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(smem)),
-               "l"(gmem), "r"(bytes));
-}
-
-// How a block reads its region of x: element by element (any strides), in
-// 16-byte row chunks of one channel (NCHW memory), or in 16-byte chunks of
-// 8 channels of one pixel (NHWC memory).
+// How the transform reads its region of x: element by element (any
+// strides), in 16-byte row chunks of one channel (NCHW memory), or in
+// 16-byte chunks of 8 channels of one pixel (NHWC memory).
 enum : int { BY_ELEMENT = 0, BY_ROW = 1, BY_PIXEL = 2 };
 
 int load_mode(const void* x, int w, const Strides& xs) {
@@ -151,196 +103,38 @@ int load_mode(const void* x, int w, const Strides& xs) {
   return BY_ELEMENT;
 }
 
-// A region of CC channels (c0..), NR rows (from image row y0) and the
-// columns x0..x0+NCOL-1, zero outside the image. BY_ELEMENT and BY_ROW keep
-// channel planes, dst[cc * RS + r * RW + j] with column j <-> image column
-// x0 & ~7 + j (whole 16-byte chunks for BY_ROW); BY_PIXEL keeps channels
-// minor, dst[(r * RW + j) * CCP + cc] with j <-> x0 + j. The chunked modes
-// copy with cp.async (the caller commits and waits); BY_ELEMENT at once.
-template <int NR, int NCOL, int MODE>
-struct Region {
-  static constexpr int NCH = (7 + NCOL + 7) / 8;  // BY_ROW: 16-byte chunks a row
-  static constexpr int PLANE_RW = NCH * 8, PLANE_RS = NR * PLANE_RW + 8;  // +8: banks
-  static constexpr int CCP = CC + 8;              // BY_PIXEL: a pixel's stride
-  static constexpr int RW = MODE == BY_PIXEL ? NCOL : PLANE_RW;
-  static constexpr int RS = PLANE_RS;
-  static constexpr int ROW = MODE == BY_PIXEL ? RW * CCP : RW;  // a patch's strides
-  static constexpr int COL = MODE == BY_PIXEL ? CCP : 1;
-  static constexpr int MAX_SIZE =
-      CC * PLANE_RS > NR * NCOL * CCP ? CC * PLANE_RS : NR * NCOL * CCP;
-
-  __device__ __forceinline__ static int origin(int x0) {
-    return MODE == BY_PIXEL ? x0 : (x0 & ~7);
-  }
-  __device__ __forceinline__ static const bf16* at(const bf16* s, int cc, int r, int j) {
-    return MODE == BY_PIXEL ? s + (r * RW + j) * CCP + cc : s + cc * RS + r * RW + j;
-  }
-
-  __device__ __forceinline__ static void load(bf16* dst, const bf16* xb, const Strides& xs,
-                                              int h, int w, int y0, int x0, int c0, int tid) {
-    const int xa = origin(x0);
-    if (MODE == BY_ROW) {
-      for (int i = tid; i < CC * NR * NCH; i += THREADS) {
-        const int cc = i / (NR * NCH), rem = i - cc * (NR * NCH);
-        const int r = rem / NCH, q = rem - r * NCH;
-        const int gy = y0 + r, gx = xa + q * 8;
-        const bool in = gy >= 0 && gy < h && gx >= 0 && gx < w;
-        const bf16* src = in ? xb + gy * xs.h + gx + (c0 + cc) * xs.c : xb;
-        cp_async16_zfill(dst + cc * RS + r * RW + q * 8, src, in ? 16 : 0);
-      }
-    } else if (MODE == BY_PIXEL) {
-      for (int i = tid; i < NR * NCOL * (CC / 8); i += THREADS) {
-        const int half = i % (CC / 8), pix = i / (CC / 8);
-        const int r = pix / NCOL, j = pix - r * NCOL;
-        const int gy = y0 + r, gx = x0 + j;
-        const bool in = gy >= 0 && gy < h && gx >= 0 && gx < w;
-        const bf16* src = in ? xb + gy * xs.h + gx * xs.w + c0 + half * 8 : xb;
-        cp_async16_zfill(dst + (r * RW + j) * CCP + half * 8, src, in ? 16 : 0);
-      }
-    } else {
-      for (int i = tid; i < CC * NR * NCOL; i += THREADS) {
-        const int cc = i / (NR * NCOL), rem = i - cc * (NR * NCOL);
-        const int r = rem / NCOL, j = rem - r * NCOL;
-        const int gy = y0 + r, gx = x0 + j;
-        bf16 v = __float2bfloat16(0.f);
-        if (gy >= 0 && gy < h && gx >= 0 && gx < w)
-          v = xb[gy * xs.h + gx * xs.w + (c0 + cc) * xs.c];
-        dst[cc * RS + r * RW + gx - xa] = v;
-      }
-    }
-  }
-};
-
-// One 16-channel chunk of U (rows uv * CC + cc, columns k0..k0+63) to
-// shared memory, asynchronously.
-__device__ __forceinline__ void load_u_chunk(bf16* s_u, const bf16* u, int c0, int c, int k,
-                                             int k0, int tid) {
-  for (int i = tid; i < 16 * CC * (KB / 8); i += THREADS) {
-    const int seg = i & 7, row = i >> 3;
-    const int uv = row / CC, cc = row - uv * CC;
-    cp_async16(s_u + row * LDU + seg * 8, u + ((size_t)uv * c + c0 + cc) * k + k0 + seg * 8);
-  }
-}
-
-// acc[2a + b] += A^T[a][u] A^T[b][v] (V[uv] @ U[uv]) over one chunk, for
-// the warp's 16 tiles (rows p0.. of V, laid out [16][TP][LDV]) and NT n8
-// tiles of output channels (columns k0.. of the U chunk).
-template <int TP, int NT>
-__device__ __forceinline__ void gemm_fold(const bf16* s_v, const bf16* s_u, int p0, int k0,
-                                          int lane, float (&acc)[4][NT][4]) {
+// U = G w G^T (16, c, k) bf16 of w (3, 3, c, k) bf16 read through strides
+// (ws: kernel row, kernel column, c, k, in elements), in fp32 in
+// `transform_weights`' order (G over the kernel's rows, then over its
+// columns), rounded once: a thread per (c, k), U's rows written in runs of k.
+__global__ void __launch_bounds__(256)
+    wino_weights_kernel(const bf16* __restrict__ w, bf16* __restrict__ u, int c, int k,
+                        Strides ws) {
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= (long long)c * k) return;
+  const int ci = static_cast<int>(i / k), ki = static_cast<int>(i - (long long)ci * k);
+  const float g[4][3] = {{1.f, 0.f, 0.f}, {0.5f, 0.5f, 0.5f}, {0.5f, -0.5f, 0.5f}, {0.f, 0.f, 1.f}};
+  float wv[3][3];
 #pragma unroll
-  for (int uv = 0; uv < 16; ++uv) {
-    uint32_t a[4];
-    load_a_frag(a, s_v + (uv * TP + p0) * LDV, LDV, lane);
-    float m[NT][4];
+  for (int r = 0; r < 3; ++r)
 #pragma unroll
-    for (int n = 0; n < NT; ++n) m[n][0] = m[n][1] = m[n][2] = m[n][3] = 0.f;
+    for (int q = 0; q < 3; ++q)
+      wv[r][q] = __bfloat162float(w[r * ws.b + q * ws.h + ci * ws.w + ki * ws.c]);
 #pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      uint32_t b[4];
-      load_b_frag_kn(b, s_u + uv * CC * LDU + k0 + np * 16, LDU, lane);
-      mma_bf16(m[2 * np], a, b[0], b[1]);
-      mma_bf16(m[2 * np + 1], a, b[2], b[3]);
-    }
+  for (int a = 0; a < 4; ++a) {
+    float t[3];
 #pragma unroll
-    for (int ab = 0; ab < 4; ++ab) {
-      const int cf = at(ab >> 1, uv >> 2) * at(ab & 1, uv & 3);
+    for (int q = 0; q < 3; ++q) t[q] = g[a][0] * wv[0][q] + g[a][1] * wv[1][q] + g[a][2] * wv[2][q];
 #pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if (cf > 0) acc[ab][n][j] += m[n][j];
-          if (cf < 0) acc[ab][n][j] -= m[n][j];
-        }
-    }
+    for (int b = 0; b < 4; ++b)
+      u[((size_t)(a * 4 + b) * c + ci) * k + ki] =
+          __float2bfloat16(g[b][0] * t[0] + g[b][1] * t[1] + g[b][2] * t[2]);
   }
 }
 
 // ---------------------------------------------------------------------------
-// K9a
-// ---------------------------------------------------------------------------
-
-constexpr int TR = 2, TC = 32, TP = TR * TC;     // tiles of a block
-constexpr int IR = 2 * TR + 2, IC = 2 * TC + 2;  // its input region
-template <int MODE>
-using ConvRegion = Region<IR, IC, MODE>;
-constexpr size_t CONV_SMEM =
-    sizeof(bf16) * ((size_t)ConvRegion<BY_ROW>::MAX_SIZE + 16 * TP * LDV + 16 * CC * LDU);
-
-template <int MODE>
-__global__ void __launch_bounds__(THREADS, 2)
-    wino_conv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ u,
-                     const bf16* __restrict__ bias, bf16* __restrict__ out, int c, int h, int w,
-                     int k, Strides xs, Strides os) {
-  using R = ConvRegion<MODE>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* s_in = reinterpret_cast<bf16*>(smem);  // the region, R's layout
-  bf16* s_v = s_in + R::MAX_SIZE;               // [16][TP][LDV]
-  bf16* s_u = s_v + 16 * TP * LDV;              // [16][CC][LDU]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int ht = h / 2, wt = w / 2;
-  const int tr0 = blockIdx.y * TR, tc0 = blockIdx.x * TC;
-  const int nkb = k / KB;
-  const int bi = blockIdx.z / nkb, k0 = (blockIdx.z - bi * nkb) * KB;
-  const bf16* xb = x + bi * xs.b;
-  const int y0 = 2 * tr0 - 1, x0 = 2 * tc0 - 1, xoff = x0 - R::origin(x0);
-  const int p0 = (warp & 3) * 16, wk = (warp >> 2) * 32;
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int ab = 0; ab < 4; ++ab)
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[ab][n][j] = 0.f;
-
-  // Chunk i's region loads while chunk i-1's products run, its U chunk
-  // while chunk i's transform waits on the barrier.
-  const int nc = c / CC;
-  R::load(s_in, xb, xs, h, w, y0, x0, 0, tid);
-  load_u_chunk(s_u, u, 0, c, k, k0, tid);
-  cp_async_commit();
-  for (int ci = 0; ci < nc; ++ci) {
-    cp_async_wait<0>();
-    __syncthreads();
-    for (int i = tid; i < TP * CC; i += THREADS) {
-      const int cc = i % CC, p = i / CC;
-      const int pr = p / TC, pc = p - pr * TC;
-      transform_patch<false>(R::at(s_in, cc, 2 * pr, xoff + 2 * pc), R::ROW, R::COL,
-                             s_v + p * LDV + cc, TP * LDV);
-    }
-    __syncthreads();
-    if (ci + 1 < nc) R::load(s_in, xb, xs, h, w, y0, x0, (ci + 1) * CC, tid);
-    cp_async_commit();
-    gemm_fold<TP, 4>(s_v, s_u, p0, wk, lane, acc);
-    __syncthreads();
-    if (ci + 1 < nc) load_u_chunk(s_u, u, (ci + 1) * CC, c, k, k0, tid);
-    cp_async_commit();
-  }
-
-  bf16* ob = out + bi * os.b;
-#pragma unroll
-  for (int n = 0; n < 4; ++n)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int p = p0 + g + (j >> 1) * 8;
-      const int kk = k0 + wk + n * 8 + 2 * t + (j & 1);
-      const int tr = tr0 + p / TC, tc = tc0 + p % TC;
-      if (tr < ht && tc < wt) {
-        const float bk = __bfloat162float(bias[kk]);
-#pragma unroll
-        for (int ab = 0; ab < 4; ++ab) {
-          const int yy = 2 * tr + (ab >> 1), xx = 2 * tc + (ab & 1);
-          ob[yy * os.h + xx * os.w + kk * os.c] = __float2bfloat16(acc[ab][n][j] + bk);
-        }
-      }
-    }
-}
-
-// ---------------------------------------------------------------------------
-// K9b: the input transform and the Winograd GEMM, two launches each
+// The input transform and the Winograd GEMM: two launches a conv, for K9a
+// and for each of K9b's two convs
 // ---------------------------------------------------------------------------
 
 constexpr int T_TC = 32;              // transform: tiles of a block (one tile row)
@@ -350,25 +144,19 @@ constexpr int T_LD = T_CB + 2;        // bf16 stride of a region pixel: 33 words
 constexpr int T_THREADS = 256;
 constexpr int T_BATCH = 8;  // loads in flight a thread
 
-// V (16, p_total, c) of the tiles (bi, tr, T_TC blockIdx.x ..) and the
-// channels c0 .. c0 + 63: p = (bi * ht + tr) * wt + tc. The region loads
-// (`mode`, as K9a's `load_mode`) in 16-byte chunks of 8 channels of a
-// pixel (NHWC memory) or of 8 pixels of a channel's row (NCHW memory), or
-// element by element; the pixel stride of 33 words spreads the
-// shared-memory stores over the banks.
-template <bool RELU>
-__global__ void __launch_bounds__(T_THREADS)
-    wino_transform_kernel(const bf16* __restrict__ x, bf16* __restrict__ v, int c, int h, int w,
-                          int p_total, Strides xs, int mode) {
-  __shared__ __align__(16) bf16 s_in[4 * T_RC * T_LD];
-  const int tid = threadIdx.x;
-  const int ht = h / 2, wt = w / 2;
-  const int tc0 = blockIdx.x * T_TC, tr = blockIdx.y;
-  const int ncb = c / T_CB;
-  const int bi = blockIdx.z / ncb, c0 = (blockIdx.z - bi * ncb) * T_CB;
-  const bf16* xb = x + bi * xs.b + c0 * xs.c;
-  const int y0 = 2 * tr - 1, x0 = 2 * tc0 - 1;
-  auto put = [&](int r, int j, int cc, bf16 val) {  // region element, ReLU'd for conv1
+// A region of NR pixel rows (image rows y0 ..) x T_RC pixel columns
+// (image columns 2 tc0 - 1 ..) x T_CB channels of xb (its first channel)
+// into s_in[(r T_RC + j) T_LD + cc], zero outside the image, ReLU'd if
+// asked, by NT threads (`tid`), BATCH 16-byte loads in flight each: in
+// chunks of 8 channels of a pixel (NHWC memory, `mode` BY_PIXEL) or of 8
+// pixels of a channel's row (NCHW memory, BY_ROW), or element by element.
+// The pixel stride of 33 words spreads the shared-memory stores over the
+// banks.
+template <int NR, int NT, int BATCH, bool RELU>
+__device__ __forceinline__ void load_region(bf16* s_in, const bf16* xb, const Strides& xs, int h,
+                                            int w, int y0, int tc0, int mode, int tid) {
+  const int x0 = 2 * tc0 - 1;
+  auto put = [&](int r, int j, int cc, bf16 val) {
     if (RELU) val = __float2bfloat16(fmaxf(__bfloat162float(val), 0.f));
     s_in[(r * T_RC + j) * T_LD + cc] = val;
   };
@@ -377,21 +165,20 @@ __global__ void __launch_bounds__(T_THREADS)
     return gy >= 0 && gy < h && gx >= 0 && gx < w;
   };
   if (mode == BY_PIXEL) {
-    // 16-byte chunks of 8 channels of one pixel (NHWC memory)
-    constexpr int N = 4 * T_RC * (T_CB / 8);
-    for (int i0 = 0; i0 < N; i0 += T_BATCH * T_THREADS) {
-      uint4 val[T_BATCH];
+    constexpr int N = NR * T_RC * (T_CB / 8);
+    for (int i0 = 0; i0 < N; i0 += BATCH * NT) {
+      uint4 val[BATCH];
 #pragma unroll
-      for (int u = 0; u < T_BATCH; ++u) {
-        const int i = i0 + u * T_THREADS + tid, q = i % (T_CB / 8), pix = i / (T_CB / 8);
+      for (int u = 0; u < BATCH; ++u) {
+        const int i = i0 + u * NT + tid, q = i % (T_CB / 8), pix = i / (T_CB / 8);
         const int r = pix / T_RC, j = pix - r * T_RC;
         val[u] = make_uint4(0u, 0u, 0u, 0u);
         if (i < N && inside(r, j))
           val[u] = *reinterpret_cast<const uint4*>(xb + (y0 + r) * xs.h + (x0 + j) * xs.w + 8 * q);
       }
 #pragma unroll
-      for (int u = 0; u < T_BATCH; ++u) {
-        const int i = i0 + u * T_THREADS + tid, q = i % (T_CB / 8), pix = i / (T_CB / 8);
+      for (int u = 0; u < BATCH; ++u) {
+        const int i = i0 + u * NT + tid, q = i % (T_CB / 8), pix = i / (T_CB / 8);
         if (i >= N) continue;
         const bf16* e = reinterpret_cast<const bf16*>(&val[u]);
 #pragma unroll
@@ -399,27 +186,26 @@ __global__ void __launch_bounds__(T_THREADS)
       }
     }
   } else if (mode == BY_ROW) {
-    // 16-byte chunks of 8 pixels of one channel's row (NCHW memory), from
-    // column 2 tc0 - 8 (a multiple of 8): region columns -7 .. 72, of
+    // from column 2 tc0 - 8 (a multiple of 8): region columns -7 .. 72, of
     // which 0 .. T_RC - 1 are kept; w is a multiple of 8, so a chunk lies
     // wholly inside or outside the image
-    constexpr int NQ = (T_RC + 7 + 7) / 8, N = 4 * NQ * T_CB;
-    for (int i0 = 0; i0 < N; i0 += T_BATCH * T_THREADS) {
-      uint4 val[T_BATCH];
+    constexpr int NQ = (T_RC + 7 + 7) / 8, N = NR * NQ * T_CB;
+    for (int i0 = 0; i0 < N; i0 += BATCH * NT) {
+      uint4 val[BATCH];
 #pragma unroll
-      for (int u = 0; u < T_BATCH; ++u) {
-        const int i = i0 + u * T_THREADS + tid, q = i % NQ, rest = i / NQ;
-        const int r = rest & 3, cc = rest >> 2;
+      for (int u = 0; u < BATCH; ++u) {
+        const int i = i0 + u * NT + tid, q = i % NQ, rest = i / NQ;
+        const int r = rest % NR, cc = rest / NR;
         const int gy = y0 + r, gx = 2 * tc0 - 8 + 8 * q;
         val[u] = make_uint4(0u, 0u, 0u, 0u);
         if (i < N && gy >= 0 && gy < h && gx >= 0 && gx < w)
           val[u] = *reinterpret_cast<const uint4*>(xb + gy * xs.h + gx + cc * xs.c);
       }
 #pragma unroll
-      for (int u = 0; u < T_BATCH; ++u) {
-        const int i = i0 + u * T_THREADS + tid, q = i % NQ, rest = i / NQ;
+      for (int u = 0; u < BATCH; ++u) {
+        const int i = i0 + u * NT + tid, q = i % NQ, rest = i / NQ;
         if (i >= N) continue;
-        const int r = rest & 3, cc = rest >> 2, j0 = 8 * q - 7;
+        const int r = rest % NR, cc = rest / NR, j0 = 8 * q - 7;
         const bf16* e = reinterpret_cast<const bf16*>(&val[u]);
 #pragma unroll
         for (int c8 = 0; c8 < 8; ++c8)
@@ -428,27 +214,48 @@ __global__ void __launch_bounds__(T_THREADS)
     }
   } else {
     // element by element, channels fastest
-    constexpr int N = 4 * T_RC * T_CB;
-    for (int i0 = 0; i0 < N; i0 += T_BATCH * T_THREADS) {
-      bf16 val[T_BATCH];
+    constexpr int N = NR * T_RC * T_CB;
+    for (int i0 = 0; i0 < N; i0 += BATCH * NT) {
+      bf16 val[BATCH];
 #pragma unroll
-      for (int u = 0; u < T_BATCH; ++u) {
-        const int i = i0 + u * T_THREADS + tid, cc = i % T_CB, pix = i / T_CB;
+      for (int u = 0; u < BATCH; ++u) {
+        const int i = i0 + u * NT + tid, cc = i % T_CB, pix = i / T_CB;
         const int r = pix / T_RC, j = pix - r * T_RC;
         val[u] = __float2bfloat16(0.f);
         if (i < N && inside(r, j)) val[u] = xb[(y0 + r) * xs.h + (x0 + j) * xs.w + cc * xs.c];
       }
 #pragma unroll
-      for (int u = 0; u < T_BATCH; ++u) {
-        const int i = i0 + u * T_THREADS + tid, cc = i % T_CB, pix = i / T_CB;
+      for (int u = 0; u < BATCH; ++u) {
+        const int i = i0 + u * NT + tid, cc = i % T_CB, pix = i / T_CB;
         if (i < N) put(pix / T_RC, pix % T_RC, cc, val[u]);
       }
     }
   }
+}
+
+// V (16, p_count, c) of a chunk of the batch's tile rows: global tile row
+// gr = bi * ht + tr, chunk rows g0 .. rows_end - 1, p = (gr - g0) * wt +
+// tc. Block: T_TC tiles (blockIdx.x) of row g0 + rows_y (blockIdx.z / ncb)
+// + blockIdx.y, channels c0 = 64 (blockIdx.z % ncb) .. c0 + 63 (a chunk of
+// whole images has rows_y = ht); its 4 x 66 pixel region by `load_region`.
+template <bool RELU>
+__global__ void __launch_bounds__(T_THREADS)
+    wino_transform_kernel(const bf16* __restrict__ x, bf16* __restrict__ v, int c, int h, int w,
+                          int g0, int rows_y, int rows_end, int p_count, Strides xs, int mode) {
+  __shared__ __align__(16) bf16 s_in[4 * T_RC * T_LD];
+  const int tid = threadIdx.x;
+  const int ht = h / 2, wt = w / 2;
+  const int ncb = c / T_CB;
+  const int gr = g0 + (blockIdx.z / ncb) * rows_y + blockIdx.y;
+  if (gr >= rows_end) return;
+  const int tc0 = blockIdx.x * T_TC, bi = gr / ht, tr = gr - bi * ht;
+  const int c0 = (blockIdx.z % ncb) * T_CB;
+  load_region<4, T_THREADS, T_BATCH, RELU>(s_in, x + bi * xs.b + c0 * xs.c, xs, h, w, 2 * tr - 1,
+                                           tc0, mode, tid);
   __syncthreads();
   // A warp takes one tile and 32 channel pairs: each of its 16 V rows is
   // one 128-byte run.
-  const int row0 = (bi * ht + tr) * wt + tc0;
+  const int row0 = (gr - g0) * wt + tc0;
   for (int i = tid; i < T_TC * (T_CB / 2); i += T_THREADS) {
     const int cp = i % (T_CB / 2), t = i / (T_CB / 2);
     if (tc0 + t >= wt) break;
@@ -468,7 +275,7 @@ __global__ void __launch_bounds__(T_THREADS)
     bf16* dst = v + (size_t)(row0 + t) * c + c0 + 2 * cp;
 #pragma unroll
     for (int uv = 0; uv < 16; ++uv)
-      *reinterpret_cast<uint32_t*>(dst + (size_t)uv * p_total * c) = pack_bf16(o0[uv], o1[uv]);
+      *reinterpret_cast<uint32_t*>(dst + (size_t)uv * p_count * c) = pack_bf16(o0[uv], o1[uv]);
   }
 }
 
@@ -494,8 +301,10 @@ static_assert(G_BN * G_SLD * 4 <= G_STAGES * G_STAGE * 2, "the staged tile fits 
 constexpr int G_SMEM =
     1024 + G_STAGES * G_STAGE * 2 + (2 * G_STAGES + 1) * 8 + G_BM * 16 + G_BN * G_PIX * 2;
 
-// The epilogue of one conv: out = relu(acc + bias) (conv1) or acc + bias
-// + res (conv2, res read through its strides), rounded once.
+// The epilogue of one conv, rounded once: out = relu(acc + bias) (K9b's
+// conv1), acc + bias + res (K9b's conv2, res read through its strides) or
+// acc + bias (K9a).
+enum : int { EPI_RELU = 0, EPI_RESIDUAL = 1, EPI_BIAS = 2 };
 struct GemmOut {
   const bf16* bias;
   const bf16* res;
@@ -521,16 +330,17 @@ __device__ __forceinline__ int pair_index(bool pix_minor, int kl, int pix) {
   return pix_minor ? kl * G_PIX + pix : pix * G_BN + kl;
 }
 
-// out (B, H, W, K) through os = the Winograd conv of the tiles whose V
-// rows map_v holds ((c, p_total, 16), boxes of 64 x 64) with U (map_u:
-// (k, c, 16), boxes of 64 x 64). Block: tiles G_BM blockIdx.x / nkb ..,
-// output channels G_BN (blockIdx.x % nkb) .. (the blocks sharing V's rows
-// run side by side, so the second read of a V tile mostly hits L2).
-template <bool CONV2>
+// out (B, H, W, K) through os = the Winograd conv of the tiles p_begin ..
+// p_begin + p_count - 1 of the batch, whose V rows map_v holds ((c,
+// p_count, 16), boxes of 64 x 64), with U (map_u: (k, c, 16), boxes of 64
+// x 64). Block: tiles G_BM blockIdx.x / nkb .. of the chunk, output
+// channels G_BN (blockIdx.x % nkb) .. (the blocks sharing V's rows run
+// side by side, so the second read of a V tile mostly hits L2).
+template <int EPI>
 __global__ void __launch_bounds__(hopper::ws_threads(G_NC), 1)
     wino_gemm_kernel(const __grid_constant__ CUtensorMap map_v,
                      const __grid_constant__ CUtensorMap map_u, GemmOut g, int c, int k, int h,
-                     int w, int p_total) {
+                     int w, int p_begin, int p_count) {
   using namespace s3od::hopper;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
@@ -584,19 +394,19 @@ __global__ void __launch_bounds__(hopper::ws_threads(G_NC), 1)
       long long* offs = tile_offs();
       bf16* res_s = res_tile();
       for (int tl = pt; tl < G_BM; tl += 96) {
-        if (p0 + tl >= p_total) continue;
-        const int p = p0 + tl, bi = p / (ht * wt), rem = p - bi * (ht * wt);
+        if (p0 + tl >= p_count) continue;
+        const int p = p_begin + p0 + tl, bi = p / (ht * wt), rem = p - bi * (ht * wt);
         const int tr = rem / wt, tc = rem - tr * wt;
         offs[2 * tl] = bi * g.os.b + 2 * tr * g.os.h + 2 * tc * g.os.w;
         offs[2 * tl + 1] = bi * g.rs.b + 2 * tr * g.rs.h + 2 * tc * g.rs.w;
       }
       named_sync(2, 96);
-      if (CONV2 && g.pairs) {
+      if (EPI == EPI_RESIDUAL && g.pairs) {
         for (int i = pt; i < G_BN * G_PIX / 2; i += 96) {
           int kl, pix;
           pair_at(pix_minor, i, kl, pix);
           const int tile = (pix >> 1) % G_BM, a = pix / (2 * G_BM), b = pix & 1;
-          if (p0 + tile >= p_total) continue;
+          if (p0 + tile >= p_count) continue;
           const bf16* r = g.res + offs[2 * tile + 1] + a * g.rs.h + b * g.rs.w + (k0 + kl) * g.rs.c;
           asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
                            smem_addr(res_s + pair_index(pix_minor, kl, pix))),
@@ -695,11 +505,11 @@ __global__ void __launch_bounds__(hopper::ws_threads(G_NC), 1)
       const int tile = (pix >> 1) % G_BM, a = pix / (2 * G_BM), b = pix & 1;
       const int kk = k0 + kl;
       dst[u] = -1;
-      if (p0 + tile < p_total) {
+      if (p0 + tile < p_count) {
         dst[u] = offs[2 * tile] + a * g.os.h + b * g.os.w + kk * g.os.c;
         v0[u] = stage[kl * G_SLD + pix];
         v1[u] = stage[kl * G_SLD + pix + second];
-        if (CONV2) {
+        if (EPI == EPI_RESIDUAL) {
           if (g.pairs) {
             const __nv_bfloat162 rr =
                 *reinterpret_cast<const __nv_bfloat162*>(res_s + pair_index(pix_minor, kl, pix));
@@ -710,7 +520,7 @@ __global__ void __launch_bounds__(hopper::ws_threads(G_NC), 1)
             v0[u] += __bfloat162float(r[0]);
             v1[u] += __bfloat162float(r[pix_minor ? g.rs.w : g.rs.c]);
           }
-        } else {
+        } else if (EPI == EPI_RELU) {
           v0[u] = fmaxf(v0[u], 0.f);
           v1[u] = fmaxf(v1[u], 0.f);
         }
@@ -726,6 +536,277 @@ __global__ void __launch_bounds__(hopper::ws_threads(G_NC), 1)
         o[0] = __float2bfloat16(v0[u]);
         o[pix_minor ? g.os.w : g.os.c] = __float2bfloat16(v1[u]);
       }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K9a's fused route: the transform inside the GEMM, V never in device memory
+// ---------------------------------------------------------------------------
+
+constexpr int F_TR = 2, F_TC = T_TC;         // tiles of a block: 2 tile rows x 32
+constexpr int F_NR = 2 * F_TR + 2;           // its region's pixel rows
+// The region's pixel columns (66 used), TMA rows a multiple of 16 bytes:
+// pixels from image column 2 tc0 - 1; channel planes from 2 tc0 - 8, since
+// a box's innermost coordinate must start 16-byte aligned.
+constexpr int F_RC_PIXELS = 72, F_RC_PLANES = 80;
+constexpr int F_UV = 8;                       // uv of a V slot: half of a chunk's 16
+constexpr int F_SLOT = F_UV * G_VT;           // elements of a V slot (64 KB)
+constexpr int F_USTAGE = G_NC * G_UA;         // elements of a U stage (16 KB)
+constexpr int F_USTAGES = 2;
+constexpr int F_REGION = F_NR * F_RC_PLANES * G_BK;  // elements of the x region (60 KB)
+constexpr int F_PRODUCERS = 2;                // producer warpgroups
+constexpr int F_THREADS = 128 * (F_PRODUCERS + G_NC);
+constexpr int F_TTHREADS = 128 * F_PRODUCERS - 32;  // the transform's threads: warps 1-7
+// Registers a thread after setmaxnreg: 256 x 56 + 256 x 200 <= 65536 (the
+// transform threads hold a patch's half, the consumers a stage's product
+// and four output accumulators).
+constexpr int F_PRODUCER_REGS = 56, F_CONSUMER_REGS = 200;
+// two V slots, the U ring, the region, 2 + 2 + 2 F_USTAGES + 1 mbarriers
+constexpr int F_SMEM =
+    1024 + 2 * F_SLOT * 2 + F_USTAGES * F_USTAGE * 2 + F_REGION * 2 + (5 + 2 * F_USTAGES) * 8;
+static_assert(G_BN * G_SLD * 4 <= (2 * F_SLOT + F_USTAGES * F_USTAGE) * 2,
+              "the staged tile fits the V slots and the U ring");
+
+// Half hf of one tile's V for two channels: from its patch rows hf .. hf
+// + 2 (d0: channel 2 cp, d1: 2 cp + 1; [row][column]) to uv 8 hf .. 8 hf
+// + 7 (the same fp32 operations as `bt_d_b`), bf16 pairs into the slot:
+// row m of each uv's 64 x 64 tile, in the 128-byte swizzle.
+__device__ __forceinline__ void v_half(int hf, const float (&d0)[3][4], const float (&d1)[3][4],
+                                       bf16* slot, int m, int cp) {
+  float t0[2][4], t1[2][4];  // t[u - 2 hf][q]
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if (hf == 0) {  // t[0] = d0 - d2, t[1] = d1 + d2
+      t0[0][q] = d0[0][q] - d0[2][q], t1[0][q] = d1[0][q] - d1[2][q];
+      t0[1][q] = d0[1][q] + d0[2][q], t1[1][q] = d1[1][q] + d1[2][q];
+    } else {  // t[2] = -d1 + d2, t[3] = d1 - d3
+      t0[0][q] = -d0[0][q] + d0[1][q], t1[0][q] = -d1[0][q] + d1[1][q];
+      t0[1][q] = d0[0][q] - d0[2][q], t1[1][q] = d1[0][q] - d1[2][q];
+    }
+  }
+  const int sw = ((((2 * cp) >> 3) ^ (m & 7)) << 3) | ((2 * cp) & 7);
+#pragma unroll
+  for (int ul = 0; ul < 2; ++ul) {
+    const float o0[4] = {t0[ul][0] - t0[ul][2], t0[ul][1] + t0[ul][2], -t0[ul][1] + t0[ul][2],
+                         t0[ul][1] - t0[ul][3]};
+    const float o1[4] = {t1[ul][0] - t1[ul][2], t1[ul][1] + t1[ul][2], -t1[ul][1] + t1[ul][2],
+                         t1[ul][1] - t1[ul][3]};
+#pragma unroll
+    for (int v = 0; v < 4; ++v)
+      *reinterpret_cast<uint32_t*>(slot + (ul * 4 + v) * G_VT + m * G_BK + sw) =
+          pack_bf16(o0[v], o1[v]);
+  }
+}
+
+// out (B, H, W, K) through os = x's Winograd conv with U (map_u) + bias,
+// one launch. Block: 2 x 32 tiles (tile rows 2 blockIdx.y .., columns 32
+// blockIdx.x ..) of image blockIdx.z / nkb, output channels 128
+// (blockIdx.z % nkb) ... Per 64-channel chunk of x, one thread loads the
+// block's 6-row pixel region by TMA (map_x; zeros outside the image:
+// channel planes [c][row][column] for NCHW memory, PLANES, else pixels
+// [row][column][c]), and the transform threads write V in two halves (uv
+// 0-7 from patch rows 0-2, uv 8-15 from rows 1-3, `v_half`) into two
+// shared-memory slots, each uv a 64 x 64 tile in the 128-byte swizzle
+// wgmma reads; one thread keeps U's (chunk, uv) tiles coming by TMA. The
+// consumers (K9b's: two warpgroups of 64 output channels, SS wgmma
+// m64n64k16) fold each (chunk, uv) product into the four output
+// accumulators as it completes, so one slot fills while the other is
+// read, and the next region loads while the last half is read. The
+// epilogue is the GEMM's, without residual.
+template <bool PLANES>
+__global__ void __launch_bounds__(F_THREADS, 1)
+    wino_fused_kernel(const __grid_constant__ CUtensorMap map_x,
+                      const __grid_constant__ CUtensorMap map_u, GemmOut g, int c, int k, int h,
+                      int w) {
+  using namespace s3od::hopper;
+  constexpr int RC = PLANES ? F_RC_PLANES : F_RC_PIXELS;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  bf16* vslot = reinterpret_cast<bf16*>(base);   // [2][F_UV][G_BM][G_BK], swizzled
+  bf16* ustage = vslot + 2 * F_SLOT;             // [F_USTAGES][G_NC][G_BK][64]
+  bf16* region = ustage + F_USTAGES * F_USTAGE;  // PLANES ? [G_BK][F_NR][RC] : [F_NR][RC][G_BK]
+  uint64_t* vfull = reinterpret_cast<uint64_t*>(region + F_REGION);
+  uint64_t* vempty = vfull + 2;
+  uint64_t* ufull = vempty + 2;
+  uint64_t* uempty = ufull + F_USTAGES;
+  uint64_t* rfull = uempty + F_USTAGES;
+
+  const int ht = h / 2, wt = w / 2, nkb = k / G_BN;
+  const int bi = blockIdx.z / nkb, k0 = (blockIdx.z - bi * nkb) * G_BN;
+  const int tr0 = blockIdx.y * F_TR, tc0 = blockIdx.x * F_TC;
+  const int nck = c / G_BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&vfull[s], F_TTHREADS);
+      mbar_init(&vempty[s], G_NC * 128);
+    }
+    for (int s = 0; s < F_USTAGES; ++s) {
+      mbar_init(&ufull[s], 1);
+      mbar_init(&uempty[s], G_NC * 128);
+    }
+    mbar_init(rfull, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg < F_PRODUCERS) {
+    setmaxnreg_dec<F_PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < 16 * nck; ++i) {  // U in the consumers' order: chunk, then uv
+        const int s = i % F_USTAGES, ph = (i / F_USTAGES) & 1;
+        const int kc = i / 16, uv = i - 16 * kc;
+        mbar_wait(&uempty[s], ph ^ 1);
+        mbar_expect_tx(&ufull[s], F_USTAGE * 2);
+#pragma unroll
+        for (int a = 0; a < G_NC; ++a)
+          tma_load_3d(ustage + s * F_USTAGE + a * G_UA, &map_u, &ufull[s], k0 + 64 * a, kc * G_BK,
+                      uv);
+      }
+    } else if (threadIdx.x >= 32) {
+      const int pt = threadIdx.x - 32;
+      for (int kc = 0; kc < nck; ++kc) {
+        if (pt == 0) {
+          mbar_expect_tx(rfull, F_NR * RC * G_BK * 2);
+          if (PLANES)
+            tma_load_4d(region, &map_x, rfull, 2 * tc0 - 8, 2 * tr0 - 1, kc * G_BK, bi);
+          else
+            tma_load_4d(region, &map_x, rfull, kc * G_BK, 2 * tc0 - 1, 2 * tr0 - 1, bi);
+        }
+        mbar_wait(rfull, kc & 1);
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          mbar_wait(&vempty[hf], (kc & 1) ^ 1);
+          bf16* slot = vslot + hf * F_SLOT;
+          for (int i = pt; i < G_BM * (G_BK / 2); i += F_TTHREADS) {
+            float d0[3][4], d1[3][4];  // channels 2 cp, 2 cp + 1 of patch rows hf .. hf + 2
+            int m, cp;
+            if (PLANES) {
+              // a warp: one tile row and channel pair, its lanes the 32 tiles
+              // of the row. Patch columns 0 .. 3 are image columns 2 tc0 + 2
+              // lane - 1 .., region columns 2 lane + 7 ..: the second half
+              // of one aligned pair and both of the next two.
+              const int lane = i & 31, rest = i >> 5, trl = rest & 1;
+              cp = rest >> 1;
+              m = trl * F_TC + lane;
+              const bf16* s0 = region + ((2 * cp) * F_NR + 2 * trl + hf) * RC + 2 * lane + 6;
+#pragma unroll
+              for (int r = 0; r < 3; ++r)
+#pragma unroll
+                for (int ch = 0; ch < 2; ++ch) {
+                  const __nv_bfloat162* pr =
+                      reinterpret_cast<const __nv_bfloat162*>(s0 + ch * F_NR * RC + r * RC);
+                  const float2 a = __bfloat1622float2(pr[0]), b = __bfloat1622float2(pr[1]),
+                               e = __bfloat1622float2(pr[2]);
+                  float(&d)[3][4] = ch ? d1 : d0;
+                  d[r][0] = a.y, d[r][1] = b.x, d[r][2] = b.y, d[r][3] = e.x;
+                }
+            } else {
+              // a warp: one tile, its lanes the 32 channel pairs
+              cp = i % (G_BK / 2);
+              m = i / (G_BK / 2);
+              const bf16* src =
+                  region + ((2 * (m / F_TC) + hf) * RC + 2 * (m % F_TC)) * G_BK + 2 * cp;
+#pragma unroll
+              for (int r = 0; r < 3; ++r)
+#pragma unroll
+                for (int q = 0; q < 4; ++q) {
+                  const float2 a = __bfloat1622float2(
+                      *reinterpret_cast<const __nv_bfloat162*>(src + (r * RC + q) * G_BK));
+                  d0[r][q] = a.x, d1[r][q] = a.y;
+                }
+            }
+            v_half(hf, d0, d1, slot, m, cp);
+          }
+          fence_proxy_async();
+          mbar_arrive(&vfull[hf]);
+        }
+        named_sync(2, F_TTHREADS);  // the region is read: the next chunk's may load
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<F_CONSUMER_REGS>();
+  const int hw = wg - F_PRODUCERS, t = threadIdx.x - 128 * wg;
+  float mk[32], y[4][32];
+#pragma unroll
+  for (int ab = 0; ab < 4; ++ab)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) y[ab][i] = 0.f;
+
+  int step = 0;
+  for (int kc = 0; kc < nck; ++kc) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      mbar_wait(&vfull[hf], kc & 1);
+      const bf16* slot = vslot + hf * F_SLOT;
+#pragma unroll
+      for (int ul = 0; ul < F_UV; ++ul, ++step) {
+        const int s = step % F_USTAGES;
+        mbar_wait(&ufull[s], (step / F_USTAGES) & 1);
+        const bf16* tv = slot + ul * G_VT;
+        const bf16* tu = ustage + s * F_USTAGE + hw * G_UA;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < G_BK / 16; ++kk)
+          WgmmaSSBt<64>::mma(mk, desc_sw128(tv + kk * 16), desc_sw128(tu + kk * 16 * 64, G_UA * 2),
+                             kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(mk);
+        mbar_arrive(&uempty[s]);
+        // y[2a + b] += A^T[a][u] A^T[b][v] (this chunk's V[uv] U[uv])
+        const int uv = hf * F_UV + ul;
+#pragma unroll
+        for (int ab = 0; ab < 4; ++ab) {
+          const int cf = at(ab >> 1, uv >> 2) * at(ab & 1, uv & 3);
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            if (cf > 0) y[ab][i] += mk[i];
+            if (cf < 0) y[ab][i] -= mk[i];
+          }
+        }
+      }
+      mbar_arrive(&vempty[hf]);
+    }
+  }
+
+  // acc + bias staged in fp32 by channel ([G_BN][G_SLD], pixel (a G_BM +
+  // tile) 2 + b) over the V slots and the U ring, then stored in pairs
+  // along out's minor dimension, as the GEMM's epilogue does.
+  const int ct = threadIdx.x - 128 * F_PRODUCERS;  // 0 .. 255 over both consumers
+  float* stage = reinterpret_cast<float*>(vslot);
+  named_sync(1, 256);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int kl = 64 * hw + 8 * j + 2 * (t & 3) + (e & 1);
+      const int row = 16 * (t >> 5) + ((t & 31) >> 2) + 8 * (e >> 1);
+      const float bk = __bfloat162float(g.bias[k0 + kl]);
+#pragma unroll
+      for (int ab = 0; ab < 4; ++ab)
+        stage[kl * G_SLD + ((ab >> 1) * G_BM + row) * 2 + (ab & 1)] = y[ab][4 * j + e] + bk;
+    }
+  named_sync(1, 256);
+  const bool pix_minor = g.os.c != 1;
+  const int second = pix_minor ? 1 : G_SLD;
+  bf16* ob = g.out + bi * g.os.b;
+  for (int i = ct; i < G_BN * G_PIX / 2; i += 256) {
+    int kl, pix;
+    pair_at(pix_minor, i, kl, pix);
+    const int m = (pix >> 1) % G_BM, a = pix / (2 * G_BM), b = pix & 1;
+    const int tr = tr0 + m / F_TC, tc = tc0 + m % F_TC;
+    if (tr >= ht || tc >= wt) continue;
+    const float v0 = stage[kl * G_SLD + pix], v1 = stage[kl * G_SLD + pix + second];
+    bf16* o = ob + (2 * tr + a) * g.os.h + (2 * tc + b) * g.os.w + (k0 + kl) * g.os.c;
+    if (g.pairs) {
+      *reinterpret_cast<uint32_t*>(o) = pack_bf16(v0, v1);
+    } else {
+      o[0] = __float2bfloat16(v0);
+      o[pix_minor ? g.os.w : g.os.c] = __float2bfloat16(v1);
     }
   }
 }
@@ -750,76 +831,146 @@ int encode_tiles(CUtensorMap* map, const void* ptr, long long planes, long long 
   return hopper::encode_bf16_map(map, ptr, 3, dims, strides, box);
 }
 
-// One conv of K9b: the transform of x into v, then the GEMM into g.out.
-template <bool CONV2>
-int rcu_conv(const bf16* x, const Strides& xs, const CUtensorMap& map_v, const void* u,
-             bf16* v, const GemmOut& g, int batch, int c, int h, int w, cudaStream_t st) {
-  const int p_total = batch * (h / 2) * (w / 2);
-  const dim3 tgrid((w / 2 + T_TC - 1) / T_TC, h / 2, batch * (c / T_CB));
-  wino_transform_kernel<!CONV2><<<tgrid, T_THREADS, 0, st>>>(x, v, c, h, w, p_total, xs,
-                                                              load_mode(x, w, xs));
+// One Winograd conv over the batch's tile rows g0 .. g0 + rows - 1 (rows
+// < ht, or a multiple of ht: whole images): the transform of x (ReLU'd
+// for K9b's conv1) into v, then the GEMM with U (map_u) into g.out.
+template <int EPI>
+int conv_rows(const bf16* x, const Strides& xs, bf16* v, const CUtensorMap& map_u,
+              const GemmOut& g, int batch, int c, int k, int h, int w, int g0, int rows,
+              cudaStream_t st) {
+  const int ht = h / 2, wt = w / 2;
+  const int rows_y = rows < ht ? rows : ht;
+  const int rows_end = g0 + rows < batch * ht ? g0 + rows : batch * ht;
+  const int p_count = (rows_end - g0) * wt;
+  const dim3 tgrid((wt + T_TC - 1) / T_TC, rows_y, (rows + rows_y - 1) / rows_y * (c / T_CB));
+  wino_transform_kernel<EPI == EPI_RELU><<<tgrid, T_THREADS, 0, st>>>(
+      x, v, c, h, w, g0, rows_y, rows_end, p_count, xs, load_mode(x, w, xs));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  CUtensorMap map_u;
-  const int e = encode_tiles(&map_u, u, 16, c, c);
+  CUtensorMap map_v;
+  const int e = encode_tiles(&map_v, v, 16, p_count, c);
   if (e) return e;
-  err = cudaFuncSetAttribute(wino_gemm_kernel<CONV2>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, G_SMEM);
+  err = cudaFuncSetAttribute(wino_gemm_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             G_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (p_total + G_BM - 1) / G_BM * (c / G_BN);
-  wino_gemm_kernel<CONV2><<<blocks, hopper::ws_threads(G_NC), G_SMEM, st>>>(map_v, map_u, g, c,
-                                                                           c, h, w, p_total);
+  const int blocks = (p_count + G_BM - 1) / G_BM * (k / G_BN);
+  wino_gemm_kernel<EPI><<<blocks, hopper::ws_threads(G_NC), G_SMEM, st>>>(
+      map_v, map_u, g, c, k, h, w, g0 * wt, p_count);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Whether a conv of these sizes fits the launches: c a multiple of 64
+// (the transform's blocks, the GEMM's stages), k of 128 (its blocks), h
+// and w even, and chunks of `rows` tile rows within the grid's limits.
+bool fits(int batch, int c, int h, int w, int k, int rows) {
+  if (batch <= 0 || c <= 0 || c % T_CB || k <= 0 || k % G_BN || h <= 0 || w <= 0 || h % 2 ||
+      w % 2 || rows <= 0)
+    return false;
+  const int ht = h / 2, wt = w / 2;
+  if (rows > ht && rows % ht) return false;
+  const int rows_y = rows < ht ? rows : ht;
+  const long long chunk_tiles = (long long)rows * wt;
+  return rows_y <= 65535 && (long long)(rows / rows_y) * (c / T_CB) <= 65535 &&
+         (long long)batch * ht * wt <= 0x7fffffffLL && chunk_tiles * c * 16 <= (1LL << 40) &&
+         (chunk_tiles + G_BM - 1) / G_BM * (k / G_BN) <= 0x7fffffffLL;
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// U = G w G^T of w (3, 3, c, k) through strides ws into u (16, c, k), and
+// its tensor map (boxes of 64 x 64).
+int weights(const void* w, const Strides& ws, void* u, int c, int k, CUtensorMap* map_u,
+            cudaStream_t st) {
+  const long long n = (long long)c * k;
+  wino_weights_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(
+      static_cast<const bf16*>(w), static_cast<bf16*>(u), c, k, ws);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return encode_tiles(map_u, u, 16, c, k);
+}
+
+// K9a's fused route: x's tensor map (channel planes for NCHW memory,
+// pixels for NHWC memory; other strides are refused) and the launch.
+int fused(const bf16* x, const Strides& xs, const CUtensorMap& map_u, const GemmOut& g,
+          int batch, int c, int h, int w, int k, cudaStream_t st) {
+  const int mode = load_mode(x, w, xs);  // its chunked modes are TMA's strides
+  if (mode == BY_ELEMENT) return static_cast<int>(cudaErrorInvalidValue);
+  const bool planes = mode == BY_ROW;
+  CUtensorMap map_x;
+  const uint64_t dims_p[4] = {(uint64_t)w, (uint64_t)h, (uint64_t)c, (uint64_t)batch};
+  const uint64_t strides_p[3] = {(uint64_t)xs.h * 2, (uint64_t)xs.c * 2, (uint64_t)xs.b * 2};
+  const uint32_t box_p[4] = {F_RC_PLANES, F_NR, G_BK, 1};
+  const uint64_t dims_n[4] = {(uint64_t)c, (uint64_t)w, (uint64_t)h, (uint64_t)batch};
+  const uint64_t strides_n[3] = {(uint64_t)xs.w * 2, (uint64_t)xs.h * 2, (uint64_t)xs.b * 2};
+  const uint32_t box_n[4] = {G_BK, F_RC_PIXELS, F_NR, 1};
+  const int e = planes ? hopper::encode_bf16_plain_map(&map_x, x, 4, dims_p, strides_p, box_p)
+                       : hopper::encode_bf16_plain_map(&map_x, x, 4, dims_n, strides_n, box_n);
+  if (e) return e;
+  auto kernel = planes ? wino_fused_kernel<true> : wino_fused_kernel<false>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((w / 2 + F_TC - 1) / F_TC, (h / 2 + F_TR - 1) / F_TR, batch * (k / G_BN));
+  kernel<<<grid, F_THREADS, F_SMEM, st>>>(map_x, map_u, g, c, k, h, w);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// x, out: (batch, h, w, c / k) through strides (b, h, w, c); u: (16, c, k);
-// bias: (k,). h and w even, c a multiple of 16, k of 64 (checked by the
-// Python wrapper as well).
-extern "C" int s3od_winograd_conv(const void* x, const void* u, const void* bias, void* out,
-                                  int batch, int c, int h, int w, int k, long long xsb,
-                                  long long xsh, long long xsw, long long xsc, long long osb,
-                                  long long osh, long long osw, long long osc, void* stream) {
-  if (batch <= 0 || c <= 0 || c % CC || k <= 0 || k % KB || h <= 0 || w <= 0 || h % 2 || w % 2)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((w / 2 + TC - 1) / TC, (h / 2 + TR - 1) / TR, batch * (k / KB));
-  if (grid.y > 65535 || grid.z > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const Strides xs{xsb, xsh, xsw, xsc}, os{osb, osh, osw, osc};
-  const int mode = load_mode(x, w, xs);
-  auto kernel = mode == BY_ROW     ? wino_conv_kernel<BY_ROW>
-                : mode == BY_PIXEL ? wino_conv_kernel<BY_PIXEL>
-                                   : wino_conv_kernel<BY_ELEMENT>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(CONV_SMEM));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, THREADS, CONV_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(u), static_cast<const bf16*>(bias),
-      static_cast<bf16*>(out), c, h, w, k, xs, os);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// x, out: (batch, h, w, c) through strides; u1, u2: (16, c, c); b1, b2:
-// (c,); hbuf: (batch, h, w, c) NHWC scratch for the intermediate; vbuf:
-// (16, batch (h / 2) (w / 2), c) scratch for V, both 16-byte aligned. h
-// and w even, c a multiple of 128 (checked by the Python wrapper as well).
-extern "C" int s3od_winograd_rcu(const void* x, const void* u1, const void* b1, const void* u2,
-                                 const void* b2, void* hbuf, void* vbuf, void* out, int batch,
-                                 int c, int h, int w, long long xsb, long long xsh, long long xsw,
-                                 long long xsc, long long osb, long long osh, long long osw,
-                                 long long osc, void* stream) {
-  if (batch <= 0 || c <= 0 || c % G_BN || h <= 0 || w <= 0 || h % 2 || w % 2)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long p_total = (long long)batch * (h / 2) * (w / 2);
-  if (h / 2 > 65535 || (long long)batch * (c / T_CB) > 65535 ||
-      (p_total + G_BM - 1) / G_BM * (c / G_BN) > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (reinterpret_cast<uintptr_t>(hbuf) % 16 || reinterpret_cast<uintptr_t>(vbuf) % 16 ||
-      reinterpret_cast<uintptr_t>(u1) % 16 || reinterpret_cast<uintptr_t>(u2) % 16)
+// K9a. x, out: (batch, h, w, c / k) through strides (b, h, w, c); w: (3,
+// 3, c, k) bf16 through strides (kernel row, kernel column, c, k); bias:
+// (k,); ubuf: scratch for U (16, c, k). route 0: the batch's tile rows in
+// chunks of `rows` (fewer than h / 2, or whole images), each a transform
+// into vbuf (16, rows (w / 2), c) and the GEMM; route 1: one fused launch
+// (vbuf unused). Scratch 16-byte aligned; c a multiple of 64, k of 128, h
+// and w even (checked by the Python wrapper as well).
+extern "C" int s3od_winograd_conv(const void* x, const void* w, const void* bias, void* out,
+                                  void* ubuf, void* vbuf, int batch, int c, int h, int w_, int k,
+                                  int rows, int route, long long wsh, long long wsw,
+                                  long long wsc, long long wsk, long long xsb, long long xsh,
+                                  long long xsw, long long xsc, long long osb, long long osh,
+                                  long long osw, long long osc, void* stream) {
+  const int ht = h / 2, wt = w_ / 2;
+  if (!fits(batch, c, h, w_, k, route == 1 ? batch * ht : rows) || !aligned16(ubuf) ||
+      (route == 0 && !aligned16(vbuf)) || (route == 1 && ((long long)batch * (k / G_BN) > 65535 ||
+                                                          (ht + F_TR - 1) / F_TR > 65535)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  CUtensorMap map_v;
-  int e = encode_tiles(&map_v, vbuf, 16, p_total, c);
+  CUtensorMap map_u;
+  int e = weights(w, Strides{wsh, wsw, wsc, wsk}, ubuf, c, k, &map_u, st);
+  if (e) return e;
+  const Strides xs{xsb, xsh, xsw, xsc}, os{osb, osh, osw, osc};
+  const GemmOut g{static_cast<const bf16*>(bias), nullptr, static_cast<bf16*>(out), os, os,
+                  pairs_in(out, os, os.c != 1)};
+  const bf16* xb = static_cast<const bf16*>(x);
+  if (route == 1) return fused(xb, xs, map_u, g, batch, c, h, w_, k, st);
+  for (int g0 = 0; g0 < batch * ht && !e; g0 += rows)
+    e = conv_rows<EPI_BIAS>(xb, xs, static_cast<bf16*>(vbuf), map_u, g, batch, c, k, h, w_, g0,
+                            rows, st);
+  return e;
+}
+
+// K9b. x, out: (batch, h, w, c) through strides; w1, w2: (3, 3, c, c) bf16
+// through strides; b1, b2: (c,); ubuf: (2, 16, c, c) scratch for U1, U2;
+// hbuf: (batch, h, w, c) NHWC scratch for the intermediate; vbuf: (16,
+// batch (h / 2) (w / 2), c) scratch for V, all 16-byte aligned. h and w
+// even, c a multiple of 128 (checked by the Python wrapper as well).
+extern "C" int s3od_winograd_rcu(const void* x, const void* w1, const void* b1, const void* w2,
+                                 const void* b2, void* ubuf, void* hbuf, void* vbuf, void* out,
+                                 int batch, int c, int h, int w, long long w1h, long long w1w,
+                                 long long w1c, long long w1k, long long w2h, long long w2w,
+                                 long long w2c, long long w2k, long long xsb, long long xsh,
+                                 long long xsw, long long xsc, long long osb, long long osh,
+                                 long long osw, long long osc, void* stream) {
+  const int rows = batch * (h / 2);  // one chunk: the whole batch
+  if (c % G_BN || !fits(batch, c, h, w, c, rows) || !aligned16(ubuf) || !aligned16(hbuf) ||
+      !aligned16(vbuf))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  CUtensorMap map_u1, map_u2;
+  bf16* u1 = static_cast<bf16*>(ubuf);
+  int e = weights(w1, Strides{w1h, w1w, w1c, w1k}, u1, c, c, &map_u1, st);
+  if (!e) e = weights(w2, Strides{w2h, w2w, w2c, w2k}, u1 + (size_t)16 * c * c, c, c, &map_u2, st);
   if (e) return e;
   const Strides xs{xsb, xsh, xsw, xsc}, os{osb, osh, osw, osc};
   const Strides hs{(long long)h * w * c, (long long)w * c, c, 1};
@@ -829,11 +980,11 @@ extern "C" int s3od_winograd_rcu(const void* x, const void* u1, const void* b1, 
   // conv1: V of relu(x), then h = relu(acc + b1)
   const GemmOut g1{static_cast<const bf16*>(b1), nullptr, hb, hs, hs,
                    pairs_in(hb, hs, false)};
-  e = rcu_conv<false>(xb, xs, map_v, u1, vb, g1, batch, c, h, w, st);
+  e = conv_rows<EPI_RELU>(xb, xs, vb, map_u1, g1, batch, c, c, h, w, 0, rows, st);
   if (e) return e;
   // conv2: V of h, then out = acc + b2 + x
   const bool pix_minor = os.c != 1;
   const GemmOut g2{static_cast<const bf16*>(b2), xb, static_cast<bf16*>(out), xs, os,
                    pairs_in(out, os, pix_minor) && pairs_in(x, xs, pix_minor)};
-  return rcu_conv<true>(hb, hs, map_v, u2, vb, g2, batch, c, h, w, st);
+  return conv_rows<EPI_RESIDUAL>(hb, hs, vb, map_u2, g2, batch, c, c, h, w, 0, rows, st);
 }

@@ -35,7 +35,11 @@ conv with the space-flipped, channel-transposed weights and goes through
 K9a whenever the rule admits the gradient's shape; dw and db, and all of
 K9b's backward, are the vjp of the plain `F.conv2d` reference.
 
-K9b runs as two convs, each an input transform and a Winograd GEMM
+Both kernels first transform the weights (U) with one launch a weight.
+K9a then takes one of two routes (`conv_route`, `conv_plan`): a fused
+launch that keeps V in shared memory, or an input transform into a V
+scratch and a Winograd GEMM, in chunks of tile rows. K9b runs as two
+convs on the second route, each an input transform and a Winograd GEMM
 (`winograd_transform_plain` and `winograd_gemm_plain` are those launches'
 plain halves); its intermediate h is rounded once and zero-padded by
 conv2 as in the TPU kernel.
@@ -266,41 +270,144 @@ def _empty_like_layout(x: torch.Tensor, k: int) -> torch.Tensor:
     return torch.empty(bsz, h, w, k, dtype=x.dtype, device=x.device)
 
 
-# K9b's launches (`csrc/winograd.cu`), mirrored for the CPU tests: the
-# transform's blocks (32 tiles of one tile row x 64 channels) and the GEMM's
-# (64 tiles x 128 output channels; a producer and two consumer warpgroups).
-RCU_TRANSFORM_TILES = 32
-RCU_TRANSFORM_CHANNELS = 64
-RCU_GEMM_TILES = 64
-RCU_GEMM_CHANNELS = 128
-RCU_GEMM_STAGES = 6
-RCU_CONSUMER_REGS, RCU_PRODUCER_REGS = 232, 40
+# The launches of `csrc/winograd.cu` that K9a and K9b share, mirrored for
+# the CPU tests: the input transform's blocks (32 tiles of one tile row x
+# 64 channels) and the Winograd GEMM's (64 tiles x 128 output channels,
+# 64-channel stages in a 6-deep ring; a producer and two consumer
+# warpgroups, registers a thread after setmaxnreg).
+TRANSFORM_TILES = 32
+TRANSFORM_CHANNELS = 64
+GEMM_TILES = 64
+GEMM_CHANNELS = 128
+GEMM_STAGE_CHANNELS = 64
+GEMM_STAGES = 6
+CONSUMER_REGS, PRODUCER_REGS = 232, 40
+GRID_YZ = 65535  # a grid's y and z extents
+
+# K9a's V scratch on the two-launch route: a conv runs in chunks of tile
+# rows whose V (16, tiles, C) bf16 takes at most this many bytes, so that
+# a batch of any size holds one bounded buffer. Chunks small enough to
+# stay in L2 (16-64 MiB) ran slower on the H100.
+V_SCRATCH_BYTES = 256 << 20
+
+
+def _gemm_smem() -> int:
+    """The GEMM's dynamic shared memory (`G_SMEM`): 1024 bytes of
+    alignment slack, the ring of V (64 x 64) and U (64 x 128) bf16 tiles,
+    13 mbarriers, two offsets a tile, K9b conv2's bf16 tile of x (128
+    channels x 256 pixels)."""
+    return (1024 + GEMM_STAGES * (GEMM_TILES + GEMM_CHANNELS)
+            * GEMM_STAGE_CHANNELS * 2 + (2 * GEMM_STAGES + 1) * 8
+            + GEMM_TILES * 16 + GEMM_CHANNELS * 4 * GEMM_TILES * 2)
+
+
+def _transform_grid(rows: int, ht: int, wt: int, c: int) -> tuple:
+    """The transform's grid over a chunk of `rows` tile rows (fewer than
+    ht, or whole images: then one image's ht rows a grid row)."""
+    rows_y = min(rows, ht)
+    return (-(-wt // TRANSFORM_TILES), rows_y,
+            -(-rows // rows_y) * (c // TRANSFORM_CHANNELS))
 
 
 def rcu_plan(b: int, h: int, w: int, c: int) -> dict:
-    """K9b's four launches at x (b, h, w, c): the transform's grid, the
-    GEMM's block count, its dynamic shared memory (1024 bytes of alignment
-    slack, the ring of V (64 x 64) and U (64 x 128) bf16 tiles, 13
-    mbarriers, two offsets a tile, conv2's bf16 tile of x: 128 channels x
-    256 pixels)
-    and the registers a consumer thread holds in fp32 (M, a stage's
-    product and the four output accumulators, 64 x 64 each per
-    warpgroup); the scratch the
-    wrapper allocates: V (16, P, c) and the intermediate h (b, h, w, c),
-    bf16."""
+    """K9b's launches at x (b, h, w, c), each conv one chunk of the
+    whole batch: the transform's grid, the GEMM's block count, its dynamic
+    shared memory and the registers a consumer thread holds in fp32 (M, a
+    stage's product and the four output accumulators, 64 x 64 each per
+    warpgroup); the scratch the wrapper allocates: U1 and U2 (2, 16, c,
+    c), V (16, P, c) and the intermediate h (b, h, w, c), bf16."""
     ht, wt = h // 2, w // 2
     p = b * ht * wt
     return {
-        "transform_grid": (-(-wt // RCU_TRANSFORM_TILES), ht,
-                           b * (c // RCU_TRANSFORM_CHANNELS)),
-        "gemm_blocks": -(-p // RCU_GEMM_TILES) * (c // RCU_GEMM_CHANNELS),
-        "smem": 1024 + RCU_GEMM_STAGES * (RCU_GEMM_TILES * 64
-                                          + 64 * RCU_GEMM_CHANNELS) * 2
-        + (2 * RCU_GEMM_STAGES + 1) * 8 + RCU_GEMM_TILES * 16
-        + RCU_GEMM_CHANNELS * 4 * RCU_GEMM_TILES * 2,
+        "transform_grid": _transform_grid(b * ht, ht, wt, c),
+        "gemm_blocks": -(-p // GEMM_TILES) * (c // GEMM_CHANNELS),
+        "smem": _gemm_smem(),
         "acc_regs": 6 * 64 * 64 // 128,
+        "u_shape": (2, 16, c, c),
         "v_shape": (16, p, c),
         "h_shape": (b, h, w, c),
+    }
+
+
+# K9a's routes (`s3od_winograd_conv`): the input transform and the GEMM,
+# two launches a chunk of tile rows through a V scratch; or one fused
+# launch, V computed in shared memory (blocks of 2 x 32 tiles x 128 output
+# channels; x's 6 x 80 pixel x 64 channel region by TMA).
+TWO_LAUNCH, FUSED = 0, 1
+FUSED_TILE_ROWS, FUSED_TILE_COLS = 2, 32
+FUSED_SMEM = (1024 + 2 * 8 * GEMM_TILES * GEMM_STAGE_CHANNELS * 2
+              + 2 * GEMM_STAGE_CHANNELS * GEMM_CHANNELS * 2
+              + (2 * FUSED_TILE_ROWS + 2) * 80 * GEMM_STAGE_CHANNELS * 2 + 9 * 8)
+FUSED_PRODUCERS = 2  # producer warpgroups: one thread loads U, the rest transform
+FUSED_CONSUMER_REGS, FUSED_PRODUCER_REGS = 200, 56
+
+
+def tma_layout(x: torch.Tensor) -> bool:
+    """Whether TMA can read x (B, H, W, C) as the fused route does: NCHW
+    or NHWC memory (W or C contiguous), the other strides multiples of 16
+    bytes, at a 16-byte aligned address (the transform's chunked modes)."""
+    sb, sh, sw, sc = x.stride()
+    if sw == 1:
+        minor_ok = x.shape[2] % 8 == 0 and sc % 8 == 0
+    elif sc == 1:
+        minor_ok = sw % 8 == 0
+    else:
+        return False
+    return minor_ok and sh % 8 == 0 and sb % 8 == 0 and x.data_ptr() % 16 == 0
+
+
+def conv_route(k: int, tma: bool = True) -> int:
+    """K9a's route at k output channels: fused where TMA can read x and
+    the transform runs at most twice a tile (k <= 256: one block owns 128
+    output channels), so V stays out of device memory; else the two
+    launches, which transform once for all k / 128 channel blocks of the
+    GEMM. Measured on the H100 at every gated shape: the fused route
+    matched the two launches at k = 256 and beat them at k = 128 (0.39
+    against 0.58 ms at 512^2 x 256 -> 128); at k = 512 the two launches
+    won (1.28 against 1.55 ms)."""
+    return FUSED if tma and k <= 2 * GEMM_CHANNELS else TWO_LAUNCH
+
+
+def conv_plan(b: int, h: int, w: int, c: int, k: int, tma: bool = True) -> dict:
+    """K9a's launches at x (b, h, w, c) -> k channels. Both routes first
+    transform the weights (U, (16, c, k) bf16 scratch, one launch).
+    Two launches: the batch's b (h/2) tile rows in chunks of `chunk_rows`
+    (whole images where one image's V fits `V_SCRATCH_BYTES`, else a part of
+    one), each an input transform into the V scratch and the Winograd
+    GEMM with the bias epilogue; the grids of a full chunk, the scratch V
+    (16, chunk tiles, c) bf16. Fused: one launch of 2 x 32 tiles x 128
+    channels a block, no V scratch. With the GEMM's shared memory and the
+    consumers' fp32 accumulator registers (a stage's product and the four
+    output accumulators; the two-launch GEMM also holds M)."""
+    route = conv_route(k, tma)
+    ht, wt = h // 2, w // 2
+    u_bytes = 16 * c * k * 2
+    if route == FUSED:
+        return {
+            "route": FUSED, "chunk_rows": b * ht, "chunks": 1,
+            "grid": (-(-wt // FUSED_TILE_COLS), -(-ht // FUSED_TILE_ROWS),
+                     b * (k // GEMM_CHANNELS)),
+            "smem": FUSED_SMEM, "acc_regs": 5 * 64 * 64 // 128,
+            "v_shape": (0,), "u_shape": (16, c, k),
+            "scratch_bytes": u_bytes,
+        }
+    row_bytes = 16 * wt * c * 2
+    if ht * row_bytes <= V_SCRATCH_BYTES:
+        rows = ht * min(b, V_SCRATCH_BYTES // (ht * row_bytes))
+    else:
+        rows = max(1, min(ht - 1, V_SCRATCH_BYTES // row_bytes))
+    tiles = rows * wt
+    return {
+        "route": TWO_LAUNCH,
+        "chunk_rows": rows,
+        "chunks": -(-(b * ht) // rows),
+        "transform_grid": _transform_grid(rows, ht, wt, c),
+        "gemm_blocks": -(-tiles // GEMM_TILES) * (k // GEMM_CHANNELS),
+        "smem": _gemm_smem(),
+        "acc_regs": 6 * 64 * 64 // 128,
+        "v_shape": (16, tiles, c),
+        "u_shape": (16, c, k),
+        "scratch_bytes": 16 * tiles * c * 2 + u_bytes,
     }
 
 
@@ -313,38 +420,60 @@ def check_rcu_inputs(x, w1, b1, w2, b2) -> None:
         raise ValueError("winograd_rcu kernel: bf16 inputs only")
     if (any(tuple(t.shape) != (3, 3, c, c) for t in (w1, w2))
             or any(tuple(t.shape) != (c,) for t in (b1, b2))
-            or h % 2 or wd % 2 or c % RCU_GEMM_CHANNELS or not x.numel()):
+            or h % 2 or wd % 2 or c % GEMM_CHANNELS or not x.numel()):
         raise ValueError(f"winograd_rcu kernel: unsupported x={tuple(x.shape)} "
                          f"w1={tuple(w1.shape)} w2={tuple(w2.shape)}")
     plan = rcu_plan(bsz, h, wd, c)
-    if (max(plan["transform_grid"][1:]) > 65535
+    if (max(plan["transform_grid"][1:]) > GRID_YZ
             or plan["gemm_blocks"] > 2**31 - 1):
         raise ValueError(f"winograd_rcu kernel: x={tuple(x.shape)} exceeds the grid")
 
 
-def winograd_conv(x, w, b):
-    """K9a: the 3x3/s1/p1 conv + bias through the Winograd domain.
-
-    CPU tensors take the plain version. CUDA tensors launch the kernel or
-    raise: bf16 x (B, H, W, C) with H and W even, C a multiple of 16; w
-    (3, 3, C, K) with K a multiple of 64; b (K,)."""
-    if x.device.type == "cpu":
-        return winograd_conv_plain(x, w, b)
+def check_conv_inputs(x, w, b) -> dict:
+    """Raise on inputs the K9a kernel does not take — bf16 x (B, H, W, C)
+    with H and W even and C a multiple of 64, w (3, 3, C, K) with K a
+    multiple of 128, b (K,), and the grid's limits — else return its
+    `conv_plan`. The copied rule admits only C and K multiples of 128."""
     bsz, h, wd, c = x.shape
     k = w.shape[-1]
     if x.dtype != torch.bfloat16:
         raise ValueError("winograd_conv kernel: bf16 inputs only")
     if (tuple(w.shape) != (3, 3, c, k) or tuple(b.shape) != (k,)
-            or h % 2 or wd % 2 or c % 16 or k % 64 or not x.numel()):
+            or h % 2 or wd % 2 or c % TRANSFORM_CHANNELS or k % GEMM_CHANNELS
+            or not x.numel()):
         raise ValueError(f"winograd_conv kernel: unsupported x={tuple(x.shape)} "
                          f"w={tuple(w.shape)} b={tuple(b.shape)}")
-    u = _u(w, x.dtype).contiguous()
+    plan = conv_plan(bsz, h, wd, c, k, tma=tma_layout(x))
+    grid = plan["grid" if plan["route"] == FUSED else "transform_grid"]
+    if max(grid[1:]) > GRID_YZ or bsz * (h // 2) * (wd // 2) > 2**31 - 1:
+        raise ValueError(f"winograd_conv kernel: x={tuple(x.shape)} exceeds the grid")
+    return plan
+
+
+def winograd_conv(x, w, b):
+    """K9a: the 3x3/s1/p1 conv + bias through the Winograd domain: U's
+    transform, then either one fused launch (k = 128) or, in chunks of
+    tile rows, an input transform into a bounded V scratch and the TMA +
+    wgmma Winograd GEMM (`conv_plan`).
+
+    CPU tensors take the plain version. CUDA tensors launch the kernels or
+    raise (`check_conv_inputs`)."""
+    if x.device.type == "cpu":
+        return winograd_conv_plain(x, w, b)
+    plan = check_conv_inputs(x, w, b)
+    bsz, h, wd, c = x.shape
+    k = w.shape[-1]
+    w = w.to(x.dtype)
     bias = b.to(x.dtype).contiguous()
+    ubuf = torch.empty(plan["u_shape"], dtype=x.dtype, device=x.device)
+    vbuf = torch.empty(plan["v_shape"], dtype=x.dtype, device=x.device)
     out = _empty_like_layout(x, k)
     lib = _build.load_library()
     code = lib.s3od_winograd_conv(
-        x.data_ptr(), u.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        bsz, c, h, wd, k, *x.stride(), *out.stride(), _build.stream_ptr(x))
+        x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        ubuf.data_ptr(), vbuf.data_ptr(), bsz, c, h, wd, k, plan["chunk_rows"],
+        plan["route"], *w.stride(), *x.stride(), *out.stride(),
+        _build.stream_ptr(x))
     _build.check(code, "winograd_conv")
     _build.count_launch(winograd_conv)
     return out
@@ -354,9 +483,9 @@ winograd_conv.launches = 0
 
 
 def winograd_rcu(x, w1, b1, w2, b2):
-    """K9b: x + conv2(relu(conv1(relu(x)) + b1)) + b2, one call of four
-    device launches (each conv: its input transform, then the Winograd
-    GEMM); the intermediate goes through a bf16 scratch tensor.
+    """K9b: x + conv2(relu(conv1(relu(x)) + b1)) + b2, one call of six
+    device launches (U1 and U2, then each conv's input transform and
+    Winograd GEMM); the intermediate goes through a bf16 scratch tensor.
 
     CPU tensors take the plain version. CUDA tensors launch the kernels or
     raise (`check_rcu_inputs`)."""
@@ -364,17 +493,19 @@ def winograd_rcu(x, w1, b1, w2, b2):
         return winograd_rcu_plain(x, w1, b1, w2, b2)
     check_rcu_inputs(x, w1, b1, w2, b2)
     bsz, h, wd, c = x.shape
-    u1, u2 = _u(w1, x.dtype).contiguous(), _u(w2, x.dtype).contiguous()
+    w1, w2 = w1.to(x.dtype), w2.to(x.dtype)
     b1, b2 = b1.to(x.dtype).contiguous(), b2.to(x.dtype).contiguous()
     plan = rcu_plan(bsz, h, wd, c)
+    ubuf = torch.empty(plan["u_shape"], dtype=x.dtype, device=x.device)
     hbuf = torch.empty(plan["h_shape"], dtype=x.dtype, device=x.device)
     vbuf = torch.empty(plan["v_shape"], dtype=x.dtype, device=x.device)
     out = _empty_like_layout(x, c)
     lib = _build.load_library()
     code = lib.s3od_winograd_rcu(
-        x.data_ptr(), u1.data_ptr(), b1.data_ptr(), u2.data_ptr(),
-        b2.data_ptr(), hbuf.data_ptr(), vbuf.data_ptr(), out.data_ptr(), bsz,
-        c, h, wd, *x.stride(), *out.stride(), _build.stream_ptr(x))
+        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        b2.data_ptr(), ubuf.data_ptr(), hbuf.data_ptr(), vbuf.data_ptr(),
+        out.data_ptr(), bsz, c, h, wd, *w1.stride(), *w2.stride(),
+        *x.stride(), *out.stride(), _build.stream_ptr(x))
     _build.check(code, "winograd_rcu")
     _build.count_launch(winograd_rcu)
     return out

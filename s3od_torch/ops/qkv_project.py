@@ -9,6 +9,11 @@ The weight is the fused nn.Linear-layout (3C, C) matrix — the q, k and v
 projection weights stacked — with the fused (3C,) bias whose key segment
 is zero (DINOv3 has no key bias). The TPU kernel's head-pair packing is a
 lane layout of the TPU and is not ported.
+
+Two kernels, chosen by an explicit dispatch on D in the C entry point
+(`kernel_route`): at D = 64 (ViT-B, ViT-L) a warp-specialised TMA +
+wgmma GEMM with the RoPE in its epilogue (`plan` mirrors its launch); at
+D = 32 (the tiny checkpoints) the mma.sync kernel.
 """
 
 from __future__ import annotations
@@ -17,6 +22,61 @@ import torch
 
 from s3od_torch import _build
 from s3od_torch.ops.autograd import plain_vjp
+
+# The D = 64 kernel's launch (`csrc/qkv_project.cu`), mirrored so that the
+# CPU tests can check it at the shapes the repo's configs give it.
+ROW_TILE = 128               # tokens of a tile: two consumer warpgroups
+K_TILE = 64                  # input channels a pipeline stage
+TILE_WIDTHS = (192, 128, 64)  # output columns of a tile: whole heads
+STAGES = 4
+PRODUCER_REGS, CONSUMER_REGS = 40, 232  # a producer and two consumer warpgroups
+SMS = 132                    # streaming multiprocessors of one H100 SXM
+MAX_SMEM = 232448            # bytes of shared memory one H100 block may use
+REGISTERS = 65536            # 32-bit registers of one SM
+
+
+def kernel_route(d: int) -> str:
+    """Which kernel the C entry point runs at head dim `d`."""
+    return {64: "wgmma", 32: "mma.sync"}.get(d, "none")
+
+
+def smem_bytes(bn: int) -> int:
+    """Dynamic shared memory of one block at tile width `bn`: 1024 bytes
+    of alignment slack, the ring of x (128 x 64) and W (bn x 64) bf16
+    stages, the two consumers' 64 x bn bf16 staging tiles, a full and an
+    empty mbarrier per stage."""
+    return (1024 + STAGES * (ROW_TILE + bn) * K_TILE * 2 + 2 * 64 * bn * 2
+            + 2 * STAGES * 8)
+
+
+def pick_bn(c: int, row_tiles: int, sms: int = SMS) -> int:
+    """The kernel's `pick_bn`: of the tile widths that divide c (so that a
+    tile holds whole heads of one of q, k, v), the one whose waves over
+    `sms` blocks cost least (waves x width), the wider on a tie."""
+    best, best_cost = 0, 0
+    for bn in TILE_WIDTHS:
+        if c % bn:
+            continue
+        cost = -(-(row_tiles * (3 * c // bn)) // sms) * bn
+        if best == 0 or cost < best_cost:
+            best, best_cost = bn, cost
+    return best
+
+
+def plan(b: int, n: int, c: int, sms: int = SMS) -> dict:
+    """The D = 64 launch at x (b, n, c): tiles of 128 tokens of one batch
+    element (`row_tiles` a batch element; the last reaches past N, whose
+    rows load as zeros and are not stored) by `bn` columns (`col_tiles`
+    over the 3C outputs), the persistent grid, K blocks, shared memory,
+    and the fp32 accumulator registers a consumer thread holds."""
+    row_tiles = -(-n // ROW_TILE)
+    bn = pick_bn(c, b * row_tiles, sms)
+    col_tiles = 3 * c // bn
+    tiles = b * row_tiles * col_tiles
+    return {"row_tiles": row_tiles, "bn": bn, "col_tiles": col_tiles,
+            "heads_per_tile": bn // 64, "tiles": tiles,
+            "grid": min(tiles, sms), "k_blocks": c // K_TILE,
+            "smem": smem_bytes(bn), "acc_regs": bn // 2}
 
 
 def rotate_half(t):
@@ -50,7 +110,7 @@ def qkv_project_rope(x, weight, bias, cos, sin, num_heads: int, scale: float):
 
     CPU tensors take the plain version. CUDA tensors launch the kernel or
     raise: bf16 x/weight/bias, fp32 tables, N and C multiples of 64,
-    C <= 1024, D in {32, 64}."""
+    C <= 1024, D in {32, 64} (`kernel_route`)."""
     if x.device.type == "cpu":
         return qkv_project_rope_plain(x, weight, bias, cos, sin, num_heads,
                                       scale)
@@ -59,23 +119,23 @@ def qkv_project_rope(x, weight, bias, cos, sin, num_heads: int, scale: float):
     if (x.dtype != torch.bfloat16 or weight.dtype != torch.bfloat16
             or bias.dtype != torch.bfloat16):
         raise ValueError("qkv_project_rope kernel: bf16 x, weight, bias only")
-    if n % 64 or c % 64 or c > 1024 or d * num_heads != c or d not in (32, 64):
+    if (n % 64 or c % 64 or c > 1024 or d * num_heads != c
+            or kernel_route(d) == "none"):
         raise ValueError(
             f"qkv_project_rope kernel: unsupported N={n} C={c} H={num_heads}")
     if weight.shape != (3 * c, c) or bias.shape != (3 * c,):
         raise ValueError("qkv_project_rope kernel: weight (3C, C), bias (3C,)")
     if cos.shape != (n, d) or sin.shape != (n, d) or cos.dtype != torch.float32:
         raise ValueError("qkv_project_rope kernel: fp32 (N, D) tables")
-    x = x.contiguous()
-    weight, bias = weight.contiguous(), bias.contiguous()
-    cos, sin = cos.contiguous(), sin.contiguous()
+    x, weight, bias, cos, sin = (_build.aligned16(t)
+                                 for t in (x, weight, bias, cos, sin))
     q, k, v = (torch.empty((b, num_heads, n, d), device=x.device,
                            dtype=x.dtype) for _ in range(3))
     lib = _build.load_library()
     code = lib.s3od_qkv_project_rope(
         x.data_ptr(), weight.data_ptr(), bias.data_ptr(), cos.data_ptr(),
         sin.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        b * n, n, c, num_heads, d, float(scale), _build.stream_ptr(x),
+        b, n, c, num_heads, d, float(scale), _build.stream_ptr(x),
     )
     _build.check(code, "qkv_project_rope")
     _build.count_launch(qkv_project_rope)

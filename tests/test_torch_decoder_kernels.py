@@ -84,6 +84,23 @@ def test_winograd_conv_plain_matches_pallas_interpret(kind):
 
 
 @pytest.mark.parametrize("kind", list(DTYPES))
+def test_winograd_conv_plain_matches_pallas_interpret_at_k128(kind):
+    """K9a at output_conv1's widths cut to size, (1, 16, 32, 256 -> 128):
+    the K = 128 shape that the fused route serves, C != K, four
+    64-channel chunks of x, a nonzero bias."""
+    from s3od_tpu.ops.experimental.winograd import conv3x3_winograd
+
+    rng = np.random.default_rng(13)
+    (xj, xt), (wj, wt), (bj, bt) = _inputs(
+        rng, kind, ((1, 16, 32, 256), 1.0), ((3, 3, 256, 128), 0.03),
+        ((128,), 0.1))
+    ref = _np(conv3x3_winograd(xj, {"kernel": wj, "bias": bj}, interpret=True))
+    got = tw.winograd_conv_plain(xt, wt, bt).float().numpy()
+    assert got.shape == (1, 16, 32, 128)
+    _check(kind, got, ref, 5e-6)
+
+
+@pytest.mark.parametrize("kind", list(DTYPES))
 def test_winograd_rcu_plain_matches_pallas_interpret(kind):
     """K9b at (2, 24, 32, 128): batch 2, three row blocks (th = 4), biases
     nonzero — so conv1's out-of-image ring must be zero, not relu(b1)."""
@@ -167,17 +184,97 @@ def test_winograd_rcu_kernel_takes_every_shape_the_rule_admits():
                     tw.check_rcu_inputs(x, wc, bc, wc, bc)
                     plan = tw.rcu_plan(b, h, w, c)
                     tiles, rows, planes = plan["transform_grid"]
-                    assert tiles * tw.RCU_TRANSFORM_TILES >= w // 2 and rows == h // 2
-                    assert planes * tw.RCU_TRANSFORM_CHANNELS == b * c <= 65535 * 64
-                    assert plan["gemm_blocks"] * tw.RCU_GEMM_TILES * tw.RCU_GEMM_CHANNELS \
+                    assert tiles * tw.TRANSFORM_TILES >= w // 2 and rows == h // 2
+                    assert planes * tw.TRANSFORM_CHANNELS == b * c <= 65535 * 64
+                    assert plan["gemm_blocks"] * tw.GEMM_TILES * tw.GEMM_CHANNELS \
                         >= b * (h // 2) * (w // 2) * c
                     assert plan["v_shape"] == (16, b * (h // 2) * (w // 2), c)
                     admitted += 1
     assert admitted >= 8  # the decoder's 1024^2 and 2048^2 RCUs among them
     assert tw.rcu_winograd_available(256, 256, 256)
     assert tw.rcu_plan(1, 256, 256, 256)["smem"] <= tw.MAX_SMEM
-    assert tw.rcu_plan(1, 256, 256, 256)["acc_regs"] + 32 <= tw.RCU_CONSUMER_REGS
-    assert 128 * tw.RCU_PRODUCER_REGS + 256 * tw.RCU_CONSUMER_REGS <= 65536
+    assert tw.rcu_plan(1, 256, 256, 256)["acc_regs"] + 32 <= tw.CONSUMER_REGS
+    assert 128 * tw.PRODUCER_REGS + 256 * tw.CONSUMER_REGS <= 65536
+
+
+# (label, B, H, W, C, K) of every K9a call on the main paths: the 1024^2
+# forward at batch 1 and 16, the 2048^2 forward (refinenet1's RCU convs
+# unchained there: 512^2, 256 -> 256, the shape of its layer1_rn), and the
+# training step's dx convs at batch 4 (layer1_rn's and the RCUs' 256 ->
+# 256, layer2_rn's 256 -> 512, output_conv1's 128 -> 256).
+K9A_CALLS = [
+    ("1024 layer1_rn", 1, 256, 256, 256, 256), ("1024 layer2_rn", 1, 128, 128, 512, 256),
+    ("1024 output_conv1", 1, 512, 512, 256, 128), ("1024 b16 layer1_rn", 16, 256, 256, 256, 256),
+    ("1024 b16 layer2_rn", 16, 128, 128, 512, 256), ("1024 b16 output_conv1", 16, 512, 512, 256, 128),
+    ("2048 layer1_rn", 1, 512, 512, 256, 256), ("2048 layer2_rn", 1, 256, 256, 512, 256),
+    ("2048 output_conv1", 1, 1024, 1024, 256, 128), ("dx layer1_rn b4", 4, 256, 256, 256, 256),
+    ("dx layer2_rn b4", 4, 128, 128, 256, 512), ("dx output_conv1 b4", 4, 512, 512, 128, 256),
+]
+
+
+@pytest.mark.parametrize("label,b,h,w,c,k", K9A_CALLS)
+def test_winograd_conv_plan_fits_the_card(label, b, h, w, c, k):
+    """The Python mirror of K9a's launches at each call of the main paths
+    (x in NCHW memory, which TMA reads): the route (fused at K <= 256,
+    else the two launches), blocks covering every tile and output channel,
+    shared memory within a block's, the consumers' accumulators within
+    their setmaxnreg share beside the producers', and the scratch: U
+    alone on the fused route; on the two launches V in chunks of tile rows
+    within V_SCRATCH_BYTES that cover the batch. The same call on strides
+    TMA cannot read takes the two launches."""
+    ht, wt = h // 2, w // 2
+    assert tw.winograd_available(h, w, c, k)
+    u_bytes = 16 * c * k * 2
+    for tma in (True, False):
+        plan = tw.conv_plan(b, h, w, c, k, tma=tma)
+        fused = tma and k <= 2 * tw.GEMM_CHANNELS
+        assert plan["route"] == (tw.FUSED if fused else tw.TWO_LAUNCH)
+        assert plan["smem"] <= tw.MAX_SMEM
+        if fused:
+            gx, gy, gz = plan["grid"]
+            assert gx * tw.FUSED_TILE_COLS >= wt > (gx - 1) * tw.FUSED_TILE_COLS
+            assert gy * tw.FUSED_TILE_ROWS >= ht and gy <= tw.GRID_YZ
+            assert gz * tw.GEMM_CHANNELS == b * k and gz <= tw.GRID_YZ
+            assert plan["scratch_bytes"] == u_bytes
+            assert plan["acc_regs"] + 32 <= tw.FUSED_CONSUMER_REGS
+            assert (128 * tw.FUSED_PRODUCERS * tw.FUSED_PRODUCER_REGS
+                    + 256 * tw.FUSED_CONSUMER_REGS <= 65536)
+        else:
+            rows = plan["chunk_rows"]
+            assert rows < ht or rows % ht == 0
+            assert plan["chunks"] * rows >= b * ht > (plan["chunks"] - 1) * rows
+            assert plan["v_shape"] == (16, rows * wt, c)
+            v_bytes = 16 * rows * wt * c * 2
+            assert v_bytes <= tw.V_SCRATCH_BYTES and plan["scratch_bytes"] == v_bytes + u_bytes
+            tiles, rows_y, planes = plan["transform_grid"]
+            assert tiles * tw.TRANSFORM_TILES >= wt and rows_y == min(rows, ht)
+            assert planes * tw.TRANSFORM_CHANNELS == -(-rows // rows_y) * c <= tw.GRID_YZ * 64
+            assert plan["gemm_blocks"] * tw.GEMM_TILES * tw.GEMM_CHANNELS >= rows * wt * k
+            assert plan["acc_regs"] + 32 <= tw.CONSUMER_REGS
+    if label.startswith("1024 b16") or label == "2048 layer1_rn":
+        # V of the whole call would take 256 MiB to 2 GiB: the fused route
+        # needs none, and the two launches bound it
+        assert 16 * b * ht * wt * c * 2 >= tw.V_SCRATCH_BYTES
+
+
+def test_winograd_conv_kernel_takes_every_shape_the_rule_admits():
+    """Every (H, W, C, K) the copied rule sends to K9a, at batch 1 and 16,
+    passes the wrapper's input check (on meta tensors, which need no card)
+    in NHWC memory and as an NHWC view of NCHW memory."""
+    sizes = (16, 32, 64, 112, 128, 256, 512, 1024)
+    admitted = 0
+    for h in sizes:
+        for w in sizes:
+            for c, k in ((128, 128), (256, 128), (256, 256), (512, 256), (256, 512)):
+                if not tw.winograd_available(h, w, c, k):
+                    continue
+                for b in (1, 16):
+                    wc, bc = _meta(3, 3, c, k), _meta(k)
+                    for x in (_meta(b, h, w, c), _meta(b, c, h, w).permute(0, 2, 3, 1)):
+                        plan = tw.check_conv_inputs(x, wc, bc)
+                        assert plan["route"] == tw.conv_route(k, tw.tma_layout(x))
+                    admitted += 1
+    assert admitted >= 12
 
 
 def _relaxed(h, w, c, *a, **kw):

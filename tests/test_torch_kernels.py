@@ -378,6 +378,48 @@ def test_mlp_kernel_plan_fits_the_card(rows, c, f):
         assert (plan["down"]["bn"], plan["down"]["tiles"]) == (192, 132)
 
 
+# (B, N, C) that K2 meets at D = 64: ViT-B at 1024^2 batch 1 and 16 (4101
+# tokens padded to 4160), at 2048^2 (16448), and the ViT-L teacher (C =
+# 1024, 16 heads).
+K2_SHAPES = [(1, 4160, 768), (16, 4160, 768), (1, 16448, 768), (1, 4160, 1024)]
+
+
+@pytest.mark.parametrize("b,n,c", K2_SHAPES)
+def test_qkv_kernel_plan_fits_the_card(b, n, c):
+    """The Python mirror of K2's D = 64 launch: tiles of 128 tokens of one
+    batch element (the last one past N, whose rows load as zeros and are
+    not stored) by whole heads of one of q, k, v (the width divides C),
+    every tile in the persistent grid of at most one block an SM, the ring
+    and staging tiles within a block's shared memory, the accumulators
+    within the consumers' registers beside the producer's."""
+    plan = qp.plan(b, n, c)
+    assert (plan["row_tiles"] - 1) * qp.ROW_TILE < n <= plan["row_tiles"] * qp.ROW_TILE
+    assert plan["bn"] in qp.TILE_WIDTHS and c % plan["bn"] == 0
+    assert plan["col_tiles"] * plan["bn"] == 3 * c
+    assert plan["heads_per_tile"] * 64 == plan["bn"]
+    assert plan["tiles"] == b * plan["row_tiles"] * plan["col_tiles"]
+    assert 0 < plan["grid"] <= min(plan["tiles"], qp.SMS)
+    assert plan["k_blocks"] * qp.K_TILE == c
+    assert plan["smem"] <= qp.MAX_SMEM
+    assert plan["acc_regs"] + 96 <= qp.CONSUMER_REGS
+    assert 128 * qp.PRODUCER_REGS + 2 * 128 * qp.CONSUMER_REGS <= qp.REGISTERS
+    if (b, n, c) == (1, 4160, 768):  # ViT-B 1024^2 b1: 33 x 12 tiles, 3 waves
+        assert (plan["row_tiles"], plan["bn"], plan["tiles"]) == (33, 192, 396)
+
+
+def test_qkv_kernel_route_dispatches_on_head_dim():
+    """The C entry point's dispatch: D = 64 takes the wgmma kernel, D = 32
+    (the tiny checkpoints) the mma.sync kernel, and any other D
+    neither: the wrapper raises before a launch."""
+    assert qp.kernel_route(64) == "wgmma"
+    assert qp.kernel_route(32) == "mma.sync"
+    assert qp.kernel_route(128) == qp.kernel_route(16) == "none"
+    with pytest.raises(ValueError):
+        qp.qkv_project_rope(_meta(1, 64, 256), _meta(768, 256), _meta(768),
+                            _meta(64, 16, dtype=torch.float32),
+                            _meta(64, 16, dtype=torch.float32), 16, 0.25)
+
+
 # (BH, N, D, n_valid) that K7 meets: the MMDiT's joint sequence at 1024^2,
 # the concept stream (4098 -> 4160, an odd multiple of 64), the 832 x 1024
 # bucket, ViT-L at D = 64, and the CUDA test's 320 = 5 x 64.
@@ -727,12 +769,14 @@ def test_flash_attention_online_matches_plain_on_cuda(cuda, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", ["nchw", "nhwc"])
-def test_decoder_kernels_match_plain_on_cuda(cuda, layout):
+def test_decoder_kernels_match_plain_on_cuda(cuda, layout, monkeypatch):
     """K9a, K9b and K10 against their plain versions in bf16, on NCHW
     memory seen through an NHWC view (the decoder's call) and on NHWC
     memory; shapes with ragged blocks (a partial tile-column block, rows
     not a multiple of the block), batch 2, nonzero biases; one launch
-    counted per call, the output in the input's memory order."""
+    counted per call, the output in the input's memory order. K9a on both
+    routes: fused at K = 128, the two launches at K = 384, in chunks of
+    part of an image (a V scratch of 5 tile rows) and of whole images."""
     from s3od_torch.ops.experimental import mask_tail as tm
     from s3od_torch.ops.experimental import winograd as tw
 
@@ -747,12 +791,16 @@ def test_decoder_kernels_match_plain_on_cuda(cuda, layout):
         return r(b, h, w, c, scale=scale)
 
     x = act(2, 38, 136, 128)
-    w, bias = r(3, 3, 128, 192, scale=0.05), r(192, scale=0.1)
-    before = tw.winograd_conv.launches
-    y = tw.winograd_conv(x, w, bias)
-    assert tw.winograd_conv.launches == before + 1
-    assert y.permute(0, 3, 1, 2).is_contiguous() == (layout == "nchw")
-    _close([y], [tw.winograd_conv_plain(x, w, bias)])
+    for k, v_rows in ((128, 5), (384, 5), (384, 2 * 19)):
+        monkeypatch.setattr(tw, "V_SCRATCH_BYTES", 16 * v_rows * 68 * 128 * 2)
+        plan = tw.conv_plan(2, 38, 136, 128, k, tma=tw.tma_layout(x))
+        assert plan["route"] == (tw.FUSED if k == 128 else tw.TWO_LAUNCH)
+        w, bias = r(3, 3, 128, k, scale=0.05), r(k, scale=0.1)
+        before = tw.winograd_conv.launches
+        y = tw.winograd_conv(x, w, bias)
+        assert tw.winograd_conv.launches == before + 1
+        assert y.permute(0, 3, 1, 2).is_contiguous() == (layout == "nchw")
+        _close([y], [tw.winograd_conv_plain(x, w, bias)])
     for c in (128, 256):
         x = act(2, 34, 60, c)
         w1, w2 = r(3, 3, c, c, scale=0.03), r(3, 3, c, c, scale=0.03)
@@ -803,7 +851,10 @@ def test_winograd_rcu_matches_plain_on_cuda(cuda, layout):
 @pytest.mark.cuda
 def test_winograd_conv_dx_runs_the_kernel_on_cuda(cuda):
     """K9a's autograd on the card: dx through K9a where the rule admits
-    the gradient's shape, against the plain version's dx."""
+    the gradient's shape, against the plain version's dx — on the fused
+    route (a 128 -> 128 conv, dx 128 -> 128) and on the two launches (a
+    512 -> 256 conv, whose dx is 256 -> 512), with ||d|| / ||plain||
+    within chip_smoke.py's DEC_CALL_TOL (1.5e-4)."""
     from s3od_torch.ops.experimental import winograd as tw
 
     gen = torch.Generator(device=cuda).manual_seed(5)
@@ -817,11 +868,19 @@ def test_winograd_conv_dx_runs_the_kernel_on_cuda(cuda):
     y = tw.conv3x3_winograd(x, {"kernel": w, "bias": b})
     (dx,) = torch.autograd.grad(y, x, g)
     assert tw.winograd_conv.launches == before + 1  # 32 wide: dx by cuDNN
-    x2 = r(1, 128, 16, 128).permute(0, 2, 3, 1).requires_grad_()
-    y2 = tw.conv3x3_winograd(x2, {"kernel": w, "bias": b})
-    g2 = r(*y2.shape)
-    (dx2,) = torch.autograd.grad(y2, x2, g2)
-    assert tw.winograd_conv.launches == before + 3  # forward and dx
-    w_t = w.flip(0, 1).transpose(2, 3)
-    _close([dx2], [tw.winograd_conv_plain(g2, w_t, torch.zeros_like(b))])
+    for c, k, route in ((128, 128, tw.FUSED), (512, 256, tw.TWO_LAUNCH)):
+        w, b = r(3, 3, c, k, scale=0.05), r(k, scale=0.1)
+        x2 = r(2, c, 16, 128).permute(0, 2, 3, 1).requires_grad_()
+        assert tw.winograd_available(16, 128, k, c)
+        assert tw.conv_plan(2, 16, 128, k, c)["route"] == route
+        before = tw.winograd_conv.launches
+        y2 = tw.conv3x3_winograd(x2, {"kernel": w, "bias": b})
+        g2 = r(*y2.shape)
+        (dx2,) = torch.autograd.grad(y2, x2, g2)
+        assert tw.winograd_conv.launches == before + 2  # forward and dx
+        w_t = w.flip(0, 1).transpose(2, 3)
+        ref = tw.winograd_conv_plain(g2, w_t, torch.zeros(c, device=cuda))
+        _close([dx2], [ref])
+        nrm = float((dx2.float() - ref.float()).norm() / ref.float().norm())
+        assert nrm <= 1.5e-4, nrm
     torch.cuda.synchronize()
