@@ -3,10 +3,17 @@
 
     python3 chip_smoke.py
 
+    python3 chip_smoke.py --turns DIR   # also times the parent's K4 and E2
+
 Builds the port's kernels from `s3od_torch/csrc` (one nvcc per source,
 all started together) and the Triton kernel, then:
   1. checks each kernel (K1-K6) against its plain PyTorch version in bf16
-     (K5, two wgmma GEMMs a call, also at ViT-B b4, ViT-L, ViT-S and the
+     (K4, the cluster wgmma kernel, at ViT-B b1, b16 and 2048^2, ViT-L,
+     ViT-S, D = 32 and on rows of near-zero variance, x' and h by max
+     error and relative norm, with planted x' x 1.01 and h x 1.01 caught,
+     timed by CUDA events beside the unfused route; K1
+     by relative norm too;
+     K5, two wgmma GEMMs a call, also at ViT-B b4, ViT-L, ViT-S and the
      tiny widths, each launch against its plain half, with a planted
      hidden x 1.01 caught; K2 at ViT-B b1 and b16, ViT-L and D = 32, by
      max error and relative norm, with a planted q x 1.01 caught, timed
@@ -85,7 +92,9 @@ all started together) and the Triton kernel, then:
      variants), E4 (single-block variants with lse), E3a (the base-2
      static-bound forward, at the DIS and the ViT shape), E3b (the
      exponential throughput loop) and E2 (the single-pass LayerNorm,
-     Triton). Each main compares every variant's kernel with its plain
+     CUDA: also by relative norm with a planted y x 1.01 caught, and timed
+     with F.layer_norm by one clock, warm and with L2 flushed, 5 readings
+     each, the clocks sampled around them). Each main compares every variant's kernel with its plain
      version and times both; the phase holds those numbers to the limits
      (E3b bit-equal, also at 1-4 steps, where exp and exp2 stay finite),
      adds bounds, the exponentials' time and SDPA or F.layer_norm on the
@@ -105,6 +114,12 @@ all started together) and the Triton kernel, then:
      per attention call (a planted K7 fault, o x 1.01, must fail the
      per-call check), and 2 dual + 4 single blocks at full width in bf16
      against fp32 exact.
+
+With `--turns DIR`, DIR holds the parent commit's
+`s3od_torch/csrc/attn_epilogue.cu` and `s3od_torch/experiments/exp_layernorm.py`
+(not in the repository; e.g. `git show <parent>:<path>`): the run builds
+them beside the library and times each in turns with the kernel that
+replaced it (old / new / new / old, CUDA events).
 
 Any failed check raises, so the run exits non-zero, as does a run that
 loaded jax or any module of s3od_tpu. Without a CUDA device, or outside
@@ -154,8 +169,7 @@ KERNELS = {
                       "s3od_tpu/ops/experimental/mask_tail.py:138"),
     "E1_flash_softmax": ("cuda", "s3od_torch/csrc/exp_flash_variants.cu",
                          "benchmarks/exp_flash_softmax.py:83"),
-    "E2_layer_norm_single_pass": ("triton",
-                                  "s3od_torch/experiments/exp_layernorm.py",
+    "E2_layer_norm_single_pass": ("cuda", "s3od_torch/csrc/exp_layernorm.cu",
                                   "benchmarks/exp_layernorm.py:92"),
     "E3_exp2_flash": ("cuda", "s3od_torch/csrc/exp_flash_variants.cu",
                       "benchmarks/exp_exp2.py:124"),
@@ -178,11 +192,18 @@ FLASH_NORM_TOL = 5e-3  # ||kernel o - plain o|| / ||plain o|| of K3/K6 per call:
                   # the two round the same fp32 sums to bf16, which differ in
                   # order only; half the planted o x 1.01 (1.0e-2), which
                   # REL_TOL alone sits on the edge of
+LN_NORM_TOL = 5e-3  # ||kernel - plain|| / ||plain|| of K4's x' and h, K1's
+                  # and E2's y per call: the two round the same fp32 values,
+                  # summed in another order, to bf16 (K4 ~4e-5, E2 ~1.4e-5 on
+                  # the H100); half the planted x 1.01 (1.0e-2), which
+                  # REL_TOL alone sits on the edge of (as on K3 and K2)
 BEST_TOL = 1 / 510 + 2.0**-9 + 1e-6  # payload "best" vs "full": the uint8
                   # step plus one bf16 rounding of a sigmoid in [0.5, 1)
 BATCH_TOL = 1e-2  # batch vs single image: max|d| of masks and IoU scores,
                   # ||d|| / ||single|| of the encoder taps
 B16 = 16          # remove_background_batch's chunk: the batch-16 shapes
+SPIN_CYCLES = 400_000  # `held_ms`: ~0.2 ms of spin a call, above the host's
+                  # enqueue of one wrapped launch (<= 0.09 ms measured on the H100 host)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -233,6 +254,42 @@ def run_ms(fn, iters: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def held_ms(fn, iters: int = 20, flush=None) -> float:
+    """Device time of one call by CUDA events with the host's launch cost
+    kept out: a spin kernel (`torch.cuda._sleep`) holds the card while the
+    host enqueues the events and calls, so they run back to back. Warm:
+    `iters` calls back to back after warm-up. With `flush` (a tensor of
+    at least 128 MB): each call alone after writing it, which evicts the
+    50 MB L2, and the mean over `iters` calls. Where the host's enqueue of
+    a call outlasts the call (small kernels, slow hosts), `run_ms` and
+    `cuda_ms` read the host instead."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    if flush is None:
+        torch.cuda._sleep(SPIN_CYCLES * iters)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+    total = 0.0
+    for _ in range(iters):
+        flush.fill_(1.0)
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
 
 
 def device_ms(fn, iters: int = 20) -> float:
@@ -432,7 +489,6 @@ def kernel_phases(results):
 
     from s3od_torch import _build
     from s3od_torch.models.dinov3 import _full_tables
-    from s3od_torch.ops import attn_epilogue as ae
     from s3od_torch.ops import flash_attention as fa
     import torch.nn.functional as F
 
@@ -454,13 +510,13 @@ def kernel_phases(results):
     x = randn(n, c, scale=2.0, shift=0.5)
     w, b = randn(c, scale=0.5, shift=1.0), randn(c, scale=0.2)
     compare("K1_layer_norm", ln.layer_norm(x, w, b, 1e-5),
-            ln.layer_norm_plain(x, w, b, 1e-5), results)
+            ln.layer_norm_plain(x, w, b, 1e-5), results, norm_tol=LN_NORM_TOL)
     check((_build.build_dir() / "triton").is_dir(),
           "Triton's cache must land in the build directory")
     x16 = randn(B16 * n, c, scale=2.0, shift=0.5)
     log(f"  at the batch-16 shape ({B16 * n} x {c})")
     compare("K1_layer_norm", ln.layer_norm(x16, w, b, 1e-5),
-            ln.layer_norm_plain(x16, w, b, 1e-5), results)
+            ln.layer_norm_plain(x16, w, b, 1e-5), results, norm_tol=LN_NORM_TOL)
     time_pair("K1_layer_norm", lambda: ln.layer_norm(x, w, b, 1e-5),
               lambda: ln.layer_norm_plain(x, w, b, 1e-5), results)
     results["K1_layer_norm"]["library_ms"] = device_ms(
@@ -513,39 +569,25 @@ def kernel_phases(results):
     set_bound(results, name, 4.0 * h * n * n * d,
               4 * 2 * h * n * d + 4 * h * n)
 
-    # K4
-    log("phase K4 attn_epilogue (12 x 4160 x 64 -> 2 x (1, 4160, 768))")
-    a = randn(h, n, d, scale=0.5)
-    wo, bo = randn(c, c, scale=0.02), randn(c, scale=0.1)
-    x = randn(1, n, c)
-    ls, lw, lb = randn(c, scale=0.5, shift=1.0), randn(c, scale=0.5, shift=1.0), \
-        randn(c, scale=0.2)
-    args = (a, wo, bo, x, ls, lw, lb, 1e-5)
-    compare("K4_attn_epilogue", ae.attn_epilogue(*args),
-            ae.attn_epilogue_plain(*args), results)
-    args16 = (randn(B16 * h, n, d, scale=0.5), wo, bo, randn(B16, n, c)) + args[4:]
-    log(f"  at the batch-16 shape ({B16 * h} x {n} x {d} -> {B16} x {n} x {c})")
-    compare("K4_attn_epilogue", ae.attn_epilogue(*args16),
-            ae.attn_epilogue_plain(*args16), results)
-    time_pair("K4_attn_epilogue", lambda: ae.attn_epilogue(*args),
-              lambda: ae.attn_epilogue_plain(*args), results)
-    results["K4_attn_epilogue"]["library_ms"] = None  # no one call fuses it
-    set_bound(results, "K4_attn_epilogue", 2.0 * n * c * c,
-              2 * h * n * d + 2 * c * c + 3 * 2 * n * c + 4 * 2 * c)
+    # K4: each shape of the repo's configs and rows of near-zero variance,
+    # x' and h held by max and relative norm, planted x' and h faults
+    # caught; the kernel, the parent's kernel (with --turns) and the unfused
+    # route timed; the 2048^2 shape is among them
+    k4_phase(results, randn, n, c, h, d, dev)
 
     # K5: two wgmma GEMMs a call; each shape of the repo's configs, each
     # launch against its plain half, a planted hidden fault
     f = 4 * c
     k5_phase(results, randn, n, c, f)
 
-    # K1, K2, K4, K5 at the 2048^2 path's shapes: 16448 rows, RoPE on the
-    # 128 x 128 patch grid (K2 and K4 index by n and the RoPE tables)
+    # K1, K2, K5 at the 2048^2 path's shapes (K4's are in `k4_phase`):
+    # 16448 rows, RoPE on the 128 x 128 patch grid
     n2_valid = 16389
     n2 = fa.flash_seq_len(n2_valid)
-    log(f"phase K1, K2, K4, K5 at the 2048^2 shapes ({n2} tokens)")
+    log(f"phase K1, K2, K5 at the 2048^2 shapes ({n2} tokens)")
     x2 = randn(n2, c, scale=2.0, shift=0.5)
     compare("K1_layer_norm", ln.layer_norm(x2, w, b, 1e-5),
-            ln.layer_norm_plain(x2, w, b, 1e-5), results)
+            ln.layer_norm_plain(x2, w, b, 1e-5), results, norm_tol=LN_NORM_TOL)
     cos2, sin2 = _full_tables(128, 128, d, 100.0, 5, n2, dev)
     args2 = (randn(1, n2, c), wq, bq, cos2, sin2, h, d**-0.5)
     compare("K2_qkv_project_rope", qp.qkv_project_rope(*args2),
@@ -554,10 +596,6 @@ def kernel_phases(results):
         "ms": run_ms(lambda: qp.qkv_project_rope(*args2), 10),
         "library_ms": run_ms(lambda: F.linear(args2[0], wq, bq), 10)}
     log(f"  K2 at 2048^2 (CUDA events): {results['K2_qkv_project_rope']['at_2048']}")
-    args2 = (randn(h, n2, d, scale=0.5), wo, bo, randn(1, n2, c), ls, lw, lb,
-             1e-5)
-    compare("K4_attn_epilogue", ae.attn_epilogue(*args2),
-            ae.attn_epilogue_plain(*args2), results)
     wu, bu = randn(f, c, scale=0.02), randn(f, scale=0.1)
     wd, bd = randn(c, f, scale=0.02), randn(c, scale=0.1)
     ls2 = randn(c, scale=0.5, shift=1.0)
@@ -684,6 +722,184 @@ def k2_phase(results, randn, n, c, h, d, dev):
     log(f"  K2 profiler device time {r['profiler_ms']:.4f} ms (F.linear "
         f"{r['library_profiler_ms']:.4f}); bound {r['bound_ms']:.4f} ms by {r['bound_by']}")
     return args[1], args[2]
+
+
+# The parent commit's K4 and E2 sources (`--turns DIR`), to time each
+# redesigned kernel in turns with the kernel it replaced; None without.
+TURNS: Path | None = None
+
+
+def turns_k4():
+    """The parent's K4 entry point, built from TURNS/attn_epilogue.cu
+    beside the library (its C symbol renamed), or None."""
+    import ctypes
+
+    from s3od_torch import _build
+
+    if TURNS is None:
+        return None
+    src = TURNS / "attn_epilogue_parent.cu"
+    src.write_text((TURNS / "attn_epilogue.cu").read_text().replace(
+        "s3od_attn_epilogue(", "s3od_attn_epilogue_parent("))
+    so = TURNS / "libparent.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
+                    str(_build.CSRC), "-o", str(so), str(src)], check=True,
+                   capture_output=True)
+    fn = ctypes.CDLL(str(so)).s3od_attn_epilogue_parent
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def call(a, wo, bo, x, ls, lw, lb, eps):
+        import torch
+
+        b, n, c = x.shape
+        h = a.shape[0] // b
+        xn, hn = torch.empty_like(x), torch.empty_like(x)
+        code = fn(a.data_ptr(), wo.data_ptr(), bo.data_ptr(), x.data_ptr(),
+                  ls.data_ptr(), lw.data_ptr(), lb.data_ptr(), xn.data_ptr(),
+                  hn.data_ptr(), b, n, c, h, c // h, float(eps),
+                  _build.stream_ptr(x))
+        _build.check(code, "the parent's attn_epilogue")
+        return xn, hn
+
+    return call
+
+
+def turns_e2():
+    """The parent's E2 wrapper (Triton), from TURNS/exp_layernorm.py, or
+    None."""
+    import importlib.util
+
+    if TURNS is None:
+        return None
+    spec = importlib.util.spec_from_file_location(
+        "exp_layernorm_parent", TURNS / "exp_layernorm.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.layer_norm_single_pass
+
+
+def planted_out(name, got, ref, which, tol):
+    """The comparison must fail on output `which` x 1.01."""
+    bad = list(got)
+    bad[which] = (got[which].float() * 1.01).to(got[which].dtype)
+    try:
+        compare(f"{name} (planted out{which} x 1.01)", bad, ref, {},
+                norm_tol=tol)
+    except RuntimeError as err:
+        log(f"  planted out{which} x 1.01 caught: {err}")
+        return
+    check(False, f"{name}: the planted out{which} x 1.01 went unnoticed")
+
+
+def turns(fns, clock, rounds=2):
+    """`clock(fn)` of each callable in turns: the order, then the reverse,
+    `rounds` times over (a / b / b / a)."""
+    out = {k: [] for k in fns}
+    order = list(fns)
+    for i in range(2 * rounds):
+        for k in (order if i % 2 == 0 else order[::-1]):
+            out[k].append(clock(fns[k]))
+    return out
+
+
+def k4_phase(results, randn, n, c, h, d, dev):
+    """K4 against its plain version at ViT-B 1024^2 b1 and b16, 2048^2,
+    ViT-L (C = 1024, 16 heads), ViT-S (C = 384, 6 heads), the tiny
+    checkpoints' D = 32 (the mma.sync kernel) and ViT-B rows of near-zero
+    variance (x = 3 + 1e-3 noise, Wo ~ 1e-5: the variance clamp and the
+    cross-block sums matter most there), x' and h each by max error and
+    relative norm, one launch counted a call; planted x' x 1.01 and h x
+    1.01 caught at b1. Then, at b1, b16 and 2048^2, the kernel, the
+    parent's kernel (with --turns) and the unfused route (head permute, F.linear,
+    mul-add, F.layer_norm: a yardstick, no one PyTorch call computes K4)
+    by CUDA events in turns, both with the card held while the host
+    enqueues (`held_ms`, the device's time: the row's `ms`) and around
+    plain back-to-back calls (`run_ms`, which follows the host at b1); the
+    profiler's device time at b1, the plain version and the bound."""
+    import torch.nn.functional as F
+
+    from s3od_torch.ops import attn_epilogue as ae
+
+    name = "K4_attn_epilogue"
+
+    def inputs(b, nn, cc, hh, flat=False):
+        dd = cc // hh
+        a = randn(b * hh, nn, dd, scale=0.5)
+        wo, bo = randn(cc, cc, scale=1e-5 if flat else 0.02), randn(cc, scale=0.1)
+        x = randn(b, nn, cc, scale=1e-3, shift=3.0) if flat else randn(b, nn, cc)
+        ls, lw = randn(cc, scale=0.5, shift=1.0), randn(cc, scale=0.5, shift=1.0)
+        return (a, wo, bo, x, ls, lw, randn(cc, scale=0.2), 1e-5)
+
+    def unfused(a, wo, bo, x, ls, lw, lb, eps):
+        b, nn, cc = x.shape
+        a2 = a.view(b, a.shape[0] // b, nn, -1).permute(0, 2, 1, 3).reshape(b, nn, cc)
+        xn = x + F.linear(a2, wo, bo) * ls
+        return xn, F.layer_norm(xn, (cc,), lw, lb, eps)
+
+    n2 = 16448
+    args = inputs(1, n, c, h)
+    cases = {"ViT-B 1024^2 b1": args, "ViT-B 1024^2 b16": inputs(B16, n, c, h),
+             "ViT-B 2048^2 b1": inputs(1, n2, c, h),
+             "ViT-L 1024^2 b1": inputs(1, n, 1024, 16),
+             "ViT-S 1024^2 b1": inputs(1, n, 384, 6),
+             "tiny, D = 32": inputs(2, n, 64, 2),
+             "ViT-B b1, near-zero variance rows": inputs(1, n, c, h, flat=True)}
+    r = results.setdefault(name, {"max_abs_err": 0.0})
+    for label, a in cases.items():
+        b, nn, cc = a[3].shape
+        dd = cc // (a[0].shape[0] // b)
+        plan = ae.plan(b, nn, cc, dd)
+        log(f"phase K4 attn_epilogue ({label}: {b * cc // dd} x {nn} x {dd} -> 2 x "
+            f"({b}, {nn}, {cc}); the {plan['route']} kernel"
+            + (f": {plan['row_tiles']} row tiles, {plan['blocks']} blocks of "
+               f"{plan['block_cols']} columns, {plan['consumers']} consumer warpgroups, "
+               f"{plan['stages']} stages, {plan['smem']} B of shared memory)"
+               if dd == 64 else ")"))
+        before = ae.attn_epilogue.launches
+        got = ae.attn_epilogue(*a)
+        check(ae.attn_epilogue.launches == before + 1, "K4 counts one launch a call")
+        ref = ae.attn_epilogue_plain(*a)
+        compare(name, got, ref, results, norm_tol=LN_NORM_TOL)
+        if label == "ViT-B 1024^2 b1":
+            planted_out(name, got, ref, 0, LN_NORM_TOL)
+            planted_out(name, got, ref, 1, LN_NORM_TOL)
+        del got, ref
+    parent = turns_k4()
+    timed = {}
+    for label, key, iters in (("ViT-B 1024^2 b1", "b1", 20), ("ViT-B 1024^2 b16", "b16", 5),
+                              ("ViT-B 2048^2 b1", "2048", 10)):
+        a = cases[label]
+        fns = {"parent": lambda: parent(*a)} if parent is not None else {}
+        fns["kernel"] = lambda: ae.attn_epilogue(*a)
+        fns["unfused"] = lambda: unfused(*a)
+        timed[key] = {}
+        for clock, ck in ((lambda fn: held_ms(fn, iters), "held"),
+                          (lambda fn: run_ms(fn, iters), "events")):
+            t = turns(fns, clock)
+            timed[key][ck] = {k: statistics.median(v) for k, v in t.items()}
+            timed[key][ck + "_readings"] = t
+            log(f"  K4 {key} ({ck}: CUDA events" + (", the card held while the host "
+                "enqueues" if ck == "held" else ", back to back") + "; in turns, median): "
+                + ", ".join(f"{k} {timed[key][ck][k]:.4f}" for k in fns) + f"; readings {t}")
+    del cases
+    r["ms"] = timed["b1"]["held"]["kernel"]
+    r["event_ms"] = timed["b1"]["events"]["kernel"]
+    r["profiler_ms"] = device_ms(lambda: ae.attn_epilogue(*args))
+    r["plain_ms"] = run_ms(lambda: ae.attn_epilogue_plain(*args), 5)
+    r["plain_event_ms"] = r["plain_ms"]
+    r["library_ms"] = None  # no one PyTorch call computes K4
+    r["unfused_ms"] = timed["b1"]["held"]["unfused"]
+    r["unfused_profiler_ms"] = device_ms(lambda: unfused(*args))
+    r["timed"] = timed
+    set_bound(results, name, 2.0 * n * c * c,
+              2 * h * n * d + 2 * c * c + 3 * 2 * n * c + 4 * 2 * c)
+    r["b16_bound_ms"] = (2 * B16 * h * n * d + 2 * c * c + 3 * 2 * B16 * n * c
+                         + 4 * 2 * c) / HBM * 1e3
+    log(f"  K4 b1 {r['ms']:.4f} ms (held), profiler {r['profiler_ms']:.4f} ms (unfused route "
+        f"{r['unfused_profiler_ms']:.4f}); plain {r['plain_ms']:.4f}; bound "
+        f"{r['bound_ms']:.4f} ms by {r['bound_by']} (b16 {r['b16_bound_ms']:.4f})")
 
 
 # ||launch - plain half|| / ||plain half|| of each K5 launch on its own
@@ -1019,6 +1235,69 @@ def e_fold(results, name, variants, row_variant):
     r["max_abs_err"] = max(v["max_abs_err"] for v in variants.values())
 
 
+def smi_clocks() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+
+
+def e2_clock(xl, w, bb, dev, readings=5):
+    """E2's kernel, F.layer_norm and (with --turns) the
+    parent's Triton kernel by one clock, CUDA events, `readings` of each in
+    turns, as min / median / max: "events", 20 calls back to back
+    (`run_ms`: the clock `slope_time` and earlier runs used, which follows
+    the host's enqueue where that outlasts a call); "warm", the same with
+    the card held while the host enqueues (`held_ms`); "cold", each call
+    alone after writing a 256 MB buffer that evicts the 50 MB L2, the card
+    held likewise (10 calls a reading). Beside them the profiler's device
+    time, the host's enqueue time a call (200 calls without a
+    synchronisation), and the SM and memory clocks before and after."""
+    import torch
+    import torch.nn.functional as F
+
+    from s3od_torch.experiments import exp_layernorm
+
+    c = xl.shape[-1]
+    wb, bbb = w.to(torch.bfloat16), bb.to(torch.bfloat16)  # F.layer_norm: no fp32 affine on bf16 x
+    fns = {"kernel": lambda: exp_layernorm.layer_norm_single_pass(xl, w, bb),
+           "F.layer_norm": lambda: F.layer_norm(xl, (c,), wb, bbb, 1e-5)}
+    parent = turns_e2()
+    if parent is not None:
+        fns = {"parent": lambda: parent(xl, w, bb), **fns}
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)  # 256 MB
+
+    def enqueue_us(fn, calls=200):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) / calls * 1e6
+
+    clocks = {"before": smi_clocks()}
+    out = {"clocks": clocks}
+    summary = lambda v: {"min": min(v), "median": statistics.median(v), "max": max(v),
+                         "readings": v}
+    for key, clock in (("events", lambda fn: run_ms(fn, 20)),
+                       ("warm", lambda fn: held_ms(fn, 20)),
+                       ("cold", lambda fn: held_ms(fn, 10, flush=flush))):
+        t = turns(fns, clock, rounds=(readings + 1) // 2)
+        out[key] = {k: summary(v[:readings]) for k, v in t.items()}
+    clocks["after"] = smi_clocks()
+    out["profiler_ms"] = {k: device_ms(fn) for k, fn in fns.items()}
+    out["enqueue_us"] = {k: enqueue_us(fn) for k, fn in fns.items()}
+    del flush
+    for k in fns:
+        log(f"  E2 {k} (min / median / max of {readings}, ms): " + "; ".join(
+            f"{key} {out[key][k]['min']:.4f} / {out[key][k]['median']:.4f} / "
+            f"{out[key][k]['max']:.4f}" for key in ("events", "warm", "cold"))
+            + f"; profiler {out['profiler_ms'][k]:.4f}; host enqueue "
+            f"{out['enqueue_us'][k]:.1f} us a call")
+    log(f"  clocks (SM, memory) before: {clocks['before']}; after: {clocks['after']}")
+    return out
+
+
 def experiments_phase(results):
     """Each script's `main()` once at its defaults on the card, the launches
     of E1-E4 counted around those runs. The mains compare every variant's
@@ -1165,15 +1444,22 @@ def experiments_phase(results):
     log(f"phase E2 layer_norm_single_pass (8 x 4104 x {c})")
     e = mains["exp_layernorm"]
     e_held("E2", e)
-    e["ms"] = e["kernel_ms"]
+    log(f"  E2 (the script's main) rel. norm {e['rel_norm_vs_plain']:.3e}")
+    check(e["rel_norm_vs_plain"] <= LN_NORM_TOL,
+          f"E2 rel. norm {e['rel_norm_vs_plain']} > {LN_NORM_TOL}")
+    y = exp_layernorm.layer_norm_single_pass(xl, w, bb)
+    y_ref = exp_layernorm.layer_norm_single_pass_plain(xl, w, bb)
+    compare("E2 (direct call)", [y], [y_ref], {}, norm_tol=LN_NORM_TOL)
+    planted_out("E2", [y], [y_ref], 0, LN_NORM_TOL)
+    del y, y_ref
     set_bound({"e": e}, "e", 0.0, 2 * 2 * rows * c + 8 * c,
               fp32_ops=8.0 * rows * c)
-    # F.layer_norm takes no fp32 affine with bf16 x on CUDA: w, b in bf16
-    wb, bbb = w.to(torch.bfloat16), bb.to(torch.bfloat16)
-    e["library_ms"] = run_ms(lambda: F.layer_norm(xl, (c,), wb, bbb, 1e-5))
-    log(f"  {e['ms']:.4f} ms, plain {e['plain_ms']:.4f}, bound "
-        f"{e['bound_ms']:.4f} ({e['bound_by']}), F.layer_norm "
-        f"{e['library_ms']:.4f}, base {e['base_ms']:.4f}, mxu {e['mxu_ms']:.4f}")
+    e.update(e2_clock(xl, w, bb, dev))
+    e["ms"], e["library_ms"] = e["warm"]["kernel"]["median"], e["warm"]["F.layer_norm"]["median"]
+    log(f"  {e['ms']:.4f} ms (warm median, the card held), plain {e['plain_ms']:.4f}, "
+        f"bound {e['bound_ms']:.4f} ({e['bound_by']}), F.layer_norm "
+        f"{e['library_ms']:.4f}, base {e['base_ms']:.4f}, mxu {e['mxu_ms']:.4f}; "
+        f"the script's slope_time: kernel {e['kernel_ms']:.4f}")
     e_fold(results, "E2_layer_norm_single_pass", {"kernel": e}, "kernel")
     del xl, w, bb
     torch.cuda.empty_cache()
@@ -2757,9 +3043,9 @@ def train_step_phase(results):
     torch.cuda.synchronize()
     tr["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     rows = kernel_breakdown(step, iters=1)
-    groups = {"forward kernels K1-K5": ("_ln_fwd", "qkv_rope", "flash_fwd",
-                                        "flash_ws_fwd", "attn_epilogue",
-                                        "mlp_fused"),
+    groups = {"K4": ("attn_epilogue",),
+              "K1-K3, K5 forward": ("_ln_fwd", "qkv_", "flash_fwd", "flash_ws_fwd",
+                                    "mlp_gemm", "mlp_fused"),
               "K8 backward": ("flash_bwd", "bwd_dkv", "bwd_dq", "bwd_delta")}
     split = {g: 0.0 for g in groups}
     split["everything else"] = 0.0
@@ -2966,8 +3252,17 @@ def highres_train_phase(results):
     torch.cuda.empty_cache()
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    global TURNS
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--turns", type=Path, default=None,
+                    help="directory holding the parent commit's attn_epilogue.cu "
+                         "and exp_layernorm.py, to time against")
+    TURNS = ap.parse_args(argv).turns
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3036,4 +3331,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -1,5 +1,5 @@
-"""Builds and loads the port's CUDA kernels (K2-K10, and E1, E3a, E3b and
-E4 of `s3od_torch/experiments/`).
+"""Builds and loads the port's CUDA kernels (K2-K10, and E1-E4 of
+`s3od_torch/experiments/`).
 
 Each `csrc/*.cu` file compiles with its own `nvcc` process, all started
 together, and the objects link into ONE shared library with a plain C
@@ -11,8 +11,8 @@ of the sources and flags, and is rebuilt at first use whenever that hash
 changes. Each C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `check()` turns a nonzero code into an exception.
 
-The Triton kernels (K1, E2) need no build step; while one launches (and
-so compiles), `triton_cache()` points Triton's compile cache into the same
+The Triton kernel (K1) needs no build step; while it launches (and so
+compiles), `triton_cache()` points Triton's compile cache into the same
 build directory, and restores the caller's setting afterwards.
 
 The stream API launches from several threads at once, so the build runs
@@ -77,6 +77,8 @@ _SIGNATURES = {
     "s3od_exp_flash_fwd": [_P] * 6 + [_I] * 3 + [_F] * 4 + [_I, _P],
     # x, out, elems, programs, reps, variant, stream
     "s3od_exp_loop": [_P] * 2 + [_I] * 4 + [_P],
+    # x, w, b, y, rows, c, eps, stream
+    "s3od_ln_single_pass": [_P] * 4 + [_I] * 2 + [_F, _P],
 }
 _COUNT_LOCK = threading.Lock()
 _TRITON_ENV_LOCK = threading.RLock()

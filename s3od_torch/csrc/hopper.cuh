@@ -1,12 +1,15 @@
 // Shared Hopper (sm_90a) building blocks of the port's warp-specialised
-// kernels (K2, K5, K8, K9a/K9b's Winograd kernels, E1/E3a/E4; K7 and K3/K6 through
+// kernels (K2, K4, K5, K8, K9a/K9b's Winograd kernels, E1/E3a/E4, E2's bulk
+// variant; K7 and K3/K6 through
 // `flash_fwd_ws.cuh`), as inline PTX: mbarriers, TMA tensor loads, the
 // wgmma shared-memory descriptor for 128-byte-swizzled tiles, wgmma fences
 // and groups, `wgmma.mma_async` m64nNk16 bf16 -> fp32 (SS: both operands
 // in shared memory, B K-major or MN-major; RS: A from registers),
 // `setmaxnreg`, the SFU's exp2, the turns of the consumer
-// warpgroups, and the host-side encoding of TMA tensor maps (bf16
-// swizzled tiles, bf16 plain boxes, fp32 rows).
+// warpgroups, thread block clusters (the cluster barrier, `mapa`, loads
+// from and mbarrier arrivals on another block's shared memory), 1-D bulk
+// copies, and the host-side encoding of TMA tensor
+// maps (bf16 swizzled tiles, bf16 plain boxes, fp32 rows).
 //
 // No CuTe or CUTLASS: every source builds with its own nvcc in seconds.
 // `cuTensorMapEncodeTiled` is a driver function; it is reached through
@@ -122,6 +125,74 @@ __device__ __forceinline__ void tma_store_wait_all() {
 // async-proxy (TMA, wgmma) accesses.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- thread block clusters ---------------------------------------------------
+// A cluster's blocks run on neighbouring SMs and address each other's
+// shared memory ("distributed shared memory"): `mapa` turns a local
+// shared address into the same offset in block `rank` of the cluster.
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// Every non-exited thread of the cluster arrives, then waits: the release
+// and acquire order each block's shared-memory writes (mbarrier inits
+// included) before the other blocks' accesses after the wait.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+__device__ __forceinline__ uint32_t mapa(const void* p, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(smem_addr(p)), "r"(rank));
+  return r;
+}
+// Two floats from block `rank`'s shared memory at the offset of `p`.
+__device__ __forceinline__ float2 ld_shared_cluster_f2(const void* p, uint32_t rank) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(mapa(p, rank)));
+  return v;
+}
+// Arrive on the barrier at the offset of `bar` in block `rank`, releasing
+// this thread's earlier memory accesses at cluster scope.
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t rank) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+                   mapa(bar, rank))
+               : "memory");
+}
+// mbar_wait with cluster-scope acquire: for barriers other blocks arrive on.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, int phase) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(phase)
+        : "memory");
+  } while (!done);
+}
+// A 1-D bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from global into shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
 }
 
 // Named barrier `id` (1..15; 0 is __syncthreads) over `threads` threads.

@@ -6,23 +6,23 @@
   mxu     : mean and mean of squares as products with a (C, 128) matrix
             whose first column is 1/C (plain PyTorch, the script's XLA
             variant; here the product goes to cuBLAS)
-  kernel  : the single-pass kernel (Triton), the port of the script's
-            Pallas `_ln_kernel`: per row, fp32 mean and mean of squares,
-            var = E[x^2] - E[x]^2 with NO clamp at 0 (unlike K1,
-            `s3od_torch/ops/layernorm.py`), rsqrt(var + eps), fp32 affine,
-            out in x's dtype; no mean or rstd outputs.
+  kernel  : the single-pass kernel (CUDA, `s3od_torch/csrc/exp_layernorm.cu`),
+            the port of the script's Pallas `_ln_kernel`: per row, fp32
+            mean and mean of squares, var = E[x^2] - E[x]^2 with NO clamp
+            at 0 (unlike K1, `s3od_torch/ops/layernorm.py`), rsqrt(var +
+            eps), fp32 affine, out in x's dtype; no mean or rstd outputs.
 
 Bound on the H100: no products; each row is read once and written once,
 2 * 2 * C bytes (8 x 4104 x 768 at the default: 101 MB, 0.030 ms at 3.35
-TB/s), so it is memory-bound, the case K1's note argues: one program a
-row with a masked power-of-two block does all a CUDA kernel could, and
-Triton suffices. `triton` is imported only when the kernel launches.
+TB/s), so it is memory-bound: the kernel's design note says how it keeps
+bytes in flight.
 
     python -m s3od_torch.experiments.exp_layernorm [--batch 8] [--n 4104] \
         [--c 768] [--device cuda]
 
 prints the max differences of mxu and the kernel against base, the
-kernel's max|kernel - plain| / max|plain|, and the time of each variant
+kernel's max|kernel - plain| / max|plain| and ||kernel - plain|| /
+||plain||, and the time of each variant
 and of the kernel's plain version (between CUDA events on the card);
 `main` returns those numbers.
 """
@@ -30,7 +30,6 @@ and of the kernel's plain version (between CUDA events on the card);
 from __future__ import annotations
 
 import argparse
-import functools
 import sys
 
 import numpy as np
@@ -74,45 +73,46 @@ def layer_norm_single_pass_plain(x, w, b, eps: float = EPS):
     return (y * w.float() + b.float()).to(x.dtype)
 
 
-@functools.lru_cache(maxsize=1)
-def _triton_kernel():
-    import triton
-    import triton.language as tl
+# The kernel's launch (`csrc/exp_layernorm.cu`), mirrored so that the CPU
+# tests can check it.
+BULK_WARPS = 8               # consumer warps a block: rows a stage
+BULK_RING_BYTES = 98304      # the ring's target size
+MAX_SMEM = 232448            # bytes of shared memory one H100 block may use
 
-    @triton.jit
-    def _ln_single_pass(X, W, B, Y, C, eps, BLOCK: tl.constexpr):
-        row = tl.program_id(0).to(tl.int64)
-        cols = tl.arange(0, BLOCK)
-        mask = cols < C
-        x = tl.load(X + row * C + cols, mask=mask, other=0.0).to(tl.float32)
-        m1 = tl.sum(x, axis=0) / C
-        m2 = tl.sum(x * x, axis=0) / C
-        rstd = 1.0 / tl.sqrt(m2 - m1 * m1 + eps)
-        w = tl.load(W + cols, mask=mask, other=0.0)
-        b = tl.load(B + cols, mask=mask, other=0.0)
-        y = (x - m1) * rstd * w + b
-        tl.store(Y + row * C + cols, y.to(Y.dtype.element_ty), mask=mask)
 
-    return triton, _ln_single_pass
+def plan(rows: int, c: int) -> dict:
+    """The launch at x (rows, c): a lane's 16-byte vectors of a row
+    (`vectors`, the template instance) and the lanes left idle, whether w
+    and b stay in registers, the ring's stages and shared memory, and
+    `blocks` before the persistent grid's cap at what the card holds."""
+    vectors = -(-c // 256)
+    stage = BULK_WARPS * 2 * c
+    stages = min(4, max(2, BULK_RING_BYTES // stage))
+    return {"vectors": vectors, "idle_lanes": 32 * vectors - c // 8,
+            "weights_held": vectors <= 4, "stages": stages,
+            "smem": stages * stage + 2 * stages * 8,
+            "blocks": -(-rows // BULK_WARPS)}
 
 
 def layer_norm_single_pass(x, w, b, eps: float = EPS):
     """E2 -> y. CPU tensors take the plain version; CUDA tensors launch the
-    Triton kernel (bf16 x, fp32 (C,) w and b, C <= 4096) or raise."""
+    CUDA kernel (bf16 x, fp32 (C,) w and b, C a multiple of 8 up to 4096)
+    or raise."""
     if x.device.type == "cpu":
         return layer_norm_single_pass_plain(x, w, b, eps)
     c = x.shape[-1]
-    if x.dtype != torch.bfloat16 or c > 4096:
+    if x.dtype != torch.bfloat16 or c % 8 or not 0 < c <= 4096 or x.numel() == 0:
         raise ValueError(f"layer_norm_single_pass kernel: unsupported {x.dtype} C={c}")
     if (w.shape != (c,) or b.shape != (c,) or w.dtype != torch.float32
             or b.dtype != torch.float32):
         raise ValueError("layer_norm_single_pass kernel: w, b must be fp32 (C,)")
-    x2 = x.contiguous().view(-1, c)
+    x2, w, b = (_build.aligned16(t) for t in (x.reshape(-1, c), w, b))
     y = torch.empty_like(x2)
-    triton, kernel = _triton_kernel()
-    with _build.triton_cache():
-        kernel[(x2.shape[0],)](x2, w.contiguous(), b.contiguous(), y, c, eps,
-                               BLOCK=triton.next_power_of_2(c), num_warps=4)
+    lib = _build.load_library()
+    code = lib.s3od_ln_single_pass(
+        x2.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), x2.shape[0], c,
+        float(eps), _build.stream_ptr(x2))
+    _build.check(code, "layer_norm_single_pass")
     _build.count_launch(layer_norm_single_pass)
     return y.view(x.shape)
 
@@ -151,9 +151,11 @@ def main(argv=None):
     }
     a, m, k, p = (variants[v]().float() for v in variants)
     res = {"maxdiff_mxu": float((a - m).abs().max()),
-           "maxdiff_kernel": float((a - k).abs().max()), **errors(k, p)}
+           "maxdiff_kernel": float((a - k).abs().max()), **errors(k, p),
+           "rel_norm_vs_plain": float((k - p).norm() / p.norm().clamp_min(1e-30))}
     print(f"maxdiff mxu {res['maxdiff_mxu']:.2e}  kernel "
-          f"{res['maxdiff_kernel']:.2e}  kernel vs plain {res['rel_vs_plain']:.2e}")
+          f"{res['maxdiff_kernel']:.2e}  kernel vs plain {res['rel_vs_plain']:.2e} "
+          f"(relative norm {res['rel_norm_vs_plain']:.2e})")
 
     rb = lambda o: float(o[:, ::64, ::128].float().sum())
     for name, fn in variants.items():

@@ -5,6 +5,12 @@ its plain version.
 Replaces the TPU kernel `s3od_tpu/ops/attn_epilogue.py:_kernel` (via
 `attn_epilogue`). The kernel source and its design note are in
 `s3od_torch/csrc/attn_epilogue.cu`.
+
+Two kernels, chosen by an explicit dispatch on D in the C entry point
+(`kernel_route`): at D = 64 (ViT-S/B/L) a TMA + wgmma GEMM whose 64-row
+tiles are split along the columns over a 2-block cluster that shares the
+LayerNorm statistics (`plan` mirrors its launch); at D = 32 (the tiny
+checkpoints) the mma.sync kernel.
 """
 
 from __future__ import annotations
@@ -14,6 +20,58 @@ import torch
 from s3od_torch import _build
 from s3od_torch.ops.autograd import plain_vjp
 from s3od_torch.ops.layernorm import layer_norm_plain
+
+# The D = 64 kernel's launch (`csrc/attn_epilogue.cu`), mirrored so that
+# the CPU tests can check it at the shapes the repo's configs give it.
+ROW_TILE = 64                # rows (tokens of one batch element) a tile
+K_TILE = 64                  # K a pipeline stage: one head
+MAX_STAGES = 4
+CLUSTER = 2                  # blocks of a cluster: a row's two halves
+MAX_SMEM = 232448            # bytes of shared memory one H100 block may use
+REGISTERS = 65536            # 32-bit registers of one SM
+# C -> (consumer warpgroups, columns each): C / 2 a block, in warpgroups
+# of at most 256 columns (a wgmma's widest), whole 64-column atoms.
+WIDTHS = {128: (1, 64), 256: (1, 128), 384: (1, 192), 512: (1, 256),
+          768: (2, 192), 1024: (2, 256)}
+
+
+def kernel_route(d: int) -> str:
+    """Which kernel the C entry point runs at head dim `d`."""
+    return {64: "cluster wgmma", 32: "mma.sync"}.get(d, "none")
+
+
+def regs(nc: int) -> tuple[int, int]:
+    """Registers a producer and a consumer thread may hold beside `nc`
+    consumer warpgroups: `setmaxnreg`'s split at two; at one there is no
+    `setmaxnreg`, and each of the 256 threads may hold 255."""
+    return {1: (255, 255), 2: (24, 240)}[nc]
+
+
+def plan(b: int, n: int, c: int, d: int = 64) -> dict:
+    """The launch at x (b, n, c) and head dim d. At D = 32 the mma.sync
+    kernel (32 rows x all C a block, two cp.async stages). At D = 64 the
+    cluster kernel: 64-row tiles (`row_tiles`), each split over a pair of
+    blocks of `block_cols` columns (`blocks` in all before the persistent
+    grid's cap), `consumers` warpgroups of `wn` columns a block; the
+    ring's stages, shared memory (ring, x staging, the bf16 vectors, the
+    statistics, the barriers), and Wo bytes read from L2 a row."""
+    if kernel_route(d) == "mma.sync":
+        rows_b, ldk = 32, 40
+        return {"route": "mma.sync", "block_cols": c, "consumers": 0,
+                "grid": b * n // rows_b,
+                "smem": 2 * (2 * rows_b * ldk + 2 * (c + 16) * ldk),
+                "wo_l2_bytes_a_row": 2 * c * c / rows_b}
+    nc, wn = WIDTHS[c]
+    bw = nc * wn
+    stage = ROW_TILE * K_TILE * 2 + bw * K_TILE * 2
+    tail = 4 * bw * 2 + 2 * nc * ROW_TILE * 8 + (2 * MAX_STAGES + 4) * 8
+    fixed = 1024 + ROW_TILE * bw * 2 + tail
+    stages = min(MAX_STAGES, (MAX_SMEM - fixed) // stage)
+    row_tiles = b * n // ROW_TILE
+    return {"route": "cluster wgmma", "block_cols": bw, "consumers": nc,
+            "wn": wn, "stages": stages, "smem": fixed + stages * stage,
+            "row_tiles": row_tiles, "blocks": CLUSTER * row_tiles,
+            "acc_regs": wn // 2, "wo_l2_bytes_a_row": 2 * c * c / ROW_TILE}
 
 
 def attn_epilogue_plain(a, wo, bo, x, ls, lw, lb, eps: float):
@@ -32,7 +90,8 @@ def attn_epilogue(a, wo, bo, x, ls, lw, lb, eps: float):
     """(x', LayerNorm_norm2(x')) from the head-major attention output.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel or
-    raise: all bf16, N and C multiples of 64, C <= 1024, D in {32, 64}."""
+    raise: all bf16, N a multiple of 64; D = 64 with C in `WIDTHS`, or
+    D = 32 with C a multiple of 64 up to 1024 (`kernel_route`)."""
     if x.device.type == "cpu":
         return attn_epilogue_plain(a, wo, bo, x, ls, lw, lb, eps)
     b, n, c = x.shape
@@ -43,14 +102,15 @@ def attn_epilogue(a, wo, bo, x, ls, lw, lb, eps: float):
     tensors = (a, wo, bo, x, ls, lw, lb)
     if any(t.dtype != torch.bfloat16 for t in tensors):
         raise ValueError("attn_epilogue kernel: bf16 inputs only")
-    if (n % 64 or c % 64 or c > 1024 or d * h != c or d not in (32, 64)
+    route = kernel_route(d)
+    width_ok = c in WIDTHS if route == "cluster wgmma" else c % 64 == 0 and c <= 1024
+    if (n % 64 or not width_ok or d * h != c or route == "none"
             or a.shape != (b * h, n, d) or wo.shape != (c, c)
             or any(t.shape != (c,) for t in (bo, ls, lw, lb))):
         raise ValueError(
             f"attn_epilogue kernel: unsupported a={tuple(a.shape)} "
             f"x={tuple(x.shape)}")
-    a, wo, x = a.contiguous(), wo.contiguous(), x.contiguous()
-    bo, ls, lw, lb = (t.contiguous() for t in (bo, ls, lw, lb))
+    a, wo, bo, x, ls, lw, lb = (_build.aligned16(t) for t in tensors)
     xn = torch.empty_like(x)
     hn = torch.empty_like(x)
     lib = _build.load_library()

@@ -285,6 +285,52 @@ def test_e2_plain_matches_pallas_interpret(script_main):
         _assert_close(fn(x, w, b), np.asarray(ref, np.float32), frac=0.1)
 
 
+def test_e2_plain_matches_pallas_interpret_at_vit_b_width(script_main):
+    """The script at --batch 1 --n 456 --c 768 (ViT-B's width, the
+    script's default C): one 456-row block."""
+    calls = script_main(_script("exp_layernorm"),
+                        ["--batch", "1", "--n", "456", "--c", "768"])
+    (x, w, b), ref = calls[0]
+    assert x.shape[-1] == 768
+    x = torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy(np.asarray(w)).reshape(-1)
+    b = torch.from_numpy(np.asarray(b)).reshape(-1)
+    _assert_close(e2.layer_norm_single_pass_plain(x, w, b),
+                  np.asarray(ref, np.float32))
+
+
+@pytest.mark.parametrize("c", [768, 64, 1000, 4096])
+def test_e2_kernel_plan(c):
+    """The Python mirror of E2's launch: a lane's 16-byte vectors cover
+    the row (none idle at C = 768), w and b held in registers up to C =
+    1024, a ring of 2-4 stages of 8 rows within a block's shared memory,
+    enough blocks for every row."""
+    rows = 8 * 4104
+    p = e2.plan(rows, c)
+    assert 32 * p["vectors"] * 8 >= c > 32 * (p["vectors"] - 1) * 8
+    assert p["idle_lanes"] == 32 * p["vectors"] - c // 8
+    assert p["weights_held"] == (c <= 1024)
+    assert 2 <= p["stages"] <= 4 and p["smem"] <= e2.MAX_SMEM
+    assert p["blocks"] * e2.BULK_WARPS >= rows
+    if c == 768:
+        assert (p["vectors"], p["idle_lanes"], p["stages"]) == (3, 0, 4)
+
+
+@pytest.mark.parametrize("case", ["width", "wide", "dtype", "affine"])
+def test_e2_kernel_input_checks(case):
+    """Non-CPU tensors go to the CUDA kernel, which takes bf16 x, fp32 (C,)
+    w and b and C a multiple of 8 up to 4096; anything else raises before
+    a launch ('meta' tensors need no card)."""
+    m = lambda *s, dtype=torch.bfloat16: torch.empty(*s, dtype=dtype, device="meta")
+    f32 = torch.float32
+    args = {"width": (m(4, 100), m(100, dtype=f32), m(100, dtype=f32)),
+            "wide": (m(4, 4104), m(4104, dtype=f32), m(4104, dtype=f32)),
+            "dtype": (m(4, 64, dtype=f32), m(64, dtype=f32), m(64, dtype=f32)),
+            "affine": (m(4, 64), m(64), m(64))}[case]
+    with pytest.raises(ValueError):
+        e2.layer_norm_single_pass(*args)
+
+
 # ----------------------------------------------------------------------------
 # Entry points and wrappers on the CPU
 # ----------------------------------------------------------------------------
@@ -548,4 +594,18 @@ def test_loop_and_layernorm_match_plain_on_cuda(cuda):
     xl, w, b = e2.inputs(2, 456, 768, cuda)
     assert _rel(e2.layer_norm_single_pass(xl, w, b),
                 e2.layer_norm_single_pass_plain(xl, w, b)) <= 1e-2
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_layernorm_kernel_matches_plain_on_cuda(cuda):
+    """E2's kernel at ragged row counts (37 rows: a stage part empty) and
+    at C = 64 (24 of 32 lanes idle), 1000 (not a multiple of 256) and 4096
+    (w and b re-read), by max error and relative norm."""
+    for rows, c in ((37, 768), (37, 64), (5, 1000), (3, 4096), (8 * 4104, 768)):
+        xl, w, b = e2.inputs(1, rows, c, cuda)
+        got = e2.layer_norm_single_pass(xl, w, b).float()
+        ref = e2.layer_norm_single_pass_plain(xl, w, b).float()
+        assert _rel(got, ref) <= 1e-2, (rows, c)
+        assert float((got - ref).norm() / ref.norm()) <= 5e-3, (rows, c)
     torch.cuda.synchronize()

@@ -259,6 +259,82 @@ def test_attn_epilogue_plain_matches_pallas_interpret(d):
     assert _rel(hn.numpy(), ln_ref) < 1e-5
 
 
+def test_attn_epilogue_plain_matches_pallas_interpret_at_vit_b_width():
+    """ViT-B's width (12 heads of 64, C = 768) at N = 128, batch 1."""
+    from s3od_tpu.ops.attn_epilogue import attn_epilogue
+
+    rng = np.random.default_rng(12)
+    b, h, n, d = 1, 12, 128, 64
+    c = h * d
+    a = rng.standard_normal((b * h, n, d)).astype(np.float32) * 0.5
+    x = rng.standard_normal((b, n, c)).astype(np.float32)
+    kern = rng.standard_normal((c, c)).astype(np.float32) * 0.02
+    bo = rng.standard_normal(c).astype(np.float32) * 0.1
+    ls = rng.standard_normal(c).astype(np.float32) * 0.5 + 1.0
+    lw = rng.uniform(0.5, 2.0, c).astype(np.float32)
+    lb = rng.standard_normal(c).astype(np.float32) * 0.2
+    xn_ref, ln_ref = attn_epilogue(
+        jnp.asarray(a), {"kernel": jnp.asarray(kern), "bias": jnp.asarray(bo)},
+        jnp.asarray(x), jnp.asarray(ls),
+        {"weight": jnp.asarray(lw), "bias": jnp.asarray(lb)},
+        eps=1e-5, block_n=64, interpret=True)
+    xn, hn = ae.attn_epilogue(_t(a), _t(kern.T), _t(bo), _t(x), _t(ls),
+                              _t(lw), _t(lb), 1e-5)
+    assert _rel(xn.numpy(), xn_ref) < 1e-5
+    assert _rel(hn.numpy(), ln_ref) < 1e-5
+
+
+# (C, D) of the repo's configs: ViT-S, ViT-B, ViT-L, the tiny fixtures.
+K4_WIDTHS = [(384, 64), (768, 64), (1024, 64), (64, 32)]
+
+
+@pytest.mark.parametrize("c,d", K4_WIDTHS)
+def test_attn_epilogue_kernel_plan_fits_the_card(c, d):
+    """The Python mirror of K4's launch at 1024^2 (N = 4160), b1 and b16:
+    at D = 64 the cluster wgmma kernel, 64-row tiles split over a pair of
+    blocks of C / 2 columns, consumer warpgroups of at most 256 columns
+    (a wgmma's widest) in whole 64-column atoms, a ring of at least two
+    stages, x staging, vectors, statistics and barriers within a block's
+    shared memory, the accumulators within the registers. At D = 32 the
+    mma.sync kernel."""
+    for b in (1, 16):
+        p = ae.plan(b, 4160, c, d)
+        assert p["route"] == ae.kernel_route(d)
+        assert p["smem"] <= ae.MAX_SMEM
+        if d == 32:
+            assert p["route"] == "mma.sync"
+            continue
+        assert p["route"] == "cluster wgmma"
+        assert ae.CLUSTER * p["block_cols"] == c
+        assert p["consumers"] * p["wn"] == p["block_cols"]
+        assert p["wn"] <= 256 and p["wn"] % 64 == 0
+        assert 2 <= p["stages"] <= ae.MAX_STAGES
+        assert p["row_tiles"] == b * 4160 // ae.ROW_TILE
+        assert p["blocks"] == ae.CLUSTER * p["row_tiles"]
+        nc = p["consumers"]
+        producer, consumer = ae.regs(nc)
+        assert p["acc_regs"] + 64 <= consumer
+        assert 128 * producer + 128 * nc * consumer <= ae.REGISTERS
+    if c == 768:  # b1: 130 blocks on 132 SMs; Wo read a row: 37.5 KB before
+        assert ae.plan(1, 4160, c)["blocks"] == 130
+        assert ae.plan(1, 4160, c)["wo_l2_bytes_a_row"] * 2 == ae.plan(1, 4160, c, 32)[
+            "wo_l2_bytes_a_row"]
+
+
+def test_attn_epilogue_kernel_route_dispatches_on_head_dim():
+    """D = 64 takes the cluster kernel, D = 32 the mma.sync kernel, any
+    other D neither; a width the kernel does not take raises before a
+    launch (on 'meta' tensors, which need no card)."""
+    assert ae.kernel_route(64) == "cluster wgmma"
+    assert ae.kernel_route(32) == "mma.sync"
+    assert ae.kernel_route(128) == ae.kernel_route(16) == "none"
+    assert set(ae.WIDTHS) >= {384, 768, 1024}
+    v = _meta(640)
+    with pytest.raises(ValueError):  # ViT-style 10 heads of 64: C / 2 = 320
+        ae.attn_epilogue(_meta(10, 64, 64), _meta(640, 640), v, _meta(1, 64, 640),
+                         v, v, v, 1e-5)
+
+
 # ----------------------------------------------------------------------------
 # K5 fused MLP
 # ----------------------------------------------------------------------------
@@ -883,4 +959,28 @@ def test_winograd_conv_dx_runs_the_kernel_on_cuda(cuda):
         _close([dx2], [ref])
         nrm = float((dx2.float() - ref.float()).norm() / ref.float().norm())
         assert nrm <= 1.5e-4, nrm
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,h", [(768, 12), (1024, 16), (384, 6), (64, 2)])
+def test_attn_epilogue_matches_plain_on_cuda(cuda, c, h):
+    """K4 at an odd tile count (N = 320: 5 row tiles), at b2, and on rows
+    of near-zero variance; x' and h by max error and relative norm."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    bf = torch.bfloat16
+    r = lambda *s, scale=1.0, shift=0.0: (
+        torch.randn(*s, generator=gen, device=cuda) * scale + shift).to(bf)
+    d = c // h
+    for b, n, flat in ((1, 320, False), (2, 320, False), (1, 320, True)):
+        x = r(b, n, c, scale=1e-3, shift=3.0) if flat else r(b, n, c)
+        args = (r(b * h, n, d, scale=0.5), r(c, c, scale=1e-5 if flat else 0.02),
+                r(c, scale=0.1), x, r(c, scale=0.5, shift=1.0),
+                r(c, scale=0.5, shift=1.0), r(c, scale=0.2), 1e-5)
+        ref = ae.attn_epilogue_plain(*args)
+        got = ae.attn_epilogue(*args)
+        _close(got, ref)
+        for g, rr in zip(got, ref):
+            g, rr = g.float(), rr.float()
+            assert float((g - rr).norm() / rr.norm()) <= 5e-3, (b, flat)
     torch.cuda.synchronize()

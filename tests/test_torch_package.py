@@ -239,7 +239,8 @@ def test_kernel_build_hash_covers_every_source(tmp_path, monkeypatch):
     assert {"mma.cuh", "hopper.cuh", "qkv_project.cu", "flash_attention.cu",
             "flash_attention_bwd.cu", "attn_epilogue.cu",
             "mlp_fused.cu", "flash_attention_online.cu", "winograd.cu",
-            "mask_tail.cu", "exp_flash_variants.cu", "exp_loop.cu"} <= srcs
+            "mask_tail.cu", "exp_flash_variants.cu", "exp_loop.cu",
+            "exp_layernorm.cu"} <= srcs
     h0 = _build.source_hash()
     for src in _build._sources():
         (tmp_path / src.name).write_bytes(src.read_bytes())
@@ -253,7 +254,7 @@ def test_kernel_build_hash_covers_every_source(tmp_path, monkeypatch):
         "s3od_flash_attention_bwd", "s3od_attn_epilogue", "s3od_mlp_fused",
         "s3od_flash_attention_online_fwd", "s3od_winograd_conv",
         "s3od_winograd_rcu", "s3od_mask_tail", "s3od_exp_flash_fwd",
-        "s3od_exp_loop"}
+        "s3od_exp_loop", "s3od_ln_single_pass"}
 
 
 FAKE_NVCC = """\
