@@ -113,7 +113,24 @@ all started together) and the Triton kernel, then:
      full-depth step with K7 against K7's plain version end to end and
      per attention call (a planted K7 fault, o x 1.01, must fail the
      per-call check), and 2 dual + 4 single blocks at full width in bf16
-     against fp32 exact.
+     against fp32 exact;
+ 12. fine-tunes a LoRA on the same seeded FLUX.1-dev MMDiT (bf16, rank 16;
+     `s3od_torch.datagen.lora`), on three >= 1024^2 images it writes with
+     captions.json, the captions encoded before T5 is freed: K8 at D = 128
+     (the attention backward on K7's lse) against its plain version at
+     (24, 4608, 128) and (24, 4480, 128) with n_valid 4464, a planted
+     dk x 1.01 caught, timed beside its bound and the SDPA backward; 8
+     full-width `make_lora_train_step` steps at the 1024^2 bucket (4608
+     tokens; K7 and K8 exactly 57 launches a step, the loss at one fixed
+     draw falling; step ms, img/s, peak GiB, the idle share; one step
+     with each block recomputed, peak GiB again); one step at each of the
+     1024^2 and 832 x 1216 (4464 tokens, padded to 4480) buckets with
+     every K8 call held against its plain version by relative norm (a
+     planted dk x 1.01 must fail); the LoRA gradients of 2 dual + 4 single
+     blocks, bf16 K7 + K8 vs fp32 exact, after one update; the adapters
+     written by `save_native`, loaded by `ConceptAttentionPipeline(lora=
+     path)` and one 1024^2 image generated with them merged; and
+     `flux_finetune.run` end to end on the card at the tiny MMDiT.
 
 With `--turns DIR`, DIR holds the parent commit's
 `s3od_torch/csrc/attn_epilogue.cu` and `s3od_torch/experiments/exp_layernorm.py`
@@ -158,6 +175,9 @@ KERNELS = {
                                   "s3od_tpu/ops/flash_attention.py:105"),
     "K8_flash_attention_bwd": ("cuda", "s3od_torch/csrc/flash_attention_bwd.cu",
                                "s3od_tpu/ops/flash_attention.py:492"),
+    "K8_flash_attention_bwd_d128": ("cuda",
+                                    "s3od_torch/csrc/flash_attention_bwd.cu",
+                                    "s3od_tpu/ops/flash_attention.py:492"),
     "K7_flash_attention_online": ("cuda",
                                   "s3od_torch/csrc/flash_attention_online.cu",
                                   "s3od_tpu/ops/flash_attention.py:37"),
@@ -1743,6 +1763,7 @@ def factory_phase(results):
     del teacher, tpred
     torch.cuda.empty_cache()
     accuracy_phase(pipe, r)
+    return pipe
 
 
 def profile_step(pipe, r):
@@ -1798,20 +1819,17 @@ def accuracy_phase(pipe, r):
     import torch
 
     from s3od_torch.models.mmdit import MMDiT
-    from s3od_torch.ops import attention as xa
     from s3od_torch.ops import flash_attention as fa
     from s3od_torch.ops.precision import set_exact_float32
 
     inp = step_inputs(pipe, 1024, 1024)
-    real = xa.flash_attention_online
+    real = fa.flash_attention_online
 
     def run(kernel):
-        xa.flash_attention_online = kernel
-        try:
-            with torch.inference_mode():
-                return pipe.model(**inp)
-        finally:
-            xa.flash_attention_online = real
+        # the attention's autograd Function calls K7 through this name
+        with standing_in(fa, "flash_attention_online", kernel), \
+                torch.inference_mode():
+            return pipe.model(**inp)
 
     def faulty(q, k, v, n_valid):
         o, lse = real(q, k, v, n_valid)
@@ -1872,6 +1890,462 @@ def accuracy_phase(pipe, r):
                  e16, BF16_STEP_TOL), "bf16 vs fp32 out of bound")
     del m16, m32
     torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------------------
+# The MMDiT's LoRA fine-tuning (datagen/lora.py, flux_finetune.py)
+# ----------------------------------------------------------------------------
+
+K8D = "K8_flash_attention_bwd_d128"
+LORA_ROOT = REPO / "build" / "chip_smoke_lora"
+# The learning rate of the full-width steps. The base is bf16, and the merge
+# rounds delta.astype(bf16) into W, as the JAX package's does: at the CLI's
+# default 1e-4 one AdamW step moves a delta entry by ~0.25 x 1e-4 (rank 16,
+# A ~ N(0, 1) / 16), under half a bf16 step at |W| ~ 0.02 (~6e-5), so the
+# step would mostly round away and the loss could not fall; at 1e-3 it
+# moves ~4 such steps (the first update still moves every entry of B by
+# lr, and the loss rises once before it falls: PERF.md, section 6).
+LORA_LR = 1e-3
+LORA_STEPS = 8
+# ||kernel - plain|| / ||plain|| of each of K8's dq, dk, dv per call at
+# D = 128, on random inputs and on every call of a LoRA step: 1.5x the
+# worst measured on an H100 80GB HBM3 at 700 W (5.06e-4, a call of the
+# 832 x 1216 step; 2.6e-4 on random inputs; PERF.md, section 2), tighter
+# than K8's 9.0e-3 at D = 64, where the planted dk x 1.01 (9.75e-3 to
+# 9.93e-3) sat within 1e-3 of the limit.
+K8D_CALL_TOL = 7.6e-4
+# The LoRA gradients (and the loss) of the bf16 kernel route (K7 + K8)
+# against the fp32 exact route on 2 dual + 4 single blocks at full width,
+# after one update: ||bf16 - fp32|| / ||fp32|| of the A leaves, the B
+# leaves and the loss; 1.5x measured on the same card (3.6e-4, 8.3e-3,
+# 1.8e-2).
+LORA_GRAD_TOL = {"loss": 5.4e-4, "A": 1.25e-2, "B": 2.75e-2}
+
+
+@contextlib.contextmanager
+def standing_in(module, name, fn):
+    """`module.name` is `fn` inside the block. The kernel wrappers count
+    their launches on whatever their module's name resolves to, so `fn`
+    carries a count of its own while it stands in."""
+    real = getattr(module, name)
+    if not hasattr(fn, "launches"):
+        fn.launches = 0
+    setattr(module, name, fn)
+    try:
+        yield fn
+    finally:
+        setattr(module, name, real)
+
+
+def lora_dataset(root: Path) -> Path:
+    """Three captioned images of at least 1024^2 pixels made from the
+    fixture photo: two 1280 x 1280 (the 1024^2 bucket) and one 1000 x 1462
+    (the 832 x 1216 bucket), with captions.json in the metadata layout."""
+    from PIL import Image
+
+    photo = Image.open(IMAGE).convert("RGB")
+    images = root / "data" / "real" / "images"
+    images.mkdir(parents=True)
+    names = []
+    for i, (h, w) in enumerate(((1280, 1280), (1280, 1280), (1000, 1462))):
+        im = photo.resize((w, h), Image.LANCZOS)
+        if i == 1:
+            im = im.transpose(Image.FLIP_LEFT_RIGHT)
+        im.save(images / f"r{i}.png")
+        names.append(f"r{i}")
+    meta = root / "meta" / "real"
+    meta.mkdir(parents=True)
+    (meta / "captions.json").write_text(json.dumps(
+        [{"image_path": f"{n}.png", "caption": f"a photograph of a tabby cat, view {i}"}
+         for i, n in enumerate(names)]))
+    return root
+
+
+def k8d_kernel_checks(results, randn):
+    """K8 at D = 128 on K7's lse against its plain version at the LoRA
+    step's shapes, (24, 4608, 128) and (24, 4480, 128) with n_valid 4464,
+    by max error and relative norm, with a planted dk x 1.01 caught; timed
+    at 4608 by CUDA events beside the plain version, the SDPA backward and
+    the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from s3od_torch.ops import flash_attention as fa
+
+    r = results.setdefault(K8D, {"max_abs_err": 0.0})
+    worst = 0.0
+    for bh, n, nv in ((24, 4608, 4608), (24, 4480, 4464)):
+        log(f"phase K8 at D = 128 ({bh} x {n} x 128, n_valid {nv}; the "
+            f"{fa.kernel_route(128)} kernels, plan {fa.bwd_plan(bh, n, 128, nv)})")
+        q, k, v, g = (randn(bh, n, 128, scale=s) for s in (128**-0.5, 1.0, 1.0, 1.0))
+        for t in (q, k, v, g):
+            t[:, nv:] = 0  # the padded rows, as multi_head_attention pads
+        o, lse = fa.flash_attention_online(q, k, v, nv)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, g, nv)
+        ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, g, nv)
+        compare(K8D, got, ref, results, norm_tol=K8D_CALL_TOL)
+        worst = max(worst, max(rel_norm(a, b) for a, b in zip(got, ref)))
+        try:
+            compare(f"{K8D} (planted dk x 1.01)",
+                    [got[0], (got[1].float() * 1.01).to(got[1].dtype), got[2]],
+                    ref, {}, norm_tol=K8D_CALL_TOL)
+        except RuntimeError as err:
+            log(f"  planted dk x 1.01 caught: {err}")
+        else:
+            check(False, "K8 at D = 128: the planted dk x 1.01 went unnoticed")
+        if n == 4608:
+            (qs, ks, vs), _ = sdpa_inputs(q, k, v, nv)
+            qs, ks, vs = (t.detach().requires_grad_() for t in (qs, ks, vs))
+            out = F.scaled_dot_product_attention(qs, ks, vs, scale=1.0)
+            time_flash(results, K8D,
+                       lambda: fa.flash_attention_bwd(q, k, v, o, lse, g, nv),
+                       lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, g, nv),
+                       lambda: torch.autograd.grad(out, (qs, ks, vs), g[None],
+                                                   retain_graph=True),
+                       q, k, nv, iters=5)
+            set_bound(results, K8D, 5 * 2.0 * bh * n * n * 128,
+                      8 * 2 * bh * n * 128 + 4 * bh * n)
+            r["exp_ms"] = 2.0 * bh * n * n / EXP_RATE * 1e3
+            r["split_products_ms"] = 7 * 2.0 * bh * n * n * 128 / PEAK_BF16 * 1e3
+            log(f"  K8 D = 128: {r['ms']:.4f} ms against the bound "
+                f"{r['bound_ms']:.4f} ({r['bound_by']}; "
+                f"{100 * r['bound_ms'] / r['ms']:.1f}%), the split design's "
+                f"7 products {r['split_products_ms']:.4f}, the exponentials "
+                f"{r['exp_ms']:.4f}, SDPA backward {r['library_ms']:.4f}")
+            del qs, ks, vs, out
+        else:
+            r["ms_4480"] = run_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, g, nv), 5)
+            log(f"  K8 D = 128 at (24, 4480): {r['ms_4480']:.4f} ms")
+        del q, k, v, g, o, lse, got, ref
+        torch.cuda.empty_cache()
+    r["rel_norm_random"] = worst
+
+
+def lora_batch(pipe, sample, text):
+    """One sample as the CLI batches it: VAE latents of the bucket-resized
+    image, packed; T5 / CLIP of the caption (encoded beforehand); RoPE
+    ids of the packed grid."""
+    import numpy as np
+    import torch
+
+    from PIL import Image
+
+    from s3od_torch.datagen.diffusion import make_img_ids, pack_latents
+    from s3od_torch.datagen.resizer import FluxResizer
+
+    dev = pipe.device
+    image = np.array(Image.open(sample["image"]).convert("RGB"))
+    resized, hw = FluxResizer().resize_image(image)
+    lat = torch.as_tensor(pipe.vae.encode(resized), device=dev)
+    t5, pooled = text[sample["caption"]]
+    ph, pw = lat.shape[1] // 2, lat.shape[2] // 2
+    as_t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    return hw, {"latents": pack_latents(lat), "txt": as_t(t5),
+                "pooled": as_t(pooled), "img_ids": as_t(make_img_ids(ph, pw)),
+                "txt_ids": torch.zeros(t5.shape[1], 3, device=dev)}
+
+
+def lora_grad_agreement(pipe, batch, r):
+    """(d) The LoRA gradients of the bf16 kernel route (K7 + K8) against
+    the fp32 exact route, on full-width 2 dual + 4 single blocks of the
+    seeded model, at one 1024^2 sample and one fixed draw, after one
+    AdamW update from init (B = 0 at init makes dA exactly zero)."""
+    import dataclasses
+
+    import torch
+
+    from s3od_torch.datagen import lora as L
+    from s3od_torch.models.mmdit import MMDiT
+    from s3od_torch.ops.precision import set_exact_float32
+
+    cut = dataclasses.replace(pipe.cfg, num_dual_blocks=2, num_single_blocks=4,
+                              feature_taps=(0, 1, 2, 3))
+    dev = pipe.device
+    m32 = MMDiT(cut, device="meta", dtype=torch.float32).to_empty(device=dev)
+    src = pipe.model.state_dict()
+    with torch.no_grad():
+        for name, p in m32.state_dict().items():
+            p.copy_(src[name].float())
+    m16 = MMDiT(cut, device=dev, dtype=torch.bfloat16)
+    m16.load_state_dict(m32.state_dict())
+    set_exact_float32()
+    lcfg = L.LoRAConfig()
+    gen = lambda: torch.Generator(device=dev).manual_seed(21)
+    lora = L.init_lora_params(gen(), m16, lcfg)
+    step = L.make_lora_train_step(m16, lcfg, L.lora_optimizer(lora, LORA_LR))
+    step(lora, batch, gen())
+    m32.requires_grad_(False)
+
+    def grads(model, dtype):
+        for p in L.lora_parameters(lora):
+            p.grad = None
+        loss = L.lora_loss(model, lora, lcfg, batch, gen(), compute_dtype=dtype)
+        loss.backward()
+        ps = L.lora_parameters(lora)
+        return {"loss": loss.detach().reshape(1),
+                "A": torch.cat([p.grad.flatten() for p in ps[::2]]),
+                "B": torch.cat([p.grad.flatten() for p in ps[1::2]])}
+
+    from s3od_torch.ops import flash_attention as fa
+
+    k7, k8 = fa.flash_attention_online.launches, fa.flash_attention_bwd.launches
+    g16 = grads(m16, torch.bfloat16)
+    k7, k8 = fa.flash_attention_online.launches - k7, fa.flash_attention_bwd.launches - k8
+    g32 = grads(m32, torch.float32)
+    err = {k: rel_norm(g16[k], g32[k]) for k in g32}
+    r["grad_bf16_vs_fp32"] = err
+    log(f"  (d) 2 dual + 4 single blocks, K7 + K8 launches {k7} + {k8} (want 6 + 6)")
+    check(k7 == 6 and k8 == 6, f"(d) K7/K8 launched {k7}/{k8}, want 6/6")
+    check(within("LoRA gradients, bf16 kernel route vs fp32 exact", err,
+                 LORA_GRAD_TOL), f"LoRA gradient agreement {err}")
+    del m16, m32, lora, step
+    torch.cuda.empty_cache()
+
+
+def lora_phase(results, pipe):
+    """The MMDiT's LoRA fine-tuning on the seeded FLUX.1-dev model of
+    `factory_phase` (bf16), K7 forward and K8 backward at D = 128 on
+    every attention: (a) full-width steps through `make_lora_train_step`
+    at the 1024^2 bucket (4096 + 512 = 4608 tokens; K7 and K8 exactly 57
+    launches a step; the loss at one fixed draw falls over 8 steps; step
+    ms, img/s, peak GiB without and with per-block recomputation, the
+    idle share); (b) one step at the 832 x 1216 bucket (3952 + 512 = 4464
+    tokens, padded to 4480); (c) every K8 call of a step at each bucket
+    against its plain version, with a planted dk x 1.01 caught, and K8 at
+    D = 128 timed against its bound and the SDPA backward; (d) gradient
+    agreement, bf16 kernels vs fp32 exact; (e) the adapters written by
+    `save_native` and loaded by `ConceptAttentionPipeline(lora=path)`,
+    which generates one 1024^2 image; (f) `flux_finetune.run` end to end
+    on the card at the tiny MMDiT configuration."""
+    import numpy as np
+    import torch
+
+    from s3od_torch.convert import load_native, save_factory_npz, save_native
+    from s3od_torch.datagen import flux_finetune as ff
+    from s3od_torch.datagen import lora as L
+    from s3od_torch.datagen.diffusion import ConceptAttentionPipeline
+    from s3od_torch.ops import flash_attention as fa
+
+    log("phase LoRA: FLUX.1-dev MMDiT (seeded, bf16), rank 16, alpha 16, "
+        f"AdamW lr {LORA_LR} (weight decay 1e-4), K7 + K8 at D = 128")
+    r = results["_lora"] = {}
+    dev = pipe.device
+    subprocess.run(["rm", "-rf", str(LORA_ROOT)], check=True)
+    root = lora_dataset(LORA_ROOT)
+    samples = ff.collect_samples(str(root / "data"), ["real"], str(root / "meta"))
+    check(len(samples) == 3, f"collect_samples found {len(samples)} of 3")
+    prompt = "a photograph of a tabby cat"
+    concepts = [FACTORY_CLASS, "background"]
+    text = {s["caption"]: pipe.text_encoders.encode([s["caption"]]) for s in samples}
+    emb = pipe.text_encoders.encode([prompt])
+    cemb, cpool = pipe.text_encoders.encode_concepts(concepts)
+    # T5-XXL is no longer needed: the captions are encoded
+    pipe.text_encoders.t5 = None
+    torch.cuda.empty_cache()
+    (hw0, b0), (hw1, _), (hw2, b2) = (lora_batch(pipe, s, text) for s in samples)
+    log(f"  samples: buckets {hw0}, {hw1}, {hw2}; tokens "
+        f"{b0['latents'].shape[1]} + {b0['txt'].shape[1]}, "
+        f"{b2['latents'].shape[1]} + {b2['txt'].shape[1]}")
+    check(hw0 == (1024, 1024) and hw2 == (832, 1216), "bucket of the samples")
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    k8d_kernel_checks(results, lambda *s, scale=1.0: (
+        torch.randn(*s, generator=gen, device=dev) * scale).to(torch.bfloat16))
+
+    model = pipe.model
+    blocks = model.cfg.num_dual_blocks + model.cfg.num_single_blocks
+    lcfg = L.LoRAConfig()
+    lora = L.init_lora_params(torch.Generator(device=dev).manual_seed(0), model, lcfg)
+    opt = L.lora_optimizer(lora, LORA_LR)
+    step = L.make_lora_train_step(model, lcfg, opt)
+    fixed = lambda: torch.Generator(device=dev).manual_seed(5)
+
+    # (a) 8 steps on one sample at one fixed draw, each a run of the main path
+    losses, times, counts = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(LORA_STEPS):
+        fa.flash_attention_online.launches = fa.flash_attention_bwd.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(lora, b0, fixed())))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts.append((fa.flash_attention_online.launches,
+                       fa.flash_attention_bwd.launches))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with torch.no_grad():
+        final = float(L.lora_loss(model, lora, lcfg, b0, fixed()))
+    step_ms = 1e3 * statistics.median(times[1:])
+    log(f"  (a) 1024^2 steps: loss at the fixed draw {[round(x, 5) for x in losses]}"
+        f" -> {final:.5f} after {LORA_STEPS}; step {step_ms:.1f} ms (median of "
+        f"{LORA_STEPS - 1}; first {1e3 * times[0]:.1f}), {1e3 / step_ms:.3f} img/s, "
+        f"peak {peak:.2f} GiB; K7, K8 launches a step {sorted(set(counts))}")
+    check(all(c == (blocks, blocks) for c in counts),
+          f"K7/K8 launches a step {counts}, want {blocks} each")
+    check(final < losses[0], f"the LoRA loss did not fall: {losses} -> {final}")
+    results[K8D]["launches"] = counts[-1][1]
+    r.update(losses=losses, loss_after=final, step_ms=step_ms,
+             first_step_ms=1e3 * times[0], img_per_s=1e3 / step_ms,
+             peak_gib=peak, launches_per_step=counts[-1])
+
+    # the step's device time by kernel and the idle share
+    rows = kernel_breakdown(lambda: step(lora, b0, fixed()), 1)
+    busy = sum(ms for _, ms, _ in rows)
+    r.update(busy_ms=busy, idle_share=1 - busy / step_ms,
+             top=[(k[:60], ms, c) for k, ms, c in rows[:10]])
+    log(f"  step by kernel (device ms, busy {busy:.1f} of {step_ms:.1f}: idle "
+        f"{100 * (1 - busy / step_ms):.1f}%):")
+    for key, ms, cnt in rows[:10]:
+        log(f"    {ms:8.3f} ms x{cnt:4d}  {key[:100]}")
+
+    # the same step with each block recomputed in the backward
+    remat = L.make_lora_train_step(model, lcfg, opt, remat=True)
+    remat(lora, b0, fixed())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention_online.launches = fa.flash_attention_bwd.launches = 0
+    t0 = time.perf_counter()
+    remat(lora, b0, fixed())
+    torch.cuda.synchronize()
+    r.update(remat_step_ms=1e3 * (time.perf_counter() - t0),
+             remat_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+             remat_launches=(fa.flash_attention_online.launches,
+                             fa.flash_attention_bwd.launches))
+    log(f"  with remat: step {r['remat_step_ms']:.1f} ms, peak "
+        f"{r['remat_peak_gib']:.2f} GiB, K7, K8 launches {r['remat_launches']}")
+    check(r["remat_launches"] == (2 * blocks, blocks), "remat launches")
+
+    # (b), (c) a step at each bucket, every K8 call against its plain version
+    real = fa.flash_attention_bwd
+    for tag, batch in (("1024^2", b0), ("832 x 1216", b2)):
+        seen = {"calls": 0, "err": 0.0, "planted": 1.0, "n": set()}
+
+        def shadow(q, k, v, o, lse, g, n_valid):
+            got = real(q, k, v, o, lse, g, n_valid)
+            ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, g, n_valid)
+            seen["calls"] += 1
+            seen["n"].add((tuple(q.shape), n_valid))
+            seen["err"] = max(seen["err"], *(rel_norm(a, b) for a, b in zip(got, ref)))
+            seen["planted"] = min(seen["planted"], rel_norm(got[1] * 1.01, ref[1]))
+            seen["max_abs"] = max(seen.get("max_abs", 0.0), *(
+                float((a.float() - b.float()).abs().max()) for a, b in zip(got, ref)))
+            return got
+
+        with standing_in(fa, "flash_attention_bwd", shadow):
+            loss = float(step(lora, batch, fixed()))
+        log(f"  ({'c' if batch is b0 else 'b'}) {tag} step: loss {loss:.5f}; "
+            f"{seen['calls']} K8 calls at {sorted(seen['n'])}, worst rel. norm "
+            f"vs plain {seen['err']:.3e} (<= {K8D_CALL_TOL}); planted dk x 1.01 "
+            f"reads {seen['planted']:.3e} at its least")
+        check(seen["calls"] == blocks and shadow.launches == blocks,
+              f"{tag}: {seen['calls']} K8 calls, {shadow.launches} launches")
+        check(seen["err"] <= K8D_CALL_TOL, f"{tag}: K8 vs plain {seen['err']}")
+        check(seen["planted"] > K8D_CALL_TOL, f"{tag}: the planted dk x 1.01 "
+              "went unnoticed")
+        check(np.isfinite(loss), f"{tag}: loss not finite")
+        r[f"k8_calls_{tag}"] = {"calls": seen["calls"], "rel_norm": seen["err"],
+                                "max_abs_err": seen["max_abs"],
+                                "planted_rel_norm": seen["planted"],
+                                "shapes": sorted(seen["n"])}
+        check(all(s == (24, 4608 if batch is b0 else 4480, 128)
+                  and nv == (4608 if batch is b0 else 4464)
+                  for s, nv in seen["n"]), f"{tag}: K8 shapes {seen['n']}")
+
+    # (e) the adapters on disk, merged by the pipeline, one 1024^2 image
+    path = str(LORA_ROOT / "flux_lora.npz")
+    save_native(path, lora, {"alpha": np.float32(lcfg.alpha),
+                             "rank": np.int32(lcfg.rank),
+                             "pack_order": np.bytes_(L.PACK_ORDER)})
+    tree, meta = load_native(path)
+    check(float(meta["alpha"]) == 16.0 and int(meta["rank"]) == 16,
+          "adapter state")
+    probe = model.dual_blocks[1].img_attn.qkv.weight
+    before = float(probe.float().square().sum())
+    lpipe = ConceptAttentionPipeline(model, text_encoders=pipe.text_encoders,
+                                     vae=pipe.vae, lora=path, device=dev)
+    name = "dual_blocks.1.img_attn.qkv.weight"
+    moved = rel_norm(lpipe.merged[name], probe)
+    fa.flash_attention_online.launches = 0
+    t0 = time.perf_counter()
+    out = lpipe(prompt, height=1024, width=1024, seed=7, concepts=concepts,
+                prompt_embeds=emb, concept_embeds=cemb, concept_pooled=cpool)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    k7 = fa.flash_attention_online.launches
+    want = (pipe.num_inference_steps - 3) * blocks + 3 * (blocks + model.cfg.num_dual_blocks)
+    log(f"  (e) adapters written and merged by the pipeline (||W' - W|| / "
+        f"||W|| {moved:.3e} on {name}); generate 1024^2 in {gen_s:.2f} s, "
+        f"K7 launches {k7} (want {want})")
+    check(moved > 0, "the merged weights equal the base")
+    check(float(probe.float().square().sum()) == before, "the merge changed the base")
+    check(k7 == want, f"LoRA generate: K7 launched {k7}, want {want}")
+    check(out.image.shape == (1024, 1024, 3) and out.image.dtype == np.uint8,
+          "LoRA generate: image")
+    check(all(np.isfinite(f).all() for f in out.features), "LoRA generate: taps")
+    r.update(merged_rel_change=moved, generate_s=gen_s, generate_k7=k7)
+    del lpipe, out
+
+    # (d) gradient agreement on 2 dual + 4 single blocks
+    lora_grad_agreement(pipe, b0, r)
+
+    # (f) the CLI end to end on the card, at the tiny configuration
+    from s3od_torch.datagen.text_encoding import TorchTextEncoders
+    from s3od_torch.models.mmdit import init_mmdit, tiny_mmdit_config
+    from s3od_torch.models.text_encoders import CLIPTextConfig, T5Config
+    from s3od_torch.models.vae import VAE, init_vae, tiny_vae_config
+
+    tcfg = tiny_mmdit_config()
+    tiny = init_mmdit(tcfg, torch.Generator(device=dev).manual_seed(31))
+    save_factory_npz(str(LORA_ROOT / "tiny_mmdit.npz"), tiny, tcfg)
+    vcfg = tiny_vae_config()
+    vae = VAE(*init_vae(vcfg, torch.Generator(device=dev).manual_seed(32)), vcfg,
+              device=dev)
+    enc = TorchTextEncoders.random_init(
+        33, T5Config(vocab_size=300, d_model=tcfg.text_dim, d_kv=16, d_ff=96,
+                     num_layers=2, num_heads=4),
+        CLIPTextConfig(vocab_size=400, hidden_size=tcfg.pooled_dim,
+                       intermediate_size=64, num_layers=2, num_heads=2),
+        max_t5_tokens=32, device=dev)
+
+    class SmallBuckets:
+        """64^2 images: the tiny VAE's 32 x 32 latents, 256 image tokens
+        (with 32 text tokens under the flash route's 1024: head_dim 24)."""
+
+        def resize_image(self, image):
+            from PIL import Image
+
+            return np.array(Image.fromarray(image).resize((64, 64))), (64, 64)
+
+    conf = dict(flux_checkpoint=str(LORA_ROOT / "tiny_mmdit.npz"),
+                input_dir=str(root / "data"), datasets=["real"],
+                metadata_dir=str(root / "meta"), rank=4, steps=3, lr=1e-3,
+                out_lora=str(LORA_ROOT / "tiny_lora.npz"), device=str(dev))
+    (LORA_ROOT / "finetune.yaml").write_text(json.dumps(conf))
+    t0 = time.perf_counter()
+    out_path = ff.run(str(LORA_ROOT / "finetune.yaml"), _vae=vae, _text=enc,
+                      _resizer=SmallBuckets())
+    cli_s = time.perf_counter() - t0
+    tree, meta = load_native(out_path)
+    leaves = [np.asarray(x) for d in tree["dual_blocks"] + tree["single_blocks"]
+              for x in _leaves(d)]
+    log(f"  (f) flux_finetune.run on the card (tiny MMDiT, 3 steps): {cli_s:.2f} s, "
+        f"{len(leaves)} adapter tensors, state {sorted(meta)}")
+    check(len(leaves) == 2 * (4 * tcfg.num_dual_blocks + 2 * tcfg.num_single_blocks)
+          and all(np.isfinite(x).all() for x in leaves)
+          and any(np.abs(x).max() > 0 for x in leaves[1::2]),
+          "CLI adapters: count, finite, B trained")
+    check(bytes(np.asarray(meta["pack_order"])) == L.PACK_ORDER, "CLI pack_order")
+    ConceptAttentionPipeline(tiny, text_encoders=enc, vae=vae, lora=out_path,
+                             device=dev)
+    r["cli_s"] = cli_s
+    subprocess.run(["rm", "-rf", str(LORA_ROOT)], check=True)
+
+
+def _leaves(node):
+    """A LoRA block's {'A', 'B'} leaves in order (nested dicts)."""
+    if "A" in node:
+        return [node["A"], node["B"]]
+    return [x for v in node.values() for x in _leaves(v)]
 
 
 def wrappers():
@@ -3073,8 +3547,6 @@ def grad_agreement_phase(results):
     deterministic) with K8 against K8's plain version as the backward,
     same forward (K8_GRAD_TOL). Then both with a planted K8 fault (dk x
     1.01 and x 1.1), which the second must catch."""
-    import contextlib
-
     import torch
 
     from s3od_torch.ops import flash_attention as fa
@@ -3127,15 +3599,8 @@ def grad_agreement_phase(results):
                                           / ref["qkv_k"].norm()) - 1)
         return out
 
-    @contextlib.contextmanager
     def k8_as(fn):
-        real = fa.flash_attention_bwd
-        fn.launches = 0
-        fa.flash_attention_bwd = fn
-        try:
-            yield
-        finally:
-            fa.flash_attention_bwd = real
+        return standing_in(fa, "flash_attention_bwd", fn)
 
     def show(tag, err, tol):
         bad = [k for k in tol if err[k] > tol[k]]
@@ -3296,7 +3761,9 @@ def main(argv=None) -> int:
     k7_phase(results)
     experiments_phase(results)
     torch.cuda.empty_cache()
-    factory_phase(results)
+    pipe = factory_phase(results)
+    lora_phase(results, pipe)
+    del pipe
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "s3od_tpu"))
     log(f"modules of jax or s3od_tpu loaded: {loaded}")
@@ -3317,6 +3784,7 @@ def main(argv=None) -> int:
                     "decoder": results["_decoder"],
                     "train": results["_train"],
                     "factory": results["_factory"],
+                    "lora": results["_lora"],
                     "experiments": results["_experiments"],
                     "kernel_extra": {k: {x: y for x, y in v.items()
                                          if x not in ("launches",)}

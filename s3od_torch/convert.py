@@ -374,6 +374,8 @@ def _flatten(tree, prefix=""):
             out.update(_flatten(v, f"{prefix}{i}/"))
     elif tree is None:
         out[prefix[:-1] + "#none"] = np.zeros((0,), np.float32)
+    elif isinstance(tree, torch.Tensor):
+        out[prefix[:-1]] = tree.detach().cpu().numpy()
     else:
         out[prefix[:-1]] = np.asarray(tree)
     return out

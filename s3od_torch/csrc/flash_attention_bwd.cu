@@ -1,10 +1,13 @@
-// K8: attention backward under the static softmax bound.
+// K8: attention backward, of the static-bound forward (K3/K6) and of the
+// online-softmax forward (K7).
 //
 // Replaces the TPU backward kernels of `s3od_tpu/ops/flash_attention.py`,
-// both reached from `_bwd_rule` -> `_flash_backward`:
+// both reached from `_bwd_rule` -> `_flash_backward`, the backward half of
+// the one `custom_vjp` that serves either forward:
 //   K8a `_bwd_fused_kernel` (via `_flash_backward_fused`: dq, dk and dv in
 //       one pass, with a full-sequence fp32 dk/dv scratch in VMEM, used
-//       while 2 * n_pad * D * 4 <= 6 MB: the 1024^2 path), and
+//       while 2 * n_pad * D * 4 <= 6 MB: the 1024^2 ViT path and the
+//       MMDiT's LoRA step at (24, 4608, 128)), and
 //   K8b `_bwd_dq_kernel` + `_bwd_dkv_kernel` (the split route for longer
 //       sequences: the 2048^2 path).
 // Both compute the same function; which one the TPU runs is a VMEM rule
@@ -15,11 +18,13 @@
 // memory: every output is one block's sum in a fixed order, bit-identical
 // from run to run, like the TPU's sequential grid.
 //
-// Semantics, kept to the letter (`_bwd_*_kernel`, scale = 1 because K2
-// folds D^-0.5 into q):
+// Semantics, kept to the letter (`_bwd_*_kernel`, scale = 1 because the
+// caller folds D^-0.5 into q):
 //   s = q k^T; keys at or past n_valid get -1e30 added;
 //   p = exp(min(s - lse, 0)) — the clamp keeps p <= 1 where the static
-//       bound left lse below an out-of-window row max;
+//       bound left lse below an out-of-window row max; with K7's lse,
+//       the exact log-sum-exp of the row, s - lse <= 0 already and the
+//       clamp changes nothing;
 //   dp = dO v^T; ds = p * (dp - delta), delta = rowsum(o * dO) in fp32
 //       (JAX computes it outside Pallas; here a small pass ahead of the
 //       kernels, `bwd_delta_kernel`, in fp32 from the bf16 o and dO);
@@ -32,65 +37,75 @@
 // Bound on the H100: the function needs 5 products of 2 BH N^2 D
 // operations (s, dp, dv, dk, dq). At ViT-B, 1024^2, batch 4 (BH = 48,
 // N = 4160, D = 64) that is 532 GFLOP, 0.538 ms at 989 TFLOP/s, over
-// ~100 MB of inputs and outputs (0.03 ms at 3.35 TB/s): compute-bound on
-// the tensor cores, with 2 BH N^2 exponentials (one in each kernel) at
-// ~3.9e12/s on the SFU as the second limit. This split design runs 7
-// products (s and dp in both kernels).
+// ~100 MB of inputs and outputs (0.03 ms at 3.35 TB/s); at the MMDiT's
+// (24, 4608, 128) 652 GFLOP, 0.660 ms, over 226 MB (0.068 ms): both
+// compute-bound on the tensor cores, with 2 BH N^2 exponentials (one in
+// each kernel; 1.02e9, 0.261 ms at ~3.9e12/s on the SFU at the MMDiT's
+// shape) as the second limit. This split design runs 7 products (s and dp
+// in both kernels; 0.923 ms at peak for the MMDiT's shape).
 //
 // Design, chosen by an explicit dispatch on D in the entry point below.
-// Both routes start with `bwd_delta_kernel`, one pass over o and dO in
+// Every route starts with `bwd_delta_kernel`, one pass over o and dO in
 // place of three PyTorch passes (two casts to fp32, a product, a sum),
 // which measured several times slower on the H100 (side experiment).
-//   D = 64 (ViT-B and ViT-L training): two warp-specialised wgmma kernels
-//     on `hopper.cuh`, K7's structure. Warpgroup 0 is the producer (one
-//     thread issues TMA loads through 3-D (D, N, BH) bf16 maps with the
-//     128-byte swizzle, and 2-D (N, BH) fp32 maps for lse and delta); the
-//     consumer warpgroups each own 64 of the block's rows and take turns
-//     issuing their products (a ring of named barriers), so one's
-//     exponentials run under the others' products. A turn issues tile j's
-//     two SS products with tile j - 1's two (dkv) or one (dq) RS products,
-//     whose A fragments are tile j - 1's bf16 P or dS packed from the
-//     accumulator in place. A 4-stage ring lets the producer run two tiles
-//     ahead, since a tile stays in use until the turn after its own. p is
-//     one MUFU.EX2 (`exp2_ftz`), which flushes p < 2^-126 to zero: such a
-//     p, and its dS, are below bf16's normal range too.
+//   D = 64 (ViT-B and ViT-L training) and D = 128 (the MMDiT's LoRA
+//     step): two warp-specialised wgmma kernels on `hopper.cuh`, K7's
+//     structure, templated on D. Warpgroup 0 is the producer (one thread
+//     issues TMA loads through 3-D (D, N, BH) bf16 maps with the 128-byte
+//     swizzle, a D = 128 row as two 64-column atoms, and 2-D (N, BH) fp32
+//     maps for lse and delta); the consumer warpgroups each own 64 of the
+//     block's rows and take turns issuing their products (a ring of named
+//     barriers), so one's exponentials run under the others' products.
+//     p is one MUFU.EX2 (`exp2_ftz`), which flushes p < 2^-126 to zero:
+//     such a p, and its dS, are below bf16's normal range too. A 4-stage
+//     ring lets the producer run ahead.
 //     - dkv: 2 consumer warpgroups (384 threads; 24 and 240 registers); a
-//       block owns 128 keys (K and V loaded once, 32 KB) and walks all
-//       N / 64 query tiles (Q, dO 8 KB each, lse and delta 256 bytes each,
-//       a stage). It computes in the transposed orientation: S^T = K Q^T
-//       and dP^T = V dO^T by SS wgmma m64n64k16 with the keys as M (K and
-//       V as stored are the K-major A operands, Q and dO the K-major B
+//       block owns 128 keys (K and V loaded once) and walks all N / 64
+//       query tiles (Q, dO, lse and delta of 64 queries a stage). It
+//       computes in the transposed orientation: S^T = K Q^T and dP^T =
+//       V dO^T by SS wgmma m64n64k16 with the keys as M (K and V as
+//       stored are the K-major A operands, Q and dO the K-major B
 //       operands); then P^T and dS^T sit in the accumulator layout and
-//       feed dV += P^T dO and dK += dS^T Q as RS A fragments, with dO and
-//       Q as stored the MN-major B operands. Registers a consumer thread:
-//       S^T, dP^T, dK, dV 32 fp32 each, P^T and dS^T 16 each (160: no
-//       room for a third warpgroup). Shared memory 32 KB + 4 x 16.5 KB =
-//       99 KB (+ alignment and 9 mbarriers).
-//     - dq: 3 consumer warpgroups (512 threads; 32 and 160 registers); a
-//       block owns 192 query rows (Q and dO loaded once, 48 KB; each
+//       feed dV += P^T dO and dK += dS^T Q as RS A fragments (m64nDk16),
+//       with dO and Q as stored the MN-major B operands.
+//       At D = 64 a turn issues tile j's two SS products with tile j - 1's
+//       two RS products (OVERLAP): S^T, dP^T, dK, dV hold 32 fp32 a thread
+//       each and P^T, dS^T 16 each, 160 registers. At D = 128 dK and dV
+//       hold 64 each, and the overlapped body's 224 (of 240) spilled in
+//       ptxas's report (144 bytes); a tile there takes two turns, its
+//       S^T, dP^T then its own dV, dK, the fragments replacing S^T and
+//       dP^T (192 live): no spill, and faster on the H100 than the
+//       overlapped body (`s3od_torch/experiments/k8_d128_shapes.py`).
+//       Shared memory 1 KB + K, V (32 KB at D = 64, 64 KB at 128) + 4
+//       stages of 16.5 or 32.5 KB + 9 mbarriers: 101,448 and 199,752 B.
+//     - dq: a block owns 64 NC query rows (Q and dO loaded once; each
 //       thread's two rows of lse and delta read once from global) and
-//       walks 64-key tiles of K and V (16 KB a stage) up to n_valid: tiles
-//       wholly past n_valid give p = exp(-1e30 ...) = 0 exactly and are
-//       skipped. S = Q K^T and dP = dO V^T by SS wgmma m64n64k16 (K and V
-//       the K-major B operands), dQ += dS K by RS wgmma with K the MN-major
-//       B operand. Registers: S, dP, dQ 32 fp32 each, dS 16. Shared
-//       memory 48 KB + 4 x 16 KB = 112 KB (+ alignment, barriers). Three
-//       warpgroups ran the dq kernel faster than two on the H100.
-//     Rows and keys at or past N (N = 4160 and 16448 are odd multiples of
-//     64, so the last 128- or 192-row block reaches past N): TMA fills q,
-//     dO, K and V there with zeros, within the head. The dkv kernel's
-//     64-row query tiles never cross N. In the dq kernel, lse and delta
-//     of rows past N load as 0 (a guarded read, never another head's), so
-//     p = exp(min(0 - 0, 0)) = 1 there: those rows' dS = 1 (0 - 0) = 0
-//     only because dO and V are zero, and they are not stored. Keys past
-//     N are past n_valid, so p = 0 for them in both kernels (and their K
-//     and V rows are zero). No dq, dk or dv row past N is stored.
+//       walks 64-key tiles of K and V up to n_valid: tiles wholly past
+//       n_valid give p = exp(-1e30 ...) = 0 exactly and are skipped. S =
+//       Q K^T and dP = dO V^T by SS wgmma m64n64k16 (K and V the K-major
+//       B operands), dQ += dS K by RS wgmma with K the MN-major B operand,
+//       tile j's S and dP issued with tile j - 1's dQ. Registers: S, dP 32
+//       fp32 each, dQ D / 2, dS 16. NC = 3 at D = 64 (512 threads, 160
+//       registers; three ran faster than two on the H100); NC = 2 at
+//       D = 128 (240 registers: at 160, three warpgroups' 144 spilled 240
+//       bytes in ptxas's report and ran slower). Shared memory 115,784 B
+//       at D = 64 and 197,704 B at 128.
+//     Rows and keys at or past N (N = 4160, 4480 and 16448 are odd
+//     multiples of 64, so the last 128- or 192-row block reaches past N):
+//     TMA fills q, dO, K and V there with zeros, within the head. The dkv
+//     kernel's 64-row query tiles never cross N. In the dq kernel, lse and
+//     delta of rows past N load as 0 (a guarded read, never another
+//     head's), so p = exp(min(0 - 0, 0)) = 1 there: those rows' dS =
+//     1 (0 - 0) = 0 only because dO and V are zero, and they are not
+//     stored. Keys past N are past n_valid, so p = 0 for them in both
+//     kernels (and their K and V rows are zero). No dq, dk or dv row past
+//     N is stored.
 //     Why two kernels and not FlashAttention-3's single pass (5 products,
 //     dQ summed across key blocks by fp32 atomics and converted by a
 //     second pass): the split keeps every output one block's sum in a
 //     fixed order, bit-identical from run to run like the TPU's
-//     sequential grid, and it already runs under SDPA's backward; the
-//     single pass was not built, so its time is not measured.
+//     sequential grid; the single pass was not built, so its time is not
+//     measured.
 //   D = 32 (the committed tiny checkpoints): the first, mma.sync kernels
 //     below: dkv, a block of 4 warps owning 64 keys (16 a warp, K and V
 //     held as A fragments) over every 64-row query tile, double-buffering
@@ -402,52 +417,58 @@ int launch_mma(const bf16* q, const bf16* k, const bf16* v, const bf16* g, const
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- D = 64: TMA + wgmma, warp-specialised ---------------------------------
+// ---- D = 64 and 128: TMA + wgmma, warp-specialised -------------------------
 
 namespace wg {
 
 using namespace s3od::hopper;
 
-constexpr int D = 64;
-// The dkv kernel: 2 consumer warpgroups, 128 keys a block, 240 registers
-// a consumer thread; the dq kernel: 3 consumer warpgroups, 192 query rows
-// a block, 160 registers (its accumulators are a third smaller).
-constexpr int DKV_NC = 2, DQ_NC = 3;
-constexpr int BLOCK = 64 * DKV_NC;   // keys of a dkv block
-constexpr int DQ_ROWS = 64 * DQ_NC;  // query rows of a dq block
-constexpr int T = 64;                // rows of a streamed tile: queries (dkv), keys (dq)
+constexpr int T = 64;  // rows of a streamed tile: queries (dkv), keys (dq)
 constexpr int STAGES = 4;
-constexpr int TILE = T * D;  // elements of a 64-row tile (8 KB)
-constexpr uint32_t TILE_BYTES = TILE * 2;
+constexpr int TATOM = T * 64;  // elements of a 64-row, 64-column swizzle atom (8 KB)
 constexpr float LOG2E = 1.4426950408889634f;
 
-// 1024 bytes of alignment slack; K and V (dkv) or Q and dO (dq), 128 rows
-// each; the ring; 1 + 2 STAGES mbarriers.
-constexpr int DKV_SMEM = 1024 + 2 * BLOCK * D * 2 + STAGES * (2 * TILE * 2 + 2 * T * 4) + (1 + 2 * STAGES) * 8;
-constexpr int DQ_SMEM = 1024 + 2 * DQ_ROWS * D * 2 + STAGES * 2 * TILE * 2 + (1 + 2 * STAGES) * 8;
+// 1024 bytes of alignment slack; the block's two resident tiles, 64 NC rows
+// each (K and V in dkv, Q and dO in dq); the ring; 1 + 2 STAGES mbarriers.
+template <int D, int NC>
+constexpr int dkv_smem() {
+  return 1024 + 2 * 64 * NC * D * 2 + STAGES * (2 * T * D * 2 + 2 * T * 4) + (1 + 2 * STAGES) * 8;
+}
+template <int D, int NC>
+constexpr int dq_smem() {
+  return 1024 + 2 * 64 * NC * D * 2 + STAGES * 2 * T * D * 2 + (1 + 2 * STAGES) * 8;
+}
 
 __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
   return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
 }
 
-// acc (64 x 64) = A B^T over D = 64: A the warpgroup's 64 rows, B a 64-row
-// tile, both as stored (K-major).
-__device__ __forceinline__ void mma_abt(float (&acc)[32], const bf16* a, const bf16* b) {
+// acc (64 x 64) = A B^T over D: A the warpgroup's 64 rows, B a 64-row
+// tile, both as stored (K-major), D / 64 atoms side by side `a_atom` and
+// `b_atom` elements apart.
+template <int D>
+__device__ __forceinline__ void mma_abt(float (&acc)[32], const bf16* a, int a_atom, const bf16* b,
+                                        int b_atom) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    WgmmaSS<64>::mma(acc, desc_sw128(a + kk * 16), desc_sw128(b + kk * 16), kk > 0);
+    WgmmaSS<64>::mma(acc, desc_sw128(a + (kk / 4) * a_atom + (kk % 4) * 16),
+                     desc_sw128(b + (kk / 4) * b_atom + (kk % 4) * 16), kk > 0);
 }
 
-// acc (64 x 64) += A B over 64 rows of B: A the bf16 fragments in
-// registers, B a 64-row tile as stored (MN-major).
-__device__ __forceinline__ void mma_ab(float (&acc)[32], const uint32_t (&a)[4][4], const bf16* b) {
+// acc (64 x D) += A B over 64 rows of B: A the bf16 fragments in
+// registers, B a 64-row tile as stored (MN-major, its atoms TATOM apart).
+template <int D>
+__device__ __forceinline__ void mma_ab(float (&acc)[D / 2], const uint32_t (&a)[4][4],
+                                       const bf16* b) {
 #pragma unroll
-  for (int kk = 0; kk < T / 16; ++kk) WgmmaRS<64>::mma(acc, a[kk], desc_sw128(b + kk * 16 * 64, TILE * 2), 1);
+  for (int kk = 0; kk < T / 16; ++kk)
+    WgmmaRS<D>::mma(acc, a[kk], desc_sw128(b + kk * 16 * 64, TATOM * 2), 1);
 }
 
-// Stores this thread's part of a 64 x 64 fp32 accumulator (rows r0 and
+// Stores this thread's part of a 64 x D fp32 accumulator (rows r0 and
 // r0 + 8) as bf16 rows of `out`, rows at or past n skipped.
-__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[32], int r0, int quad,
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[D / 2], int r0, int quad,
                                            int n) {
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
@@ -460,19 +481,27 @@ __device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[32], in
   }
 }
 
-__global__ void __launch_bounds__(ws_threads(DKV_NC), 1)
-    bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_k,  // boxes of 128 rows
+// OVERLAP: a turn issues query tile qt's S^T and dP^T with tile qt - 1's
+// dV and dK (S^T, dP^T, dK, dV and both fragments live at once); else a
+// tile takes two turns, its dV and dK after its own S^T and dP^T, and the
+// fragments replace S^T and dP^T.
+template <int D, int NC, bool OVERLAP>
+__global__ void __launch_bounds__(ws_threads(NC), 1)
+    bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_k,  // boxes of 64 NC rows
                    const __grid_constant__ CUtensorMap map_v,
                    const __grid_constant__ CUtensorMap map_q,  // boxes of 64 rows
                    const __grid_constant__ CUtensorMap map_g,
                    const __grid_constant__ CUtensorMap map_l,  // fp32, boxes of 64
                    const __grid_constant__ CUtensorMap map_d, bf16* __restrict__ dk,
                    bf16* __restrict__ dv, int n, int n_valid) {
+  constexpr int ATOMS = D / 64, BLOCK = 64 * NC;
+  constexpr int KATOM = BLOCK * 64;  // elements of one K or V atom
+  constexpr int TILE = ATOMS * TATOM;
   extern __shared__ unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(align1024(smem_raw));  // 128 keys
-  bf16* sV = sK + BLOCK * D;
-  bf16* sQ = sV + BLOCK * D;        // [STAGES][64][64]
-  bf16* sG = sQ + STAGES * TILE;   // [STAGES][64][64]
+  bf16* sK = reinterpret_cast<bf16*>(align1024(smem_raw));  // [ATOMS][BLOCK][64]
+  bf16* sV = sK + ATOMS * KATOM;
+  bf16* sQ = sV + ATOMS * KATOM;   // [STAGES][ATOMS][64][64]
+  bf16* sG = sQ + STAGES * TILE;   // [STAGES][ATOMS][64][64]
   float* sL = reinterpret_cast<float*>(sG + STAGES * TILE);  // [STAGES][64]
   float* sD = sL + STAGES * T;                               // [STAGES][64]
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(sD + STAGES * T);
@@ -486,7 +515,7 @@ __global__ void __launch_bounds__(ws_threads(DKV_NC), 1)
     mbar_init(kv_full, 1);
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], DKV_NC * 128);
+      mbar_init(&empty[s], NC * 128);
     }
     fence_barrier_init();
   }
@@ -494,47 +523,53 @@ __global__ void __launch_bounds__(ws_threads(DKV_NC), 1)
 
   const int wgi = threadIdx.x / 128;
   if (wgi == 0) {
-    setmaxnreg_dec<ws_producer_regs(DKV_NC)>();
+    setmaxnreg_dec<ws_producer_regs(NC)>();
     if (threadIdx.x == 0) {
       mbar_expect_tx(kv_full, 2 * BLOCK * D * 2);
-      tma_load_3d(sK, &map_k, kv_full, 0, k0, bh);
-      tma_load_3d(sV, &map_v, kv_full, 0, k0, bh);
+#pragma unroll
+      for (int a = 0; a < ATOMS; ++a) {
+        tma_load_3d(sK + a * KATOM, &map_k, kv_full, a * 64, k0, bh);
+        tma_load_3d(sV + a * KATOM, &map_v, kv_full, a * 64, k0, bh);
+      }
       for (int qt = 0; qt < nqt; ++qt) {
         const int s = qt % STAGES, ph = (qt / STAGES) & 1;
         mbar_wait(&empty[s], ph ^ 1);
-        mbar_expect_tx(&full[s], 2 * TILE_BYTES + 2 * T * 4);
-        tma_load_3d(sQ + s * TILE, &map_q, &full[s], 0, qt * T, bh);
-        tma_load_3d(sG + s * TILE, &map_g, &full[s], 0, qt * T, bh);
+        mbar_expect_tx(&full[s], 2 * TILE * 2 + 2 * T * 4);
+#pragma unroll
+        for (int a = 0; a < ATOMS; ++a) {
+          tma_load_3d(sQ + s * TILE + a * TATOM, &map_q, &full[s], a * 64, qt * T, bh);
+          tma_load_3d(sG + s * TILE + a * TATOM, &map_g, &full[s], a * 64, qt * T, bh);
+        }
         tma_load_2d(sL + s * T, &map_l, &full[s], qt * T, bh);
         tma_load_2d(sD + s * T, &map_d, &full[s], qt * T, bh);
       }
     }
   } else {
-    setmaxnreg_inc<ws_consumer_regs(DKV_NC)>();
+    setmaxnreg_inc<ws_consumer_regs(NC)>();
     const int half = wgi - 1, t = threadIdx.x - 128 * wgi, quad = t & 3;
     // This thread's two keys (rows of S^T); keys at or past n_valid get
     // the bias -1e30, so p = 0 for them.
     const int r0 = k0 + half * 64 + (t >> 5) * 16 + ((t & 31) >> 2);
     const bool any_dead = r0 + 8 >= n_valid;
     const float bias0 = r0 >= n_valid ? NEG_INF : 0.f, bias1 = r0 + 8 >= n_valid ? NEG_INF : 0.f;
-    const bf16* kh = sK + half * TILE;
-    const bf16* vh = sV + half * TILE;
+    const bf16* kh = sK + half * 64 * 64;  // this warpgroup's rows of each atom
+    const bf16* vh = sV + half * 64 * 64;
 
-    float st[32], dpt[32], dka[32], dva[32];
+    float st[32], dpt[32], dka[D / 2], dva[D / 2];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) dka[i] = dva[i] = 0.f;
-    uint32_t pa[4][4], da[4][4];  // bf16 P^T and dS^T of the previous tile
+    for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+    uint32_t pa[4][4], da[4][4];  // bf16 P^T and dS^T
 
     auto issue_sd = [&](int qt) {  // S^T = K Q^T, dP^T = V dO^T
       const int s = qt % STAGES;
-      mma_abt(st, kh, sQ + s * TILE);
-      mma_abt(dpt, vh, sG + s * TILE);
+      mma_abt<D>(st, kh, KATOM, sQ + s * TILE, TATOM);
+      mma_abt<D>(dpt, vh, KATOM, sG + s * TILE, TATOM);
       wgmma_commit();
     };
     auto issue_kv = [&](int qt) {  // dV += P^T dO, dK += dS^T Q
       const int s = qt % STAGES;
-      mma_ab(dva, pa, sG + s * TILE);
-      mma_ab(dka, da, sQ + s * TILE);
+      mma_ab<D>(dva, pa, sG + s * TILE);
+      mma_ab<D>(dka, da, sQ + s * TILE);
       wgmma_commit();
     };
     // P^T and dS^T of query tile qt in place; lse and delta are per
@@ -568,75 +603,97 @@ __global__ void __launch_bounds__(ws_threads(DKV_NC), 1)
       pack_a(pa, st);
       pack_a(da, dpt);
     };
-
-    mbar_wait(kv_full, 0);
-    turns_open<DKV_NC>(half);
-    // Query tile 0: S^T and dP^T only.
-    mbar_wait(&full[0], 0);
-    turn_begin(half);
-    wgmma_fence();
-    issue_sd(0);
-    turn_end<DKV_NC>(half, false);
-    wgmma_wait<0>();
-    fence_regs(st);
-    fence_regs(dpt);
-    grads(0);
-    // Tiles 1..: S^T, dP^T of qt with dV, dK of qt - 1.
-    for (int qt = 1; qt < nqt; ++qt) {
+    // S^T and dP^T of tile qt in one turn, then its gradients.
+    auto sd_turn = [&](int qt) {
       mbar_wait(&full[qt % STAGES], (qt / STAGES) & 1);
+      turn_begin(half);
+      wgmma_fence();
+      issue_sd(qt);
+      turn_end<NC>(half, false);
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+      grads(qt);
+    };
+    // dV and dK of tile qt in one turn (the block's last when `last`).
+    auto kv_turn = [&](int qt, bool last) {
       turn_begin(half);
       fence_regs(dva);
       fence_regs(dka);
       fence_regs(pa);
       fence_regs(da);
       wgmma_fence();
-      issue_sd(qt);
-      issue_kv(qt - 1);
-      turn_end<DKV_NC>(half, false);
+      issue_kv(qt);
+      turn_end<NC>(half, last);
       wgmma_wait<0>();
-      fence_regs(st);
-      fence_regs(dpt);
       fence_regs(dva);
       fence_regs(dka);
       fence_regs(pa);
-      fence_regs(da);  // tile qt - 1's fragments stay until its products are done
-      mbar_arrive(&empty[(qt - 1) % STAGES]);
-      grads(qt);
-    }
-    // The last tile's dV and dK.
-    turn_begin(half);
-    fence_regs(dva);
-    fence_regs(dka);
-    fence_regs(pa);
-    fence_regs(da);
-    wgmma_fence();
-    issue_kv(nqt - 1);
-    turn_end<DKV_NC>(half, true);
-    wgmma_wait<0>();
-    fence_regs(dva);
-    fence_regs(dka);
+      fence_regs(da);
+    };
 
-    store_rows(dk + (size_t)bh * n * D, dka, r0, quad, n);
-    store_rows(dv + (size_t)bh * n * D, dva, r0, quad, n);
+    mbar_wait(kv_full, 0);
+    turns_open<NC>(half);
+    if constexpr (OVERLAP) {
+      // Query tile 0: S^T and dP^T only.
+      sd_turn(0);
+      // Tiles 1..: S^T, dP^T of qt with dV, dK of qt - 1.
+      for (int qt = 1; qt < nqt; ++qt) {
+        mbar_wait(&full[qt % STAGES], (qt / STAGES) & 1);
+        turn_begin(half);
+        fence_regs(dva);
+        fence_regs(dka);
+        fence_regs(pa);
+        fence_regs(da);
+        wgmma_fence();
+        issue_sd(qt);
+        issue_kv(qt - 1);
+        turn_end<NC>(half, false);
+        wgmma_wait<0>();
+        fence_regs(st);
+        fence_regs(dpt);
+        fence_regs(dva);
+        fence_regs(dka);
+        fence_regs(pa);
+        fence_regs(da);  // tile qt - 1's fragments stay until its products are done
+        mbar_arrive(&empty[(qt - 1) % STAGES]);
+        grads(qt);
+      }
+      // The last tile's dV and dK.
+      kv_turn(nqt - 1, true);
+    } else {
+      for (int qt = 0; qt < nqt; ++qt) {
+        sd_turn(qt);
+        kv_turn(qt, qt == nqt - 1);
+        mbar_arrive(&empty[qt % STAGES]);
+      }
+    }
+
+    store_rows<D>(dk + (size_t)bh * n * D, dka, r0, quad, n);
+    store_rows<D>(dv + (size_t)bh * n * D, dva, r0, quad, n);
   }
 }
 
-__global__ void __launch_bounds__(ws_threads(DQ_NC), 1)
-    bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,  // boxes of 192 rows
+template <int D, int NC>
+__global__ void __launch_bounds__(ws_threads(NC), 1)
+    bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,  // boxes of 64 NC rows
                   const __grid_constant__ CUtensorMap map_g,
                   const __grid_constant__ CUtensorMap map_k,  // boxes of 64 rows
                   const __grid_constant__ CUtensorMap map_v, const float* __restrict__ lse,
                   const float* __restrict__ delta, bf16* __restrict__ dq, int n, int n_valid) {
+  constexpr int ATOMS = D / 64, ROWS = 64 * NC;
+  constexpr int QATOM = ROWS * 64;  // elements of one Q or dO atom
+  constexpr int TILE = ATOMS * TATOM;
   extern __shared__ unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(align1024(smem_raw));  // 192 query rows
-  bf16* sG = sQ + DQ_ROWS * D;
-  bf16* sK = sG + DQ_ROWS * D;        // [STAGES][64][64]
-  bf16* sV = sK + STAGES * TILE;   // [STAGES][64][64]
+  bf16* sQ = reinterpret_cast<bf16*>(align1024(smem_raw));  // [ATOMS][ROWS][64]
+  bf16* sG = sQ + ATOMS * QATOM;
+  bf16* sK = sG + ATOMS * QATOM;   // [STAGES][ATOMS][64][64]
+  bf16* sV = sK + STAGES * TILE;   // [STAGES][ATOMS][64][64]
   uint64_t* qg_full = reinterpret_cast<uint64_t*>(sV + STAGES * TILE);
   uint64_t* full = qg_full + 1;
   uint64_t* empty = full + STAGES;
 
-  const int bh = blockIdx.y, q0 = blockIdx.x * DQ_ROWS;
+  const int bh = blockIdx.y, q0 = blockIdx.x * ROWS;
   const int nkt = (n_valid + T - 1) / T;  // tiles wholly past n_valid add exact zeros
   const int edge_tile = n_valid / T;      // the first tile holding a key at or past n_valid
 
@@ -644,7 +701,7 @@ __global__ void __launch_bounds__(ws_threads(DQ_NC), 1)
     mbar_init(qg_full, 1);
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], DQ_NC * 128);
+      mbar_init(&empty[s], NC * 128);
     }
     fence_barrier_init();
   }
@@ -652,21 +709,27 @@ __global__ void __launch_bounds__(ws_threads(DQ_NC), 1)
 
   const int wgi = threadIdx.x / 128;
   if (wgi == 0) {
-    setmaxnreg_dec<ws_producer_regs(DQ_NC)>();
+    setmaxnreg_dec<ws_producer_regs(NC)>();
     if (threadIdx.x == 0) {
-      mbar_expect_tx(qg_full, 2 * DQ_ROWS * D * 2);
-      tma_load_3d(sQ, &map_q, qg_full, 0, q0, bh);
-      tma_load_3d(sG, &map_g, qg_full, 0, q0, bh);
+      mbar_expect_tx(qg_full, 2 * ROWS * D * 2);
+#pragma unroll
+      for (int a = 0; a < ATOMS; ++a) {
+        tma_load_3d(sQ + a * QATOM, &map_q, qg_full, a * 64, q0, bh);
+        tma_load_3d(sG + a * QATOM, &map_g, qg_full, a * 64, q0, bh);
+      }
       for (int kt = 0; kt < nkt; ++kt) {
         const int s = kt % STAGES, ph = (kt / STAGES) & 1;
         mbar_wait(&empty[s], ph ^ 1);
-        mbar_expect_tx(&full[s], 2 * TILE_BYTES);
-        tma_load_3d(sK + s * TILE, &map_k, &full[s], 0, kt * T, bh);
-        tma_load_3d(sV + s * TILE, &map_v, &full[s], 0, kt * T, bh);
+        mbar_expect_tx(&full[s], 2 * TILE * 2);
+#pragma unroll
+        for (int a = 0; a < ATOMS; ++a) {
+          tma_load_3d(sK + s * TILE + a * TATOM, &map_k, &full[s], a * 64, kt * T, bh);
+          tma_load_3d(sV + s * TILE + a * TATOM, &map_v, &full[s], a * 64, kt * T, bh);
+        }
       }
     }
   } else {
-    setmaxnreg_inc<ws_consumer_regs(DQ_NC)>();
+    setmaxnreg_inc<ws_consumer_regs(NC)>();
     const int half = wgi - 1, t = threadIdx.x - 128 * wgi, quad = t & 3;
     const int r0 = q0 + half * 64 + (t >> 5) * 16 + ((t & 31) >> 2), r1 = r0 + 8;
     // lse and delta of this thread's two rows; 0 past N (those rows are
@@ -675,22 +738,22 @@ __global__ void __launch_bounds__(ws_threads(DQ_NC), 1)
     const float* db = delta + (size_t)bh * n;
     const float nl0 = r0 < n ? -lb[r0] * LOG2E : 0.f, nl1 = r1 < n ? -lb[r1] * LOG2E : 0.f;
     const float dl0 = r0 < n ? db[r0] : 0.f, dl1 = r1 < n ? db[r1] : 0.f;
-    const bf16* qh = sQ + half * TILE;
-    const bf16* gh = sG + half * TILE;
+    const bf16* qh = sQ + half * 64 * 64;  // this warpgroup's rows of each atom
+    const bf16* gh = sG + half * 64 * 64;
 
-    float sa[32], dpa[32], dqa[32];
+    float sa[32], dpa[32], dqa[D / 2];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) dqa[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
     uint32_t da[4][4];  // bf16 dS of the previous tile
 
     auto issue_sd = [&](int kt) {  // S = Q K^T, dP = dO V^T
       const int s = kt % STAGES;
-      mma_abt(sa, qh, sK + s * TILE);
-      mma_abt(dpa, gh, sV + s * TILE);
+      mma_abt<D>(sa, qh, QATOM, sK + s * TILE, TATOM);
+      mma_abt<D>(dpa, gh, QATOM, sV + s * TILE, TATOM);
       wgmma_commit();
     };
     auto issue_dq = [&](int kt) {  // dQ += dS K
-      mma_ab(dqa, da, sK + (kt % STAGES) * TILE);
+      mma_ab<D>(dqa, da, sK + (kt % STAGES) * TILE);
       wgmma_commit();
     };
     // dS of key tile kt in place of S. EDGE: the tile holds a key at or
@@ -717,13 +780,13 @@ __global__ void __launch_bounds__(ws_threads(DQ_NC), 1)
     };
 
     mbar_wait(qg_full, 0);
-    turns_open<DQ_NC>(half);
+    turns_open<NC>(half);
     // Key tile 0: S and dP only.
     mbar_wait(&full[0], 0);
     turn_begin(half);
     wgmma_fence();
     issue_sd(0);
-    turn_end<DQ_NC>(half, false);
+    turn_end<NC>(half, false);
     wgmma_wait<0>();
     fence_regs(sa);
     fence_regs(dpa);
@@ -737,7 +800,7 @@ __global__ void __launch_bounds__(ws_threads(DQ_NC), 1)
       wgmma_fence();
       issue_sd(kt);
       issue_dq(kt - 1);
-      turn_end<DQ_NC>(half, false);
+      turn_end<NC>(half, false);
       wgmma_wait<0>();
       fence_regs(sa);
       fence_regs(dpa);
@@ -752,23 +815,26 @@ __global__ void __launch_bounds__(ws_threads(DQ_NC), 1)
     fence_regs(da);
     wgmma_fence();
     issue_dq(nkt - 1);
-    turn_end<DQ_NC>(half, true);
+    turn_end<NC>(half, true);
     wgmma_wait<0>();
     fence_regs(dqa);
 
-    store_rows(dq + (size_t)bh * n * D, dqa, r0, quad, n);
+    store_rows<D>(dq + (size_t)bh * n * D, dqa, r0, quad, n);
   }
 }
 
+// The two kernels at head dim D: the dkv kernel with DKV_NC consumer
+// warpgroups (OVERLAP as above), the dq kernel with DQ_NC.
+template <int D, int DKV_NC, int DQ_NC, bool OVERLAP>
 int launch_wgmma(const bf16* q, const bf16* k, const bf16* v, const bf16* g, const float* lse,
                  const float* delta, bf16* dq, bf16* dk, bf16* dv, int bh, int n, int n_valid,
                  cudaStream_t st) {
-  // bf16 (D, N, BH) maps in boxes of 192 rows (Q, dO for dq), 128 (K, V
-  // for dkv) and 64 (the streamed tiles); fp32 (N, BH) maps of lse and
-  // delta in boxes of 64.
+  // bf16 (D, N, BH) maps in boxes of 64 columns and 64 DQ_NC rows (Q, dO
+  // for dq), 64 DKV_NC (K, V for dkv) and 64 (the streamed tiles); fp32
+  // (N, BH) maps of lse and delta in boxes of 64.
   const uint64_t dims[3] = {(uint64_t)D, (uint64_t)n, (uint64_t)bh};
   const uint64_t strides[2] = {(uint64_t)D * 2, (uint64_t)n * D * 2};
-  const uint32_t box_kv[3] = {64, BLOCK, 1}, box_qg[3] = {64, DQ_ROWS, 1},
+  const uint32_t box_kv[3] = {64, 64 * DKV_NC, 1}, box_qg[3] = {64, 64 * DQ_NC, 1},
                  box_tile[3] = {64, T, 1};
   const uint64_t dims_r[2] = {(uint64_t)n, (uint64_t)bh};
   const uint64_t strides_r[1] = {(uint64_t)n * 4};
@@ -783,17 +849,20 @@ int launch_wgmma(const bf16* q, const bf16* k, const bf16* v, const bf16* g, con
   if (!err) err = encode_f32_map(&map_l, lse, 2, dims_r, strides_r, box_r);
   if (!err) err = encode_f32_map(&map_d, delta, 2, dims_r, strides_r, box_r);
   if (err) return err;
-  cudaError_t e = cudaFuncSetAttribute(bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       DKV_SMEM);
+  constexpr int smem_kv = dkv_smem<D, DKV_NC>(), smem_q = dq_smem<D, DQ_NC>();
+  static_assert(smem_kv <= 232448 && smem_q <= 232448, "over a block's shared memory");
+  auto* dkv_kernel = bwd_dkv_kernel<D, DKV_NC, OVERLAP>;
+  auto* dq_kernel = bwd_dq_kernel<D, DQ_NC>;
+  cudaError_t e = cudaFuncSetAttribute(dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DQ_SMEM);
+    e = cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
   if (e != cudaSuccess) return static_cast<int>(e);
-  bwd_dkv_kernel<<<dim3((n + BLOCK - 1) / BLOCK, bh), ws_threads(DKV_NC), DKV_SMEM, st>>>(blk[2], blk[3], tile[0], tile[1], map_l, map_d,
-                                                   dk, dv, n, n_valid);
+  dkv_kernel<<<dim3((n + 64 * DKV_NC - 1) / (64 * DKV_NC), bh), ws_threads(DKV_NC), smem_kv, st>>>(
+      blk[2], blk[3], tile[0], tile[1], map_l, map_d, dk, dv, n, n_valid);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  bwd_dq_kernel<<<dim3((n + DQ_ROWS - 1) / DQ_ROWS, bh), ws_threads(DQ_NC), DQ_SMEM, st>>>(blk[0], blk[1], tile[2], tile[3], lse, delta, dq, n,
-                                                 n_valid);
+  dq_kernel<<<dim3((n + 64 * DQ_NC - 1) / (64 * DQ_NC), bh), ws_threads(DQ_NC), smem_q, st>>>(
+      blk[0], blk[1], tile[2], tile[3], lse, delta, dq, n, n_valid);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -839,15 +908,15 @@ int launch_delta(const bf16* o, const bf16* g, float* delta, int bh, int n, cuda
 
 // q, k, v, o, g (the output's cotangent), dq, dk, dv: (bh, n, d) bf16; lse:
 // (bh, n) fp32; delta: (bh, n) fp32 scratch, written here; all 16-byte
-// aligned. n a multiple of 64, d in {32, 64}, 0 < n_valid <= n (checked by
-// the Python wrapper). D = 64 takes the wgmma kernels, D = 32 the mma.sync
-// kernels; both after the delta pass.
+// aligned. n a multiple of 64, d in {32, 64, 128}, 0 < n_valid <= n (checked
+// by the Python wrapper). D = 64 and 128 take the wgmma kernels, D = 32 the
+// mma.sync kernels; all after the delta pass.
 extern "C" int s3od_flash_attention_bwd(const void* q, const void* k, const void* v,
                                         const void* o, const void* g, const void* lse,
                                         void* delta, void* dq, void* dk, void* dv, int bh,
                                         int n, int d, int n_valid, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n <= 0 || n % 64 || n_valid <= 0 || n_valid > n || (d != 64 && d != 32))
+  if (n <= 0 || n % 64 || n_valid <= 0 || n_valid > n || (d != 128 && d != 64 && d != 32))
     return static_cast<int>(cudaErrorInvalidValue);
   const bf16* qq = static_cast<const bf16*>(q);
   const bf16* kk = static_cast<const bf16*>(k);
@@ -859,9 +928,17 @@ extern "C" int s3od_flash_attention_bwd(const void* q, const void* k, const void
   bf16* oq = static_cast<bf16*>(dq);
   bf16* ok = static_cast<bf16*>(dk);
   bf16* ov = static_cast<bf16*>(dv);
+  if (d == 128) {
+    const int err = launch_delta<128>(oo, gg, dd, bh, n, st);
+    return err ? err
+               : wg::launch_wgmma<128, 2, 2, false>(qq, kk, vv, gg, ll, dd, oq, ok, ov, bh, n,
+                                                     n_valid, st);
+  }
   if (d == 64) {
     const int err = launch_delta<64>(oo, gg, dd, bh, n, st);
-    return err ? err : wg::launch_wgmma(qq, kk, vv, gg, ll, dd, oq, ok, ov, bh, n, n_valid, st);
+    return err ? err
+               : wg::launch_wgmma<64, 2, 3, true>(qq, kk, vv, gg, ll, dd, oq, ok, ov, bh, n,
+                                                   n_valid, st);
   }
   const int err = launch_delta<32>(oo, gg, dd, bh, n, st);
   return err ? err : launch_mma<32>(qq, kk, vv, gg, ll, dd, oq, ok, ov, bh, n, n_valid, st);

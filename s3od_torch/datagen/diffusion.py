@@ -33,8 +33,6 @@ import torch
 from s3od_torch.models.mmdit import MMDiT, minmax_normalize
 from s3od_torch.utils import compute_dtype_for, resolve_device
 
-_QUEUE_LORA = ("LoRA adapters (`lora=`) are not ported: the merge and "
-               "flux_finetune.py need K8 at D = 128 (ROADMAP Queue 1, item 11.3)")
 _QUEUE_FSDP = ("sharding the MMDiT (`mesh=` / `fsdp=`) is not ported: "
                "ROADMAP Queue 1, item 9 (the H100's 80 GB holds the bf16 "
                "model whole)")
@@ -192,7 +190,10 @@ class ConceptAttentionOutput:
 class ConceptAttentionPipeline:
     """Text-to-image / img2img with concept observation + feature taps, on
     `device` (default "cuda"); `compute_dtype` "bfloat16" or "float32", by
-    default bf16 on the card and float32 on the CPU."""
+    default bf16 on the card and float32 on the CPU. `lora`: LoRA adapters
+    (a `flux_finetune` `.npz` path or a tree; `datagen/lora.read_lora`),
+    merged once here into copies of the targeted weights, which every step
+    runs on through `functional_call`: `model` itself is not changed."""
 
     def __init__(self, model: MMDiT, *,
                  text_encoders=None, vae=None, num_inference_steps: int = 28,
@@ -202,12 +203,17 @@ class ConceptAttentionPipeline:
                  compute_dtype: Optional[str] = None, lora=None,
                  lora_scale: Optional[float] = None, mesh=None,
                  device: Optional[str] = None):
-        if lora is not None:
-            raise NotImplementedError(_QUEUE_LORA)
         if mesh is not None:
             raise NotImplementedError(_QUEUE_FSDP)
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
+        self.merged = None
+        if lora is not None:
+            from s3od_torch.datagen.lora import merge_lora, read_lora
+
+            tree, lcfg = read_lora(lora, lora_scale, self.device)
+            with torch.no_grad():
+                self.merged = merge_lora(self.model, tree, lcfg)
         self.cfg = model.cfg
         self.text_encoders = text_encoders or TextEncoders()
         self.vae = vae
@@ -250,11 +256,15 @@ class ConceptAttentionPipeline:
 
     def _step(self, x, txt, pooled, t, guidance, img_ids, txt_ids,
               concepts, concept_pooled):
-        return self.model(
+        kwargs = dict(
             latents=x, txt=txt, pooled=pooled, timestep=t, img_ids=img_ids,
             txt_ids=txt_ids, guidance=guidance, concepts=concepts,
             pooled_concepts=concept_pooled if concepts is not None else None,
             concept_layers=self.concept_layers, compute_dtype=self.dtype)
+        if self.merged is not None:
+            return torch.func.functional_call(self.model, self.merged, (),
+                                              kwargs)
+        return self.model(**kwargs)
 
     @torch.inference_mode()
     def __call__(self, prompt: str, *, height: int, width: int, seed: int = 0,

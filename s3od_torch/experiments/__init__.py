@@ -15,4 +15,8 @@ E1, E3a and E4 share one CUDA forward (`flash_variants.py`,
 the plain versions, which is how `--device cpu` and the tests run. The
 scripts are off every serving path: they measure how the card answers the
 softmax questions the TPU kernels were shaped by.
+
+`k8_d128_shapes` (the card only) builds K8's four D = 128 block shapes
+from `csrc/flash_attention_bwd.cu` and times them side by side: the
+record of why the kernel runs the shape it does.
 """

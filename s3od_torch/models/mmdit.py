@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -293,16 +293,21 @@ class MMDiT(nn.Module):
     def forward(self, *, latents, txt, pooled, timestep, img_ids, txt_ids,
                 guidance=None, concepts=None, pooled_concepts=None,
                 concept_layers: Optional[Sequence[int]] = None,
-                compute_dtype=torch.bfloat16, attn_impl: str = "auto"
-                ) -> Dict[str, object]:
+                compute_dtype=torch.bfloat16, attn_impl: str = "auto",
+                run_block: Optional[Callable] = None) -> Dict[str, object]:
         """latents (B, N_img, in_channels) packed; txt (B, N_txt, text_dim);
         pooled (B, pooled_dim); timestep (B,); img_ids (N_img, 3); txt_ids
         (N_txt, 3); concepts (B, N_c, text_dim). Returns {'output': velocity
         (B, N_img, in_channels) fp32, 'features': [tap outputs (B, N_img,
         hidden)], 'concept_maps': (L, B, N_c, N_img) softmax-over-patches
         maps, one per collected dual block (None without concepts),
-        'concept_out', 'image_out'}."""
+        'concept_out', 'image_out'}. `run_block(block, *args)`, if given,
+        runs each dual and single block in place of `block(*args)`: the
+        LoRA step (`datagen/lora.py`) runs a block on its merged weights
+        through it. Differentiable throughout (the weights' casts to the
+        compute dtype included)."""
         cfg, dt = self.cfg, compute_dtype
+        run = run_block or (lambda blk, *args: blk(*args))
         img = _linear(latents.to(dt), self.img_in)
         txt_h = _linear(txt.to(dt), self.txt_in)
 
@@ -329,9 +334,9 @@ class MMDiT(nn.Module):
 
         maps: List[torch.Tensor] = []
         for bi, blk in enumerate(self.dual_blocks):
-            img, txt_h, concept_h, mv = blk(img, txt_h, concept_h, temb,
-                                            concept_temb, rope_ti, rope_ci,
-                                            attn_impl)
+            img, txt_h, concept_h, mv = run(blk, img, txt_h, concept_h,
+                                            temb, concept_temb, rope_ti,
+                                            rope_ci, attn_impl)
             if mv is not None and (concept_layers is None
                                    or bi in concept_layers):
                 maps.append(concept_maps_from_vectors(*mv))
@@ -341,7 +346,7 @@ class MMDiT(nn.Module):
         n_txt = txt_h.shape[1]
         features: List[torch.Tensor] = []
         for i, blk in enumerate(self.single_blocks):
-            x = blk(x, temb, rope_ti, attn_impl)
+            x = run(blk, x, temb, rope_ti, attn_impl)
             if i in cfg.feature_taps:
                 features.append(x[:, n_txt:])
 

@@ -5,8 +5,8 @@
 leaves it to XLA. `multi_head_attention` keeps the JAX package's rule for
 when the flash kernels run (bf16 and at least 1024 tokens): K7, the
 online-softmax kernel, or K3/K6 when the caller asks for the static
-softmax bound. On CPU tensors the kernel wrappers take their plain
-versions; on CUDA tensors they launch or raise.
+softmax bound, each with K8 as its backward. On CPU tensors the kernel
+wrappers take their plain versions; on CUDA tensors they launch or raise.
 """
 
 from __future__ import annotations
@@ -17,8 +17,8 @@ import torch
 import torch.nn.functional as F
 
 from s3od_torch.ops.flash_attention import (
-    flash_attention,
-    flash_attention_online,
+    flash_attention_autograd,
+    flash_attention_online_autograd,
     flash_seq_len,
     query_chunk,
     row_chunks,
@@ -81,9 +81,11 @@ def multi_head_attention(q, k, v, *, scale: Optional[float] = None,
     D), the sequence is padded to a multiple of 64 with `n_valid`
     masking the padded keys, K7
     (or K3/K6 under `static_softmax_bound`) runs, and the padded query
-    rows are sliced off. "xla": the exact attention above. `n_valid`: the
-    true token count when the sequence carries trailing padding rows
-    (0: all N)."""
+    rows are sliced off. Differentiable: K8 is the backward of either
+    forward, and autograd through the scaling gives dq its factor, as the
+    JAX package's `q * scale` chain does. "xla": the exact attention
+    above. `n_valid`: the true token count when the sequence carries
+    trailing padding rows (0: all N)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if resolve_attn_impl(q.shape[1], q.dtype, impl) == "xla":
@@ -97,6 +99,7 @@ def multi_head_attention(q, k, v, *, scale: Optional[float] = None,
         t = t.transpose(1, 2).reshape(b * h, n, d)
         return F.pad(t, (0, 0, 0, n_pad - n)) if n_pad != n else t
 
-    kernel = flash_attention if static_softmax_bound else flash_attention_online
-    o, _ = kernel(to_bhnd(q), to_bhnd(k), to_bhnd(v), n_valid)
+    kernel = (flash_attention_autograd if static_softmax_bound
+              else flash_attention_online_autograd)
+    o = kernel(to_bhnd(q), to_bhnd(k), to_bhnd(v), n_valid)
     return o[:, :n].reshape(b, h, n, d).transpose(1, 2)

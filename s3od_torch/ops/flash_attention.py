@@ -1,9 +1,10 @@
 """K3 and K6: attention forward under the static softmax bound (CUDA) and
-its plain version; K8: its backward (CUDA, `csrc/flash_attention_bwd.cu`)
-and its plain version; the `autograd.Function` that joins them; and K7,
-the forward with the exact row-max (online) softmax that the MMDiT runs
-(CUDA, `csrc/flash_attention_online.cu`: TMA, wgmma and warp
-specialisation), with its plain version.
+its plain version; K7, the forward with the exact row-max (online)
+softmax that the MMDiT runs (CUDA, `csrc/flash_attention_online.cu`: TMA,
+wgmma and warp specialisation), with its plain version; K8, the backward
+of both (CUDA, `csrc/flash_attention_bwd.cu`, D in {32, 64, 128}), with
+its plain version; and the two `autograd.Function`s that join each
+forward to K8, as the JAX package's one `custom_vjp` does.
 
 One CUDA kernel replaces two TPU kernels of `s3od_tpu/ops/flash_attention.py`
 (both via `_flash_forward(static_bound=True)`):
@@ -98,9 +99,9 @@ def flash_attention_plain(q, k, v, n_valid: int, chunk: int = 0):
 
 def kernel_route(d: int) -> str:
     """The kernel that serves head dimension d in K3/K6 and K8: the
-    TMA + wgmma kernels at D = 64, the mma.sync ones at D = 32 (the C
-    entry points dispatch on D the same way)."""
-    return {64: "wgmma", 32: "mma.sync"}[d]
+    TMA + wgmma kernels at D = 64 (and K8's at D = 128), the mma.sync ones
+    at D = 32 (the C entry points dispatch on D the same way)."""
+    return {128: "wgmma", 64: "wgmma", 32: "mma.sync"}[d]
 
 
 def flash_attention(q, k, v, n_valid: int):
@@ -174,13 +175,14 @@ def flash_attention_bwd_plain(q, k, v, o, lse, g, n_valid: int):
 
 
 def flash_attention_bwd(q, k, v, o, lse, g, n_valid: int):
-    """K8: (dq, dk, dv) of the static-bound attention forward.
+    """K8: (dq, dk, dv) of the attention forward (K3/K6 or K7).
 
     CPU tensors take the plain version. CUDA tensors launch the kernel or
     raise: bf16 (BH, N, D) q, k, v, o, g with N a multiple of 64 and D in
-    {32, 64}, fp32 (BH, N) lse. delta = rowsum(o g) in fp32, which the JAX
-    package computes outside its kernels, is the kernel's first pass,
-    into a scratch allocated here."""
+    {32, 64, 128}, fp32 (BH, N) lse, K3/K6's or K7's (with K7's exact
+    lse the clamp min(s - lse, 0) changes nothing). delta = rowsum(o g) in
+    fp32, which the JAX package computes outside its kernels, is the
+    kernel's first pass, into a scratch allocated here."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, g, n_valid)
     bh, n, d = q.shape
@@ -190,7 +192,7 @@ def flash_attention_bwd(q, k, v, o, lse, g, n_valid: int):
         raise ValueError("flash_attention_bwd kernel: shapes differ")
     if lse.shape != (bh, n) or lse.dtype != torch.float32:
         raise ValueError("flash_attention_bwd kernel: fp32 (BH, N) lse")
-    if n % SEQ_MULTIPLE or d not in (32, 64) or not 0 < n_valid <= n:
+    if n % SEQ_MULTIPLE or d not in (32, 64, 128) or not 0 < n_valid <= n:
         raise ValueError(
             f"flash_attention_bwd kernel: unsupported N={n} D={d} "
             f"n_valid={n_valid}")
@@ -292,14 +294,18 @@ def static_plan(bh: int, n: int, d: int, n_valid: int) -> dict:
     }
 
 
-# The tile plan of K8's D = 64 kernels (`csrc/flash_attention_bwd.cu`),
-# mirrored for the CPU tests: a dkv kernel of two consumer warpgroups (240
-# registers each) and a dq kernel of three (160 each).
+# The tile plan of K8's wgmma kernels (`csrc/flash_attention_bwd.cu`),
+# mirrored for the CPU tests: at D = 64 a dkv kernel of two consumer
+# warpgroups (240 registers each) that overlaps a tile's S^T, dP^T products
+# with the previous tile's dV, dK products, and a dq kernel of three (160
+# each); at D = 128 two and two (240 each), the dkv kernel without the
+# overlap (its 224 accumulator registers spilled).
 BWD_TILE = 64                       # rows of a streamed tile: queries (dkv), keys (dq)
 BWD_STAGES = 4                      # depth of each kernel's ring
-BWD_WARPGROUPS = {"dkv": 2, "dq": 3}
-BWD_CONSUMER_REGS = {"dkv": 240, "dq": 160}
-BWD_PRODUCER_REGS = {"dkv": 24, "dq": 32}
+BWD_WARPGROUPS = {64: {"dkv": 2, "dq": 3}, 128: {"dkv": 2, "dq": 2}}
+BWD_OVERLAP = {64: True, 128: False}
+BWD_PRODUCER_REGS = {2: 24, 3: 32}  # by consumer warpgroups, as `ws_producer_regs`
+BWD_CONSUMER_REGS = {2: 240, 3: 160}
 
 
 def bwd_plan(bh: int, n: int, d: int, n_valid: int) -> dict:
@@ -308,23 +314,28 @@ def bwd_plan(bh: int, n: int, d: int, n_valid: int) -> dict:
     tiles it walks (dkv: every 64-row query tile, none crossing N; dq:
     the 64-key tiles up to n_valid), dynamic shared memory (1024 bytes of
     alignment slack, the block's two resident tiles, the 4-stage ring, 9
-    mbarriers) and the registers a consumer thread holds: fp32
-    accumulators of 64 x 64 (dkv: S^T, dP^T, dK, dV; dq: S, dP, dQ) and
-    the bf16 A fragments (dkv: P^T and dS^T; dq: dS). `products`: the
-    2 BH N^2 D products both run."""
+    mbarriers), the consumer warpgroups and their registers, and the
+    registers a consumer thread holds at once: fp32 accumulators of
+    64 x 64 (dkv: S^T, dP^T; dq: S, dP) and of 64 x d (dkv: dK, dV; dq:
+    dQ), and the bf16 A fragments (dkv: P^T and dS^T, which replace S^T
+    and dP^T where the dkv kernel does not overlap; dq: dS). `products`:
+    the 2 BH N^2 D products both run."""
     tile_bytes = BWD_TILE * d * 2
-    acc, frag = BWD_TILE * d // 128, BWD_TILE // 4
+    sq, acc, frag = BWD_TILE * BWD_TILE // 128, BWD_TILE * d // 128, BWD_TILE // 4
     plan = {"products": 7}
     for kernel, ring, tiles, regs in (
             ("dkv", 2 * tile_bytes + 2 * BWD_TILE * 4, n // BWD_TILE,
-             4 * acc + 2 * frag),
-            ("dq", 2 * tile_bytes, -(-n_valid // BWD_TILE), 3 * acc + frag)):
-        rows = 64 * BWD_WARPGROUPS[kernel]
+             2 * sq + 2 * acc + (2 * frag if BWD_OVERLAP[d] else 0)),
+            ("dq", 2 * tile_bytes, -(-n_valid // BWD_TILE), 2 * sq + acc + frag)):
+        wgs = BWD_WARPGROUPS[d][kernel]
+        rows = 64 * wgs
         plan[kernel] = {"grid": (-(-n // rows), bh), "rows": rows,
-                        "tiles": tiles,
+                        "tiles": tiles, "warpgroups": wgs,
                         "smem": 1024 + 2 * rows * d * 2 + BWD_STAGES * ring
                         + (1 + 2 * BWD_STAGES) * 8,
-                        "acc_regs": regs}
+                        "acc_regs": regs,
+                        "regs": BWD_CONSUMER_REGS[wgs],
+                        "producer_regs": BWD_PRODUCER_REGS[wgs]}
     return plan
 
 
@@ -334,12 +345,8 @@ def flash_attention_online(q, k, v, n_valid: int):
 
     CPU tensors take the plain version. CUDA tensors launch the kernel or
     raise: bf16 (BH, N, D) with N a multiple of 64 and D in {64, 128}.
-    Forward only: an input that requires grad raises."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention_online has no backward yet: the D = 128 "
-            "backward (K8 at D = 128, for the MMDiT's LoRA training) is "
-            "ROADMAP Queue 1, item 11.3")
+    The raw forward: `flash_attention_online_autograd` adds K8 as its
+    backward."""
     if q.device.type == "cpu":
         return flash_attention_online_plain(q, k, v, n_valid)
     bh, n, d = q.shape
@@ -369,7 +376,8 @@ flash_attention_online.launches = 0
 
 class _FlashAttention(torch.autograd.Function):
     """K3/K6 forward, K8 backward; saves (q, k, v, o, lse) as the JAX
-    forward rule does (`flash_attention.py:652-667`)."""
+    forward rule does (`flash_attention.py:652-667`). On CPU tensors both
+    wrappers take their plain versions."""
 
     @staticmethod
     def forward(ctx, q, k, v, n_valid):
@@ -386,3 +394,25 @@ class _FlashAttention(torch.autograd.Function):
 
 # Differentiable `flash_attention` -> o (the lse stays internal).
 flash_attention_autograd = _FlashAttention.apply
+
+
+class _FlashAttentionOnline(torch.autograd.Function):
+    """K7 forward, K8 backward on K7's lse: the JAX package's one
+    `custom_vjp` (`flash_attention.py:643-682`) with the online softmax.
+    Saves (q, k, v, o, lse) as `_fwd_rule` does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, n_valid):
+        o, lse = flash_attention_online(q, k, v, n_valid)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.n_valid = n_valid
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, o, lse = ctx.saved_tensors
+        return (*flash_attention_bwd(q, k, v, o, lse, g, ctx.n_valid), None)
+
+
+# Differentiable `flash_attention_online` -> o.
+flash_attention_online_autograd = _FlashAttentionOnline.apply

@@ -198,12 +198,17 @@ def test_pipeline_t2i_and_extract_features_match_jax(tiny_pipelines, monkeypatch
 
 
 def test_pipeline_refuses_lora_and_fsdp_naming_the_queue(tiny_pipelines):
+    """Sharding (`mesh=`, `fsdp=`) is refused naming its ROADMAP item;
+    `lora=` is ported (`tests/test_torch_lora.py`): a missing adapter file
+    now fails as a missing file."""
     _, tpipe, _ = tiny_pipelines
-    for kw in ({"lora": "adapters.npz"}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="Queue 1"):
-            td.ConceptAttentionPipeline(tpipe.model, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="Queue 1"):
+        td.ConceptAttentionPipeline(tpipe.model, device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="Queue 1"):
         td.ConceptAttentionPipeline.from_config("x.npz", fsdp=4, device="cpu")
+    with pytest.raises(FileNotFoundError):
+        td.ConceptAttentionPipeline(tpipe.model, device="cpu",
+                                    lora="adapters.npz")
 
 
 # ----------------------------------------------------------------------------

@@ -558,31 +558,37 @@ def test_flash_static_kernel_plan_fits_the_card(bh, n, d, n_valid):
     assert fa.kernel_route(d) == "wgmma" and fa.kernel_route(32) == "mma.sync"
 
 
-@pytest.mark.parametrize("bh,n,d,n_valid", STATIC_SHAPES)
+@pytest.mark.parametrize("bh,n,d,n_valid", STATIC_SHAPES + [
+    (24, 4608, 128, 4608), (24, 4480, 128, 4464)])
 def test_flash_bwd_kernel_plan_fits_the_card(bh, n, d, n_valid):
-    """The Python mirror of K8's two D = 64 launches: each kernel's blocks
-    (128 keys in dkv, 192 query rows in dq) cover N, the last one reaching
+    """The Python mirror of K8's two wgmma launches, at D = 64 (the ViT
+    training shapes) and D = 128 (the MMDiT's LoRA step at the 1024^2 and
+    832 x 1216 buckets): each kernel's blocks (128 keys in dkv; 192 query
+    rows in dq at D = 64, 128 at D = 128) cover N, the last one reaching
     past N, whose rows are not stored; the dkv kernel walks every 64-row
     query tile, none crossing N; the dq kernel the 64-key tiles up to
     n_valid; each kernel's resident tiles and 4-stage ring fit a block's
-    shared memory, and the consumers' accumulators and bf16 fragments
-    their registers, every warpgroup within the register file. Seven
-    products run where the function needs five."""
+    shared memory, and the consumers' accumulators (S and dP at 64 x 64,
+    dK, dV and dQ at 64 x d) and bf16 fragments their registers, every
+    warpgroup within the register file. Seven products run where the
+    function needs five."""
     plan = fa.bwd_plan(bh, n, d, n_valid)
     for kernel in ("dkv", "dq"):
         p = plan[kernel]
         blocks, heads = p["grid"]
-        assert heads == bh
+        assert heads == bh and p["rows"] == 64 * p["warpgroups"]
         assert (blocks - 1) * p["rows"] < n <= blocks * p["rows"]
         assert p["smem"] <= fa.MAX_SMEM
-        regs = fa.BWD_CONSUMER_REGS[kernel]
-        assert p["acc_regs"] + 48 <= regs
-        assert (128 * fa.BWD_PRODUCER_REGS[kernel]
-                + 128 * fa.BWD_WARPGROUPS[kernel] * regs <= 65536)
+        assert p["acc_regs"] + 48 <= p["regs"]
+        assert 128 * p["producer_regs"] + 128 * p["warpgroups"] * p["regs"] <= 65536
     assert plan["dkv"]["tiles"] * fa.BWD_TILE == n
     tiles = plan["dq"]["tiles"]
     assert (tiles - 1) * fa.BWD_TILE < n_valid <= tiles * fa.BWD_TILE
     assert plan["products"] == 7
+    if d == 128:
+        assert (plan["dkv"]["smem"], plan["dq"]["smem"]) == (199752, 197704)
+        assert (plan["dkv"]["acc_regs"], plan["dq"]["acc_regs"]) == (192, 144)
+    assert fa.kernel_route(d) == "wgmma"
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -138,7 +138,8 @@ def test_k7_wrapper_gates():
     """CPU tensors take the plain version without counting; device tensors
     outside bf16 / D in {64, 128} / N % 64 / 0 < n_valid <= N raise before
     any launch ('meta' tensors need no card); an input that requires grad
-    raises NotImplementedError naming the backward's ROADMAP item."""
+    runs the forward and, through `flash_attention_online_autograd`, K8's
+    backward (here both plain versions) into every input's gradient."""
     before = fa.flash_attention_online.launches
     q = torch.randn(2, 64, 128)
     o, lse = fa.flash_attention_online(q, q, q, 60)
@@ -153,8 +154,14 @@ def test_k7_wrapper_gates():
         with pytest.raises(ValueError):
             fa.flash_attention_online(*args)
     g = torch.randn(1, 64, 64, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fa.flash_attention_online(g, g, g, 64)
+    o, _ = fa.flash_attention_online(g, g, g, 64)
+    assert torch.equal(o, fa.flash_attention_online_plain(g, g, g, 64)[0])
+    k, v = (torch.randn(1, 64, 64, requires_grad=True) for _ in range(2))
+    fa.flash_attention_online_autograd(g, k, v, 50).sum().backward()
+    assert all(t.grad is not None and torch.isfinite(t.grad).all()
+               for t in (g, k, v))
+    assert float(k.grad[:, 50:].abs().max()) == 0.0  # masked keys
+    assert fa.flash_attention_online.launches == before
 
 
 # ----------------------------------------------------------------------------
