@@ -56,8 +56,9 @@ _SIGNATURES = {
     "s3od_flash_attention_fwd": [_P] * 5 + [_I] * 4 + [_P],
     # q, k, v, o, lse, bh, n, head_dim, n_valid, stream
     "s3od_flash_attention_online_fwd": [_P] * 5 + [_I] * 4 + [_P],
-    # q, k, v, o, g, lse, delta, dq, dk, dv, bh, n, head_dim, n_valid, stream
-    "s3od_flash_attention_bwd": [_P] * 10 + [_I] * 4 + [_P],
+    # q, k, v, o, g, lse, delta, dq_acc, dq, dk, dv, bh, n, head_dim,
+    # n_valid, stream
+    "s3od_flash_attention_bwd": [_P] * 11 + [_I] * 4 + [_P],
     # a, wo, bo, x, ls, lw, lb, xn, h, batch, n, c, heads, head_dim, eps, stream
     "s3od_attn_epilogue": [_P] * 9 + [_I] * 5 + [_F, _P],
     # x, wu, bu, wd, bd, res, ls, out, h, rows, c, f, stream

@@ -1,15 +1,16 @@
 // Shared Hopper (sm_90a) building blocks of the port's warp-specialised
-// kernels (K2, K4, K5, K8, K9a/K9b's Winograd kernels, E1/E3a/E4, E2's bulk
-// variant; K7 and K3/K6 through
-// `flash_fwd_ws.cuh`), as inline PTX: mbarriers, TMA tensor loads, the
-// wgmma shared-memory descriptor for 128-byte-swizzled tiles, wgmma fences
-// and groups, `wgmma.mma_async` m64nNk16 bf16 -> fp32 (SS: both operands
-// in shared memory, B K-major or MN-major; RS: A from registers),
-// `setmaxnreg`, the SFU's exp2, the turns of the consumer
-// warpgroups, thread block clusters (the cluster barrier, `mapa`, loads
-// from and mbarrier arrivals on another block's shared memory), 1-D bulk
-// copies, and the host-side encoding of TMA tensor
-// maps (bf16 swizzled tiles, bf16 plain boxes, fp32 rows).
+// kernels (K2, K4, K5, K8, K9a/K9b's Winograd kernels, K10, E1/E3a/E4,
+// E2's bulk variant; K7 and K3/K6 through `flash_fwd_ws.cuh`), as inline
+// PTX: mbarriers, TMA tensor loads, stores and reduce-adds, the wgmma
+// shared-memory descriptors (128-byte-swizzled tiles; K-major tiles
+// without swizzle), wgmma fences and groups, `wgmma.mma_async` m64nNk16
+// bf16 -> fp32 (SS: both operands in shared memory, B K-major or
+// MN-major, or both MN-major; RS: A from registers), `setmaxnreg`, the
+// SFU's exp2, the turns of the consumer warpgroups, thread block clusters
+// (the cluster barrier, `mapa`, loads from, bulk copies into and mbarrier
+// arrivals on another block's shared memory), 1-D bulk copies, and the
+// host-side encoding of TMA tensor maps (bf16 swizzled tiles, bf16 plain
+// boxes, fp32 rows, fp32 swizzled boxes).
 //
 // No CuTe or CUTLASS: every source builds with its own nvcc in seconds.
 // `cuTensorMapEncodeTiled` is a driver function; it is reached through
@@ -110,6 +111,17 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void*
       "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
+// Shared -> global tensor reduce-add: each element of the box is added
+// to global memory in L2 (an fp32 map: a float add), completed through a
+// bulk group like the stores.
+__device__ __forceinline__ void tma_reduce_add_3d(const CUtensorMap* map, const void* src, int c0,
+                                                  int c1, int c2) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
 __device__ __forceinline__ void tma_store_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -195,6 +207,18 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
+// A 1-D bulk copy of `bytes` (a multiple of 16) from this block's shared
+// memory at `src` to the same offset as `dst` in block `rank`, completing
+// as transaction bytes on the barrier at the offset of `bar` there.
+__device__ __forceinline__ void bulk_copy_to_block(const void* dst, const void* src, uint32_t bytes,
+                                                   uint64_t* bar, uint32_t rank) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          mapa(dst, rank)),
+      "r"(smem_addr(src)), "r"(bytes), "r"(mapa(bar, rank))
+      : "memory");
+}
+
 // Named barrier `id` (1..15; 0 is __syncthreads) over `threads` threads.
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
@@ -213,6 +237,17 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo = 16)
   return static_cast<uint64_t>((a & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
+// Descriptor of a K-major bf16 tile without swizzle: core matrices of 8
+// rows x 16 bytes (128 contiguous bytes), `lbo` bytes apart along K and
+// `sbo` bytes apart along M (or N). A start 16 bytes further is the tile
+// one row further on, so a shifted window of rows is a valid operand.
+__device__ __forceinline__ uint64_t desc_nosw(const void* p, uint32_t lbo, uint32_t sbo) {
+  const uint32_t a = smem_addr(p);
+  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -312,6 +347,40 @@ struct WgmmaSS;
 // MN-major (wgmma's transpose bit).
 template <int N>
 struct WgmmaRS;
+
+template <>
+struct WgmmaSS<32> {
+  __device__ __forceinline__ static void mma(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaSS<96> {
+  __device__ __forceinline__ static void mma(float (&d)[48], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+        "}, %48, %49, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
 
 template <>
 struct WgmmaSS<64> {
@@ -439,6 +508,29 @@ struct WgmmaSSBt<64> {
   }
 };
 
+// SS with A and B both MN-major (both transpose bits): A stored (K, M)
+// with M contiguous, B (K, N) with N contiguous, as a product of two
+// transposed tiles needs (K8's dQ = dS K from dS^T and K as stored).
+template <int N>
+struct WgmmaSSt;
+
+template <>
+struct WgmmaSSt<64> {
+  __device__ __forceinline__ static void mma(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
 template <>
 struct WgmmaRS<64> {
   __device__ __forceinline__ static void mma(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int scale_d) {
@@ -545,6 +637,14 @@ inline int encode_f32_map(CUtensorMap* map, const void* ptr, int rank, const uin
                           const uint64_t* strides, const uint32_t* box) {
   return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ptr, rank, dims, strides, box,
                     CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
+// fp32 boxes with the 128-byte swizzle (a 32-column box: a staged tile
+// written from accumulator fragments without bank conflicts).
+inline int encode_f32_sw128_map(CUtensorMap* map, const void* ptr, int rank, const uint64_t* dims,
+                                const uint64_t* strides, const uint32_t* box) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ptr, rank, dims, strides, box,
+                    CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // Streaming multiprocessors of the current device (persistent grids).

@@ -1,21 +1,26 @@
-"""K8 at D = 128: the block shapes of `csrc/flash_attention_bwd.cu`'s wgmma
-kernels, side by side on the card.
+"""K8 at D = 128: the designs of `csrc/flash_attention_bwd.cu`, side by side
+on the card.
 
-The dkv kernel at D = 128 either overlaps a tile's S^T, dP^T products with
-the previous tile's dV, dK products (224 accumulator registers of 240) or
-gives each its own turn (192); the dq kernel runs 3 consumer warpgroups
-(160 registers, 144 of them accumulators) or 2 (240). This script builds
-the four combinations from the repository's source (a small harness that
-includes `flash_attention_bwd.cu` and calls its templated launcher), prints
-each kernel's registers and spills as ptxas reports them, holds each
-combination to K8's plain version at the MMDiT's shapes (24 heads of 128,
-4608 tokens; 4480 with n_valid 4464) by relative norm, and times each
-between CUDA events beside SDPA's backward:
+The entry point `s3od_flash_attention_bwd` runs a single pass at D = 128:
+one kernel computes dK, dV and the dQ partials of a block of 128 keys (5
+products), the partials reduce-added into an fp32 accumulator. Before it,
+D = 128 ran the D = 64 design, a dkv and a dq kernel (7 products), whose
+block shapes are kept here as the record of why they lost: the dkv kernel
+either overlaps a tile's S^T, dP^T products with the previous tile's dV,
+dK products (224 accumulator registers of 240) or gives each its own turn
+(192); the dq kernel runs 3 consumer warpgroups (160 registers, 144 of
+them accumulators) or 2 (240). The single pass is built at 2 and 3 ring
+stages (the entry point takes 3), and once with its dQ staging and
+reduce-adds cut (its dq is then wrong: a measurement of what they cost). This script builds every variant
+from the repository's source (a small harness that includes
+`flash_attention_bwd.cu` and calls its templated launchers), prints each
+kernel's registers and spills as ptxas reports them, holds each variant
+to K8's plain version at the MMDiT's shapes (24 heads of 128, 4608
+tokens; 4480 with n_valid 4464) by relative norm, and times each between
+CUDA events beside SDPA's backward:
 
     python -m s3od_torch.experiments.k8_d128_shapes [--iters 20]
 
-The entry point `s3od_flash_attention_bwd` takes the combination that
-spilled nothing and ran fastest (dkv in two turns, dq on 2 warpgroups).
 Needs a card and nvcc; the build goes to `<build dir>/k8_d128_shapes/`.
 """
 
@@ -33,15 +38,21 @@ import torch.nn.functional as F
 from s3od_torch import _build
 from s3od_torch.ops import flash_attention as fa
 
-# (dkv warpgroups, dq warpgroups, dkv overlap) of each combination.
+# (dkv warpgroups, dq warpgroups, dkv overlap) of each split combination.
 SHAPES = [(2, 3, True), (2, 3, False), (2, 2, True), (2, 2, False)]
+# (ring stages, what is done with each dQ partial) of each single-pass
+# variant: "reduce" (the entry point's), or "none" (dropped: the reduce's
+# cost, measured once; dq is then wrong).
+DQ_MODES = {"none": 0, "reduce": 1}
+FUSED = [(2, "reduce"), (3, "reduce"), (fa.BWD_FUSED_STAGES, "none")]
 CASES = [(24, 4608, 4608), (24, 4480, 4464)]
 
 _HARNESS = """#include "flash_attention_bwd.cu"
 
 extern "C" int k8_shape(int which, const void* q, const void* k, const void* v,
-                        const void* o, const void* g, const void* lse, void* delta, void* dq,
-                        void* dk, void* dv, int bh, int n, int n_valid, void* stream) {
+                        const void* o, const void* g, const void* lse, void* delta,
+                        void* dq_acc, void* dq, void* dk, void* dv, int bh, int n, int n_valid,
+                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* qq = static_cast<const bf16*>(q);
   auto* kk = static_cast<const bf16*>(k);
@@ -49,6 +60,7 @@ extern "C" int k8_shape(int which, const void* q, const void* k, const void* v,
   auto* gg = static_cast<const bf16*>(g);
   auto* ll = static_cast<const float*>(lse);
   auto* dd = static_cast<float*>(delta);
+  auto* acc = static_cast<float*>(dq_acc);
   auto* oq = static_cast<bf16*>(dq);
   auto* ok = static_cast<bf16*>(dk);
   auto* ov = static_cast<bf16*>(dv);
@@ -61,11 +73,21 @@ extern "C" int k8_shape(int which, const void* q, const void* k, const void* v,
 """
 
 
+def variants() -> list[str]:
+    """Names of the variants, in the harness's case order."""
+    return ([f"split {shape}" for shape in SHAPES]
+            + [f"single pass, {st} stages, dQ {mode}" for st, mode in FUSED])
+
+
 def harness_source() -> str:
     cases = "".join(
         f"    case {i}: return wg::launch_wgmma<128, {kv}, {dq}, "
         f"{str(ov).lower()}>(qq, kk, vv, gg, ll, dd, oq, ok, ov, bh, n, "
         "n_valid, st);\n" for i, (kv, dq, ov) in enumerate(SHAPES))
+    cases += "".join(
+        f"    case {len(SHAPES) + i}: return wg::launch_fused<{st}, "
+        f"{DQ_MODES[mode]}>(qq, kk, vv, gg, ll, dd, acc, oq, ok, ov, bh, n, "
+        "n_valid, st);\n" for i, (st, mode) in enumerate(FUSED))
     return _HARNESS % cases
 
 
@@ -84,13 +106,14 @@ def build():
     lines = (proc.stdout + proc.stderr).splitlines()
     report = []
     for i, line in enumerate(lines):
-        if "Compiling entry function" in line and "ILi128E" in line:
+        if "Compiling entry function" in line and (
+                "ILi128E" in line or "fused" in line):
             name = line.split("'")[1]
             report.append((name, [m.split(":", 1)[-1].strip()
                                   for m in lines[i + 1: i + 4]
                                   if "spill" in m or "registers" in m]))
     handle = ctypes.CDLL(str(lib))
-    handle.k8_shape.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
+    handle.k8_shape.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 11
                                 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     handle.k8_shape.restype = ctypes.c_int
     return handle, report
@@ -134,15 +157,19 @@ def main(argv=None) -> dict:
         ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, go, nv)
         delta = torch.empty(bh, n, device="cuda")
         row = {}
-        for i, shape in enumerate(SHAPES):
+        for i, name in enumerate(variants()):
             grads = [torch.empty_like(q) for _ in range(3)]
-            call = lambda: lib.k8_shape(
-                i, *(t.data_ptr() for t in (q, k, v, o, go, lse, delta,
-                                            *grads)),
-                bh, n, nv, torch.cuda.current_stream().cuda_stream)
+
+            def call():  # the accumulator zeroed per call, as the wrapper does
+                acc = torch.zeros(bh, n, 128, device="cuda")
+                return lib.k8_shape(
+                    i, *(t.data_ptr() for t in (q, k, v, o, go, lse, delta,
+                                                acc, *grads)),
+                    bh, n, nv, torch.cuda.current_stream().cuda_stream)
+
             _build.check(call(), "k8_shape")
             torch.cuda.synchronize()
-            row[str(shape)] = {
+            row[name] = {
                 "rel_err": [rel(a[:, :nv], b[:, :nv])
                             for a, b in zip(grads, ref)],
                 "ms": event_ms(call, args.iters)}

@@ -99,8 +99,9 @@ def flash_attention_plain(q, k, v, n_valid: int, chunk: int = 0):
 
 def kernel_route(d: int) -> str:
     """The kernel that serves head dimension d in K3/K6 and K8: the
-    TMA + wgmma kernels at D = 64 (and K8's at D = 128), the mma.sync ones
-    at D = 32 (the C entry points dispatch on D the same way)."""
+    TMA + wgmma kernels at D = 64 (and K8's single pass at D = 128,
+    `bwd_plan`), the mma.sync ones at D = 32 (the C entry points dispatch
+    on D the same way)."""
     return {128: "wgmma", 64: "wgmma", 32: "mma.sync"}[d]
 
 
@@ -182,7 +183,12 @@ def flash_attention_bwd(q, k, v, o, lse, g, n_valid: int):
     {32, 64, 128}, fp32 (BH, N) lse, K3/K6's or K7's (with K7's exact
     lse the clamp min(s - lse, 0) changes nothing). delta = rowsum(o g) in
     fp32, which the JAX package computes outside its kernels, is the
-    kernel's first pass, into a scratch allocated here."""
+    kernel's first pass, into a scratch allocated here. At D = 128 one
+    kernel then computes dk, dv and dq in a single pass (5 products): dq
+    is summed across key blocks into a zeroed fp32 (BH, N, 128) scratch
+    allocated here, and a last pass rounds it to bf16, so dq's sum order
+    varies from run to run while dk and dv stay one block's sums. D = 64
+    runs a dkv and a dq kernel, D = 32 their mma.sync forms."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, g, n_valid)
     bh, n, d = q.shape
@@ -198,12 +204,15 @@ def flash_attention_bwd(q, k, v, o, lse, g, n_valid: int):
             f"n_valid={n_valid}")
     q, k, v, o, g, lse = (_build.aligned16(t) for t in (q, k, v, o, g, lse))
     delta = torch.empty((bh, n), device=q.device, dtype=torch.float32)
+    dq_acc = (torch.zeros((bh, n, d), device=q.device, dtype=torch.float32)
+              if d == 128 else None)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     lib = _build.load_library()
     code = lib.s3od_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), bh, n, d, n_valid, _build.stream_ptr(q),
+        lse.data_ptr(), delta.data_ptr(),
+        None if dq_acc is None else dq_acc.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), bh, n, d, n_valid, _build.stream_ptr(q),
     )
     _build.check(code, "flash_attention_bwd")
     _build.count_launch(flash_attention_bwd)
@@ -295,36 +304,58 @@ def static_plan(bh: int, n: int, d: int, n_valid: int) -> dict:
 
 
 # The tile plan of K8's wgmma kernels (`csrc/flash_attention_bwd.cu`),
-# mirrored for the CPU tests: at D = 64 a dkv kernel of two consumer
+# mirrored for the CPU tests. At D = 64 a dkv kernel of two consumer
 # warpgroups (240 registers each) that overlaps a tile's S^T, dP^T products
 # with the previous tile's dV, dK products, and a dq kernel of three (160
-# each); at D = 128 two and two (240 each), the dkv kernel without the
-# overlap (its 224 accumulator registers spilled).
+# each): 7 products. At D = 128 one kernel of two (240 each), FlashAttention-
+# 3's single pass: 5 products, the dQ partials reduce-added into an fp32
+# accumulator in device memory.
 BWD_TILE = 64                       # rows of a streamed tile: queries (dkv), keys (dq)
-BWD_STAGES = 4                      # depth of each kernel's ring
-BWD_WARPGROUPS = {64: {"dkv": 2, "dq": 3}, 128: {"dkv": 2, "dq": 2}}
+BWD_STAGES = 4                      # depth of each D = 64 kernel's ring
+BWD_FUSED_STAGES = 3                # depth of the D = 128 single pass's ring
+BWD_BLOCK_KEYS = 128                # keys of a dkv or single-pass block
+BWD_WARPGROUPS = {64: {"dkv": 2, "dq": 3}, 128: {"fused": 2}}
 BWD_OVERLAP = {64: True, 128: False}
 BWD_PRODUCER_REGS = {2: 24, 3: 32}  # by consumer warpgroups, as `ws_producer_regs`
 BWD_CONSUMER_REGS = {2: 240, 3: 160}
 
 
 def bwd_plan(bh: int, n: int, d: int, n_valid: int) -> dict:
-    """K8's two launches at (bh, n, d): for each kernel the grid (blocks of
-    64 x warpgroups rows — keys in dkv, queries in dq — and heads), the
-    tiles it walks (dkv: every 64-row query tile, none crossing N; dq:
-    the 64-key tiles up to n_valid), dynamic shared memory (1024 bytes of
-    alignment slack, the block's two resident tiles, the 4-stage ring, 9
-    mbarriers), the consumer warpgroups and their registers, and the
+    """K8's launches at (bh, n, d): for each wgmma kernel the grid (blocks
+    of 64 x warpgroups rows — keys in dkv and the single pass, queries in
+    dq — and heads), the tiles it walks (dkv and the single pass: every
+    64-row query tile, none crossing N; dq: the 64-key tiles up to
+    n_valid), dynamic shared memory (1024 bytes of alignment slack, the
+    block's two resident tiles, the ring, the mbarriers; the single pass
+    also two bf16 dS^T buffers of 128 x 64 and a 64 x 128 fp32 dQ
+    staging), the consumer warpgroups and their registers, and the
     registers a consumer thread holds at once: fp32 accumulators of
-    64 x 64 (dkv: S^T, dP^T; dq: S, dP) and of 64 x d (dkv: dK, dV; dq:
-    dQ), and the bf16 A fragments (dkv: P^T and dS^T, which replace S^T
-    and dP^T where the dkv kernel does not overlap; dq: dS). `products`:
-    the 2 BH N^2 D products both run."""
+    64 x 64 (S^T, dP^T or S, dP; the single pass's dQ half) and of 64 x d
+    (dK, dV; dq: dQ), and the bf16 A fragments (P^T and dS^T, which
+    replace S^T and dP^T where the dkv kernel does not overlap; dq: dS).
+    D = 64: "dkv" and "dq", 7 products (s and dp in both). D = 128:
+    "fused", 5 products, and `dq_acc_bytes`, the fp32 accumulator the dQ
+    partials are reduce-added into."""
     tile_bytes = BWD_TILE * d * 2
+    lse_delta = 2 * BWD_TILE * 4
     sq, acc, frag = BWD_TILE * BWD_TILE // 128, BWD_TILE * d // 128, BWD_TILE // 4
+    if d == 128:
+        wgs = BWD_WARPGROUPS[d]["fused"]
+        stages = BWD_FUSED_STAGES
+        return {"products": 5, "dq_acc_bytes": 4 * bh * n * d, "fused": {
+            "grid": (-(-n // BWD_BLOCK_KEYS), bh), "rows": BWD_BLOCK_KEYS,
+            "tiles": n // BWD_TILE, "warpgroups": wgs, "stages": stages,
+            "smem": 1024 + 2 * BWD_BLOCK_KEYS * d * 2
+            + stages * (2 * tile_bytes + lse_delta)
+            + 2 * BWD_BLOCK_KEYS * BWD_TILE * 2 + BWD_TILE * d * 4
+            + (1 + 2 * stages) * 8,
+            # dK, dV with P^T, dS^T and the dQ half (S^T, dP^T dead)
+            "acc_regs": 2 * acc + 2 * frag + sq,
+            "regs": BWD_CONSUMER_REGS[wgs],
+            "producer_regs": BWD_PRODUCER_REGS[wgs]}}
     plan = {"products": 7}
     for kernel, ring, tiles, regs in (
-            ("dkv", 2 * tile_bytes + 2 * BWD_TILE * 4, n // BWD_TILE,
+            ("dkv", 2 * tile_bytes + lse_delta, n // BWD_TILE,
              2 * sq + 2 * acc + (2 * frag if BWD_OVERLAP[d] else 0)),
             ("dq", 2 * tile_bytes, -(-n_valid // BWD_TILE), 2 * sq + acc + frag)):
         wgs = BWD_WARPGROUPS[d][kernel]

@@ -133,6 +133,77 @@ def test_mask_tail_plain_matches_pallas_interpret(kind):
     _check(kind, got, ref, 2e-6, absolute=True)
 
 
+@pytest.mark.parametrize("batch,h,w,clusters", [
+    (1, 1024, 1024, 66), (16, 1024, 1024, 66), (1, 2048, 2048, 66),
+    (1, 64, 64, 66), (2, 20, 130, 7), (1, 3, 5, 66)])
+def test_mask_tail_plan_covers_every_row_once(batch, h, w, clusters):
+    """K10's launch plan (`mask_tail_plan`, the kernel's work split): the
+    runs are contiguous, one per cluster (fewer where there are fewer
+    items), equal to within one item, and cover every (image, strip, row)
+    exactly once; each segment is one (image, strip), rows in order, and
+    restarts its windows there: 2 h1 rows and 4 input rows beyond its
+    outputs. A block's shared memory is the kernel's `Layout::BYTES` and
+    fits the card."""
+    plan = tm.mask_tail_plan(batch, h, w, clusters)
+    strips = -(-w // tm.STRIP)
+    assert plan["strips"] == strips and plan["items"] == batch * strips * h
+    assert plan["clusters"] == min(clusters, plan["items"])
+    seen = []
+    sizes = [r["end"] - r["start"] for r in plan["runs"]]
+    assert max(sizes) - min(sizes) <= 1 and min(sizes) >= 1
+    for run in plan["runs"]:
+        idx = run["start"]
+        for sg in run["segments"]:
+            assert idx == (sg["image"] * strips + sg["strip"]) * h + sg["y0"]
+            assert 1 <= sg["rows"] and sg["y0"] + sg["rows"] <= h
+            assert sg["h1_rows"] == (sg["y0"] - 1, sg["y0"] + sg["rows"])
+            assert sg["input_rows"] == (sg["y0"] - 2, sg["y0"] + sg["rows"] + 1)
+            seen += [(sg["image"], sg["strip"], sg["y0"] + i)
+                     for i in range(sg["rows"])]
+            idx += sg["rows"]
+        assert idx == run["end"]
+        # a new segment only where the strip (or image) changes
+        for a, b in zip(run["segments"], run["segments"][1:]):
+            assert (a["image"], a["strip"]) != (b["image"], b["strip"])
+            assert b["y0"] == 0 and a["y0"] + a["rows"] == h
+    assert seen == [(i, s, y) for i in range(batch) for s in range(strips)
+                    for y in range(h)]
+    segs = sum(len(r["segments"]) for r in plan["runs"])
+    assert plan["h1_rows"] == plan["items"] + 2 * segs
+    assert plan["input_rows"] == plan["items"] + 4 * segs
+    assert plan["smem"] == 225504 <= tm.MAX_SMEM
+    if w == 1024:
+        assert abs(plan["output_waste"] - (17 * 62 / 1024 - 1)) < 1e-12
+
+
+@pytest.mark.parametrize("kind", list(DTYPES))
+@pytest.mark.parametrize("layout", ["nchw", "nhwc"])
+@pytest.mark.parametrize("batch,h,w,clusters", [(1, 64, 64, 66), (2, 20, 130, 7)])
+def test_mask_tail_streamed_matches_plain(kind, layout, batch, h, w, clusters):
+    """The kernel's order of work in plain torch (`mask_tail_streamed`:
+    strips of 62 columns, rolling windows of 3 input and 3 h1 rows that
+    restart at each segment, h1 zero outside the image) against
+    `mask_tail_plain` at 64^2 (two strips, the second 2 columns wide; 66
+    clusters: 2-row segments) and at 20 x 130 (not a multiple of 62;
+    batch 2; segments crossing strips and images), on NCHW memory seen
+    through an NHWC view and on NHWC memory. float32: 1e-5 of max|plain|
+    (the sums' order differs); bf16: the one-rounding rule."""
+    rng = np.random.default_rng(11)
+    _, dt = DTYPES[kind]
+    shapes = (((3, 3, 64, 64), 0.05), ((64,), 0.1), ((3, 3, 64, 96), 0.05),
+              ((96,), 0.1), ((96, 3), 0.1), ((3,), 0.1))
+    x = torch.tensor(rng.standard_normal((batch, 64, h, w)) * 0.5, dtype=dt)
+    x = x.permute(0, 2, 3, 1)
+    if layout == "nhwc":
+        x = x.contiguous()
+    wts = [torch.tensor(rng.standard_normal(s) * sc, dtype=dt) for s, sc in shapes]
+    got, plan = tm.mask_tail_streamed(x, *wts, clusters=clusters)
+    ref = tm.mask_tail_plain(x, *wts)
+    assert got.shape == ref.shape == (batch, h, w, 3)
+    assert plan["clusters"] == min(clusters, plan["items"])
+    _check(kind, got.float().numpy(), ref.float().numpy(), 1e-5)
+
+
 @pytest.mark.parametrize("layout", ["nhwc", "nchw"])
 def test_winograd_rcu_launch_halves_compose_to_the_plain_version(layout):
     """K9b's four launches from their plain halves — conv1's transform of

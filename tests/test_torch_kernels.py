@@ -561,19 +561,26 @@ def test_flash_static_kernel_plan_fits_the_card(bh, n, d, n_valid):
 @pytest.mark.parametrize("bh,n,d,n_valid", STATIC_SHAPES + [
     (24, 4608, 128, 4608), (24, 4480, 128, 4464)])
 def test_flash_bwd_kernel_plan_fits_the_card(bh, n, d, n_valid):
-    """The Python mirror of K8's two wgmma launches, at D = 64 (the ViT
-    training shapes) and D = 128 (the MMDiT's LoRA step at the 1024^2 and
-    832 x 1216 buckets): each kernel's blocks (128 keys in dkv; 192 query
-    rows in dq at D = 64, 128 at D = 128) cover N, the last one reaching
-    past N, whose rows are not stored; the dkv kernel walks every 64-row
-    query tile, none crossing N; the dq kernel the 64-key tiles up to
-    n_valid; each kernel's resident tiles and 4-stage ring fit a block's
-    shared memory, and the consumers' accumulators (S and dP at 64 x 64,
-    dK, dV and dQ at 64 x d) and bf16 fragments their registers, every
-    warpgroup within the register file. Seven products run where the
-    function needs five."""
+    """The Python mirror of K8's wgmma launches. At D = 64 (the ViT
+    training shapes) two kernels: each one's blocks (128 keys in dkv; 192
+    query rows in dq) cover N, the last one reaching past N, whose rows are
+    not stored; the dkv kernel walks every 64-row query tile, none crossing
+    N; the dq kernel the 64-key tiles up to n_valid; each kernel's resident
+    tiles and 4-stage ring fit a block's shared memory, and the consumers'
+    accumulators (S and dP at 64 x 64, dK, dV and dQ at 64 x d) and bf16
+    fragments their registers, every warpgroup within the register file;
+    seven products run where the function needs five. At D = 128 (the
+    MMDiT's LoRA step at the 1024^2 and 832 x 1216 buckets) the single
+    pass: one kernel of 128-key blocks covering N, walking every query
+    tile, its resident K and V, ring, dS^T buffers and dQ staging within a
+    block's shared memory, dK, dV, the fragments and the dQ half within 240
+    registers; five products, and the dQ partials summed into an fp32
+    (BH, N, 128) accumulator."""
     plan = fa.bwd_plan(bh, n, d, n_valid)
-    for kernel in ("dkv", "dq"):
+    kernels = ("fused",) if d == 128 else ("dkv", "dq")
+    assert set(plan) == {"products", *kernels} | (
+        {"dq_acc_bytes"} if d == 128 else set())
+    for kernel in kernels:
         p = plan[kernel]
         blocks, heads = p["grid"]
         assert heads == bh and p["rows"] == 64 * p["warpgroups"]
@@ -581,14 +588,58 @@ def test_flash_bwd_kernel_plan_fits_the_card(bh, n, d, n_valid):
         assert p["smem"] <= fa.MAX_SMEM
         assert p["acc_regs"] + 48 <= p["regs"]
         assert 128 * p["producer_regs"] + 128 * p["warpgroups"] * p["regs"] <= 65536
-    assert plan["dkv"]["tiles"] * fa.BWD_TILE == n
-    tiles = plan["dq"]["tiles"]
-    assert (tiles - 1) * fa.BWD_TILE < n_valid <= tiles * fa.BWD_TILE
-    assert plan["products"] == 7
     if d == 128:
-        assert (plan["dkv"]["smem"], plan["dq"]["smem"]) == (199752, 197704)
-        assert (plan["dkv"]["acc_regs"], plan["dq"]["acc_regs"]) == (192, 144)
+        p = plan["fused"]
+        assert plan["products"] == 5
+        assert p["tiles"] * fa.BWD_TILE == n and p["stages"] == fa.BWD_FUSED_STAGES
+        assert plan["dq_acc_bytes"] == 4 * bh * n * 128
+        assert p["smem"] == 231992 and p["acc_regs"] == 192
+    else:
+        assert plan["dkv"]["tiles"] * fa.BWD_TILE == n
+        tiles = plan["dq"]["tiles"]
+        assert (tiles - 1) * fa.BWD_TILE < n_valid <= tiles * fa.BWD_TILE
+        assert plan["products"] == 7
     assert fa.kernel_route(d) == "wgmma"
+
+
+@pytest.mark.parametrize("bh,n,n_valid", [(2, 320, 300), (3, 256, 256)])
+def test_flash_bwd_single_pass_decomposition_matches_plain(bh, n, n_valid):
+    """The single pass at D = 128 in plain torch: each block of 128 keys
+    (the last one ragged where N is an odd multiple of 64) computes dS for
+    its keys and its dQ partial dS K over them, in fp32; dq is the fp32
+    sum of those partials taken in a shuffled order (the card's blocks
+    reduce-add in no fixed order), rounded once; dk and dv each block's
+    own sums. Against `flash_attention_bwd_plain` in float32: dq within
+    1e-5 of max|dq| (fp32 sums in another order; measured ~1e-7), dk and
+    dv likewise."""
+    rng = np.random.default_rng(5)
+    d = 128
+    q, k, v, g = (torch.tensor(rng.standard_normal((bh, n, d)) * s,
+                               dtype=torch.float32)
+                  for s in (d**-0.5, 1.0, 1.0, 1.0))
+    for t in (q, k, v, g):
+        t[:, n_valid:] = 0
+    o, lse = fa.flash_attention_online_plain(q, k, v, n_valid)
+    ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, g, n_valid)
+    delta = (o * g).sum(-1, keepdim=True)
+    bias = torch.zeros(n)
+    bias[n_valid:] = fa.NEG_INF
+    partials, dk, dv = [], torch.zeros_like(k), torch.zeros_like(v)
+    for k0 in range(0, n, fa.BWD_BLOCK_KEYS):
+        kb, vb = k[:, k0: k0 + 128], v[:, k0: k0 + 128]
+        s = q @ kb.transpose(1, 2) + bias[k0: k0 + 128]
+        p = torch.exp((s - lse[..., None]).clamp_max(0.0))
+        ds = p * (g @ vb.transpose(1, 2) - delta)
+        partials.append(ds @ kb)
+        dk[:, k0: k0 + 128] = ds.transpose(1, 2) @ q
+        dv[:, k0: k0 + 128] = p.transpose(1, 2) @ g
+    dq = torch.zeros_like(q)
+    for i in rng.permutation(len(partials)):
+        dq += partials[i]
+    assert len(partials) == -(-n // 128)
+    for got, want in zip((dq, dk, dv), ref):
+        err = float((got - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max()), err
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

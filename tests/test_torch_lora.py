@@ -515,9 +515,11 @@ def test_lora_modules_leave_jax_out_and_default_to_the_card(tmp_path):
 
 
 def test_k8_d128_shapes_harness_covers_every_shape():
-    """The side-by-side build of K8's D = 128 block shapes instantiates
-    each listed (dkv warpgroups, dq warpgroups, overlap) once, the kept
-    shape among them, and needs a card to run."""
+    """The side-by-side build of K8's D = 128 designs instantiates each
+    listed split shape (dkv warpgroups, dq warpgroups, overlap) once, the
+    one D = 128 ran before the single pass among them, and each single-pass
+    variant (ring stages, dQ mode) once, the entry point's (its stages,
+    the reduce-adds) among them; one name a case; it needs a card to run."""
     from s3od_torch.experiments import k8_d128_shapes as ks
 
     src = ks.harness_source()
@@ -525,8 +527,12 @@ def test_k8_d128_shapes_harness_covers_every_shape():
     for i, (kv, dq, ov) in enumerate(ks.SHAPES):
         assert (f"case {i}: return wg::launch_wgmma<128, {kv}, {dq}, "
                 f"{str(ov).lower()}>") in src
-    assert (fa.BWD_WARPGROUPS[128]["dkv"], fa.BWD_WARPGROUPS[128]["dq"],
-            fa.BWD_OVERLAP[128]) in ks.SHAPES
+    for i, (stages, mode) in enumerate(ks.FUSED):
+        assert (f"case {len(ks.SHAPES) + i}: return wg::launch_fused<{stages}, "
+                f"{ks.DQ_MODES[mode]}>") in src
+    assert (2, 2, False) in ks.SHAPES
+    assert (fa.BWD_FUSED_STAGES, "reduce") in ks.FUSED
+    assert len(ks.variants()) == len(ks.SHAPES) + len(ks.FUSED)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             ks.main([])
