@@ -84,6 +84,17 @@ all started together) and the Triton kernel, then:
   9. holds the bf16 kernel route's gradients against fp32 exact mode and
      against K8's plain version, and shows that a planted K8 fault
      (dk x 1.01) fails the second check; then one 2048^2 train step;
+  9b. runs the training input pipeline at 1024^2, batch 4, regular and
+     synthetic: every stage of a plan that takes every branch on the card
+     against the CPU on the same input and draws, masks unchanged by the
+     photometric stages, ms a batch and the profiler's top five ops; the
+     ViT-B 1024^2 b4 step on a synthetic-augmented batch under the remat
+     policies none / flash / dots_flash in turns (step ms, peak GiB, K3
+     22 / 11 / 11 and K8 11 launches a step); `train()` with synthetic
+     augmentation, remat flash and split_augment at ViT-B, then with
+     `dataset.cache=true` and with image logging at the tiny width; and
+     the training demo (`s3od_torch.training.demo_e2e`, cut to ViT-S at
+     160^2, 8 epochs), whose val dice and holdout IoU must pass 0.5;
  10. checks K7, the online-softmax attention forward, against its plain
      version at the MMDiT's shapes (24 heads of 128: 4608, 4160 with
      n_valid 4098, 3840 tokens; and D = 64) and on adversarial logits
@@ -2317,6 +2328,10 @@ def lora_phase(results, pipe):
     r.update(losses=losses, loss_after=final, step_ms=step_ms,
              first_step_ms=1e3 * times[0], img_per_s=1e3 / step_ms,
              peak_gib=peak, launches_per_step=counts[-1])
+    # The adapters after (a): (b) and (c) compare K8 per call at this state,
+    # however many profiled and recomputed steps move it in between.
+    adapters = L.lora_parameters(lora)
+    after_a = [t.detach().clone() for t in adapters]
 
     # the step's device time by kernel and the idle share
     rows = kernel_breakdown(lambda: step(lora, b0, fixed()), 1)
@@ -2348,6 +2363,9 @@ def lora_phase(results, pipe):
     # (b), (c) a step at each bucket, every K8 call against its plain version
     real = fa.flash_attention_bwd
     for tag, batch in (("1024^2", b0), ("832 x 1216", b2)):
+        with torch.no_grad():
+            for t, a in zip(adapters, after_a):
+                t.copy_(a)
         seen = {"calls": 0, "err": 0.0, "planted": 1.0, "planted_dq": 1.0, "n": set()}
 
         def shadow(q, k, v, o, lse, g, n_valid):
@@ -3942,6 +3960,422 @@ def highres_train_phase(results):
     torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------------------
+# The training path's augmentation, remat policies and demo
+# ----------------------------------------------------------------------------
+
+AUG_TOL = 1e-4  # max|card - CPU| of one stage's output on the same input
+# and parameters, values in [0, 1]: float32 sums in another order and
+# transcendental functions within an ulp or two
+AUG_WARP_TOL = 2.5e-4  # the same for the warps: a source coordinate near
+# 1024 px is held to 2^-13 px by float32, and a one- or two-ulp difference
+# between the card's and the CPU's sin / cos / solve moves a bilinear sample
+# by up to 2 x 1.2e-4 of the step between neighbouring pixels (<= 1)
+AUG_ROUNDED_SHARE = 1e-4  # JPEG rounds DCT coefficients: the share of
+# values past AUG_TOL (a coefficient flipped by a last-bit difference)
+REMAT_K3 = {"none": 2, "flash": 1, "dots_flash": 1}  # K3 per block a step
+DEMO_ROOT = REPO / "build" / "chip_smoke_demo"
+# The demo's recipe that trains from scratch (the JAX package's recorded
+# one, benchmarks/RESULTS.md's 160px runs: at the script's defaults,
+# focal_iou from scratch saturates to empty masks on both packages), with
+# the script's own regular augmentation and the letterbox cache, cut to 8
+# of its 40 epochs. The smoke holds the gate of `train_demo_e2e.py:214`
+# (val_dice and holdout IoU > 0.5) and records the selection gap, which the
+# script adds with the ranking term (`:215-219`) and which closes only with
+# longer training (PERF.md §6).
+DEMO_ARGS = ["--model", "dinos", "--image-size", "160", "--epochs", "8",
+             "--lr", "1e-4", "--head-lr-mult", "3", "--loss", "bce_iou_ssim",
+             "--rank-weight", "1.0", "--cache"]
+
+
+def host_geometry(n: int, size: int, mode: str, seed: int):
+    """The loader's per-sample geometry for one batch: crop p 0.5, then
+    the rotation and (synthetic) distortion draws
+    (`PrefetchLoader.draw_geometry`)."""
+    from s3od_torch.training.data import PrefetchLoader
+
+    loader = PrefetchLoader([], n, seed=seed, random_resized_crop_p=0.5,
+                            geometric_mode=mode)
+    return loader.draw_geometry(0, 0, n, size)
+
+
+def forced_plan(gen, b, h, w, mode, device):
+    """An `augment_batch` plan in which every branch of every stage runs:
+    sample i takes branch i mod the stage's branch count; every sample is
+    rotated and, in synthetic mode, distorted (optical, grid, elastic,
+    perspective in turn)."""
+    import torch
+
+    from s3od_torch.ops import augment as A
+
+    geo = A.draw_geometric_warp(gen, b, h, w, device, mode, p_rotate=1.0,
+                                p_distort=1.0)
+    if mode == "synthetic":
+        geo["distort"] = torch.arange(b, device=device) % 4
+    plan = {"mode": mode, "flips": A._to(A.draw_flips(gen, b), device),
+            "geometric": geo, "stages": []}
+    for name, _, _, ops in A._stages(mode, h % 8 == 0 and w % 8 == 0):
+        branch = [i % len(ops) for i in range(b)]
+        plan["stages"].append({"name": name, "branch": branch, "params": {
+            i: draw(gen, branch.count(i), h, w, device)
+            for i, (_, draw) in enumerate(ops)}})
+    return plan
+
+
+def to_device(tree, device):
+    import torch
+
+    if torch.is_tensor(tree):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, device) for v in tree]
+    return tree
+
+
+def augment_phase(results):
+    """The training input pipeline at 1024^2, batch 4 (config/dataset/
+    synth.yaml's batch), regular and synthetic: every stage of a plan that
+    takes every branch, run on the card and on the CPU from the same input
+    and parameters (`AUG_TOL`); the masks unchanged by the photometric
+    stages; device ms a batch of `train_pre` (the loader's geometry
+    applied, `augment_batch`, the normalization) and of `augment_batch`
+    alone (CUDA events, median of 10), and the profiler's top five ops."""
+    import numpy as np
+    import torch
+
+    from s3od_torch.ops import augment as A
+    from s3od_torch.ops.warp import apply_host_geometry
+    from s3od_torch.training.train import train_pre
+
+    log("phase augment: the training input pipeline at 1024^2, batch 4")
+    r = results["_augment"] = {}
+    batch = fixture_batch(4, 1024)
+    images, masks = batch["images"], batch["masks"]
+    for mode in ("regular", "synthetic"):
+        rm = r[mode] = {}
+        # every stage on the card vs the CPU, on the same input and draws
+        plan = forced_plan(torch.Generator().manual_seed(3), 4, 1024, 1024,
+                           mode, images.device)
+        cpu_plan = to_device(plan, "cpu")
+        x = images.float() / 255.0
+        m = masks.float() / 255.0
+        worst, rounded = {}, {}
+        x, m = A.random_flips(x, m, plan["flips"])
+        xg, mg = A.geometric_warp(x, m, plan["geometric"])
+        xc, mc = A.geometric_warp(x.cpu(), m.cpu(), cpu_plan["geometric"])
+        worst["geometric"] = float((xg.cpu() - xc).abs().max())
+        check(torch.equal(mg.cpu(), mc), f"{mode}: warped masks differ")
+        stages = A._stages(mode, True)
+        for (name, _, _, ops), st, cst in zip(stages, plan["stages"],
+                                               cpu_plan["stages"]):
+            for i, (op, _) in enumerate(ops):
+                idx = [j for j, k in enumerate(st["branch"]) if k == i]
+                inp = xg[idx]
+                got = op(inp, st["params"][i]).cpu()
+                ref = op(inp.cpu(), cst["params"][i])
+                d = (got - ref).abs()
+                key = f"{name}.{op.__name__}"
+                worst[key] = float(d.max())
+                rounded[key] = float((d > AUG_TOL).float().mean())
+        geo = host_geometry(4, 1024, mode, seed=5)
+        hi, hm = apply_host_geometry(images, masks, geo)
+        ci, cm = apply_host_geometry(images.cpu(), masks.cpu(), geo)
+        worst["host_geometry_levels"] = float(
+            (hi.cpu().float() - ci.float()).abs().max())
+        check(torch.equal(hm.cpu(), cm), f"{mode}: host-geometry masks differ")
+        log(f"  {mode}: card vs CPU per stage, max abs "
+            + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+        for k, v in worst.items():
+            if k == "host_geometry_levels":
+                check(v <= 1.0, f"{mode}: host geometry {v} grey levels apart")
+            elif k == "geometric":
+                check(v <= AUG_WARP_TOL, f"{mode}: {k} card vs CPU {v}")
+            elif k == "quality.jpeg_compression":
+                check(rounded[k] <= AUG_ROUNDED_SHARE,
+                      f"{mode}: {k}: {rounded[k]} of values past {AUG_TOL}")
+            else:
+                check(v <= AUG_TOL, f"{mode}: {k} card vs CPU {v}")
+        rm.update(card_vs_cpu=worst, rounded_share=rounded)
+
+        # masks through the photometric stages alone
+        photo = {**plan, "flips": {k: torch.zeros_like(v) if v.dtype == torch.bool
+                                   else v for k, v in plan["flips"].items()}}
+        photo.pop("geometric")
+        _, m_out = A.apply_augment(images, masks.float() / 255.0, photo)
+        check(torch.equal(m_out, masks.float() / 255.0),
+              f"{mode}: the photometric stages changed the masks")
+
+        # device ms a batch, as training runs it
+        state = {"i": 0}
+
+        def pre():
+            state["i"] += 1
+            return train_pre(batch, host_geometry(4, 1024, mode, state["i"]),
+                             mode, torch.Generator().manual_seed(state["i"]))
+
+        def aug_only():
+            state["i"] += 1
+            return A.augment_batch(images, masks.float() / 255.0, mode,
+                                   torch.Generator().manual_seed(state["i"]),
+                                   device_geometric=False)
+
+        rm["train_pre_ms"] = cuda_ms(pre, iters=10)
+        rm["augment_batch_ms"] = cuda_ms(aug_only, iters=10)
+        rows = kernel_breakdown(pre, iters=4)
+        rm["busy_ms"] = sum(ms for _, ms, _ in rows)
+        rm["top5"] = [(k[:60], ms, c) for k, ms, c in rows[:5]]
+        log(f"  {mode}: train_pre {rm['train_pre_ms']:.2f} ms a batch "
+            f"(augment_batch alone {rm['augment_batch_ms']:.2f}), device busy "
+            f"{rm['busy_ms']:.2f} ms; top five ops:")
+        for key, ms, cnt in rows[:5]:
+            log(f"    {ms:8.3f} ms x{cnt:3d}  {key[:100]}")
+        out = pre()
+        check(out["images"].shape == (4, 1024, 1024, 3)
+              and bool(out["images"].isfinite().all())
+              and out["masks"].shape == (4, 1024, 1024),
+              f"{mode}: train_pre output")
+    del batch
+    torch.cuda.empty_cache()
+
+
+def remat_phase(results):
+    """`train_step` at ViT-B, 1024^2, batch 4, bf16 on a synthetic-mode
+    augmented batch under each remat policy, in turns (none, flash,
+    dots_flash, dots_flash, flash, none; 1 warm-up + 3 timed steps each):
+    step ms (CUDA events, median), peak GiB, and K3 / K8 launches a step
+    against the policy table (K3: 22 / 11 / 11, K8: 11)."""
+    import torch
+
+    from s3od_torch.training.loss import LOSS_PRESETS, LossModule
+    from s3od_torch.training.optim import Optimizer
+    from s3od_torch.training.train import train_pre
+    from s3od_torch.training.train_step import train_step
+
+    log("phase remat: ViT-B 1024^2 batch 4 bf16, synthetic augmentation, "
+        "policies none / flash / dots_flash in turns")
+    model = vit_b_model(6)
+    opt = Optimizer(model, 1e-5, steps_per_epoch=100)
+    loss_module = LossModule(LOSS_PRESETS["focal_iou"])
+    raw = fixture_batch(4, 1024)
+    batch = train_pre(raw, host_geometry(4, 1024, "synthetic", 9), "synthetic",
+                      torch.Generator().manual_seed(9))
+    blocks = model.cfg.num_encoder_layers_used
+    wr = wrappers()
+    r = results["_train"]["remat"] = {}
+    state = {"step": 0}
+
+    def step(policy):
+        out = train_step(model, opt, loss_module, batch, 0, state["step"],
+                         generator=torch.Generator().manual_seed(0),
+                         compute_dtype=torch.bfloat16, remat_policy=policy,
+                         preprocessed=True)
+        state["step"] += 1
+        return out
+
+    for policy in ("none", "flash", "dots_flash", "dots_flash", "flash", "none"):
+        step(policy)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        loss = float(step(policy)["loss"])
+        k3, k8 = wr["K3_flash_attention"].launches, k8_launches()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        times = []
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            step(policy)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        ms = statistics.median(times)
+        log(f"  {policy:10s} step {ms:.2f} ms, peak {peak:.2f} GiB, K3 {k3}, "
+            f"K8 {k8} a step, loss {loss:.4f}")
+        check(k3 == REMAT_K3[policy] * blocks and k8 == blocks,
+              f"{policy}: K3 {k3}, K8 {k8} a step, want "
+              f"{REMAT_K3[policy] * blocks}, {blocks}")
+        check(loss == loss, f"{policy}: loss not finite")
+        r.setdefault(policy, []).append(
+            {"step_ms": ms, "peak_gib": peak, "k3": k3, "k8": k8})
+    del model, opt, batch, raw
+    torch.cuda.empty_cache()
+
+
+def train_options_phase(results):
+    """The entry point with what this part of the port added: ViT-B 1024^2
+    b4 bf16 with `dataset.transform_mode=synthetic backend.remat_policy=flash
+    backend.split_augment=true` (one epoch, launches counted: K3 once a
+    block a step under flash), then one short run each with
+    `dataset.cache=true` and `train_stage.enable_image_logging=true` at
+    the tiny checkpoint's width (D = 32)."""
+    import shutil
+
+    import numpy as np
+
+    from s3od_torch.configs import segmentation_config
+    from s3od_torch.training.train import train
+
+    if TRAIN_ROOT.exists():
+        shutil.rmtree(TRAIN_ROOT)
+    write_fixture_dataset(TRAIN_ROOT)
+    blocks = segmentation_config("dinov3_base").num_encoder_layers_used
+    steps, val_batches = 16 // 4, 4 // 4
+    tr = results["_train"]
+    log("phase train options: synthetic augmentation + remat flash + "
+        "split_augment at ViT-B 1024^2 b4")
+    extra = ["dataset.transform_mode=synthetic", "backend.remat_policy=flash",
+             "backend.split_augment=true", "backend.max_epochs=1"]
+    args = [a for a in train_args(TRAIN_ROOT, "c") if "transform_mode" not in a]
+    reset_counts()
+    t0 = time.perf_counter()
+    metrics = train(args + extra)
+    tr["synthetic_flash_s"] = time.perf_counter() - t0
+    counts, k8 = launch_counts(), k8_launches()
+    log(f"  train() {tr['synthetic_flash_s']:.1f} s; launches {counts}, K8 {k8};"
+        f" train_loss {metrics['train_loss']:.4f}")
+    for name, cnt in counts.items():
+        per_step = 1 if name == "K3_flash_attention" else 2
+        want = steps * per_step * blocks + val_batches * blocks
+        check(cnt == want, f"synthetic + flash: {name} launched {cnt}, want {want}")
+    check(k8 == steps * blocks, f"synthetic + flash: K8 launched {k8}")
+    check(all(np.isfinite(v) for v in metrics.values()), "metrics finite")
+
+    tiny = ["model=tiny", f"init_checkpoint={TINY_1024}", "backend.max_epochs=1",
+            "dataset.transform_mode=regular"]
+    base = [a for a in train_args(TRAIN_ROOT, "d") if "transform_mode" not in a]
+    metrics = train(base + tiny + ["dataset.cache=true"])
+    cache = TRAIN_ROOT / "fixture" / ".s3od_cache" / "s1024"
+    log(f"  dataset.cache=true: {sorted(p.name for p in cache.iterdir())}, "
+        f"val_dice {metrics['val_dice']:.4f}")
+    check((cache / "images.npy").exists() and (cache / "meta.json").exists(),
+          "the letterbox cache was built")
+    check(all(np.isfinite(v) for v in metrics.values()), "cache run finite")
+    base = [a for a in train_args(TRAIN_ROOT, "e") if "transform_mode" not in a]
+    metrics = train(base + tiny + ["train_stage.enable_image_logging=true"])
+    logs = list((TRAIN_ROOT / "e" / "logs").iterdir())
+    try:
+        from tensorboard.backend.event_processing.event_accumulator import (
+            EventAccumulator,
+        )
+    except ImportError:
+        tags = None
+        log("  image logging: tensorboard is not installed, so train() runs "
+            "without a writer and logs no panels")
+    else:
+        ea = EventAccumulator(str(logs[0]))
+        ea.Reload()
+        tags = ea.Tags()["images"]
+        log(f"  image logging: {tags}")
+        check(1 <= len(tags) <= 8 and tags == [
+            f"val_images/epoch_0_img_{i}" for i in range(len(tags))],
+            f"image panels {tags}")
+    tr["options"] = {"cache": True, "image_tags": tags}
+    shutil.rmtree(TRAIN_ROOT)
+
+
+def demo_step_profile(results):
+    """One `train_step` at the demo's size (ViT-S, 160^2, batch 8, the
+    demo's loss) in float32 and in bf16: ms between CUDA events, the
+    device's busy time and kernel count (profiler), and the host's time to
+    enqueue one step with the device idle."""
+    import copy
+
+    import torch
+
+    from s3od_torch.configs import segmentation_config
+    from s3od_torch.models.segmentation import S3ODSegmentation, init_weights_
+    from s3od_torch.ops.precision import set_exact_float32
+    from s3od_torch.training.loss import LOSS_PRESETS, LossModule
+    from s3od_torch.training.optim import Optimizer
+    from s3od_torch.training.train_step import train_step
+
+    loss_cfg = copy.deepcopy(LOSS_PRESETS["bce_iou_ssim"])
+    loss_cfg["criterions"].append(dict(
+        name="rank_ious_loss", target_key="gt_ious", output_key="pred_iou",
+        weight=1.0, kind="rank", add_sigmoid=False))
+    batch = fixture_batch(8, 160)
+    r = results["_demo_step"] = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        if dtype == torch.float32:
+            set_exact_float32()  # as train() does for precision 32
+        model = init_weights_(S3ODSegmentation(segmentation_config(
+            "dinov3_small")), torch.Generator().manual_seed(0)).cuda()
+        opt = Optimizer(model, 1e-4, steps_per_epoch=67, grad_clip=1.0)
+        loss_module = LossModule(loss_cfg)
+        state = {"i": 0}
+
+        def step():
+            train_step(model, opt, loss_module, batch, 0, state["i"],
+                       generator=torch.Generator().manual_seed(0),
+                       compute_dtype=dtype, remat_policy="flash")
+            state["i"] += 1
+
+        ms = cuda_ms(step, iters=10)
+        rows = kernel_breakdown(step, 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        busy = sum(t for _, t, _ in rows)
+        name = str(dtype).split(".")[-1]
+        r[name] = {"step_ms": ms, "busy_ms": busy, "host_enqueue_ms": host_ms,
+                   "kernels": sum(c for _, _, c in rows)}
+        log(f"  demo-size step ({name}): {ms:.2f} ms between CUDA events, "
+            f"device busy {busy:.2f} ms in {r[name]['kernels']} kernels, "
+            f"the host enqueues one step in {host_ms:.2f} ms")
+        del model, opt
+    torch.cuda.empty_cache()
+
+
+def demo_phase(results):
+    """`python -m s3od_torch.training.demo_e2e` in-process at `DEMO_ARGS`:
+    the procedural dataset (600 images), ViT-S trained from scratch at
+    160^2 (float32, regular augmentation, remat flash, bce_iou_ssim with
+    the IoU-ranking term), the export reloaded by BackgroundRemoval and
+    scored; val_dice > 0.5 and holdout IoU > 0.5 must hold (the script's
+    gate; the selection gap it adds with the ranking term is recorded).
+    Cut from the script's defaults: ViT-S at 160^2 (not ViT-B at 224^2),
+    8 epochs (not 16), the recipe above, the letterbox cache."""
+    import shutil
+
+    from s3od_torch.training import demo_e2e
+
+    import torch
+
+    # float32 training turns TF32 off process-wide; the later phases keep
+    # the flags they had
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    demo_step_profile(results)
+    if DEMO_ROOT.exists():
+        shutil.rmtree(DEMO_ROOT)
+    log(f"phase demo: demo_e2e {' '.join(DEMO_ARGS)}")
+    t0 = time.perf_counter()
+    summary = demo_e2e.run(demo_e2e.parse_args(
+        ["--root", str(DEMO_ROOT), *DEMO_ARGS]))
+    secs = time.perf_counter() - t0
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = flags
+    log(f"  demo {secs:.1f} s: val_dice {summary['val_dice']:.4f}, holdout "
+        f"IoU {summary['holdout_iou']:.4f} (oracle {summary['holdout_best_iou']:.4f}, "
+        f"selection gap {summary['selection_gap']:.4f}; the full gate "
+        f"{'passed' if summary['ok'] else 'not passed'})")
+    results["_demo"] = {"s": secs, "args": DEMO_ARGS,
+                        "full_gate": summary["ok"],
+                        **{k: summary[k] for k in ("val_dice", "train_loss",
+                                                   "holdout_iou",
+                                                   "holdout_best_iou",
+                                                   "selection_gap", "eval")}}
+    check(summary["val_dice"] > 0.5 and summary["holdout_iou"] > 0.5,
+          f"demo gate: val_dice {summary['val_dice']}, holdout IoU "
+          f"{summary['holdout_iou']}")
+    shutil.rmtree(DEMO_ROOT)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3983,6 +4417,10 @@ def main(argv=None) -> int:
     train_step_phase(results)
     grad_agreement_phase(results)
     highres_train_phase(results)
+    augment_phase(results)
+    remat_phase(results)
+    train_options_phase(results)
+    demo_phase(results)
     torch.cuda.empty_cache()
     k7_phase(results)
     experiments_phase(results)
@@ -4009,6 +4447,8 @@ def main(argv=None) -> int:
                     "serving": results["_serving"],
                     "decoder": results["_decoder"],
                     "train": results["_train"],
+                    "augment": results["_augment"],
+                    "demo": results["_demo"],
                     "factory": results["_factory"],
                     "lora": results["_lora"],
                     "experiments": results["_experiments"],

@@ -223,6 +223,59 @@ def convert_state_dict(
     return params, state, cfg
 
 
+# Keys of an HF DINOv3 checkpoint that the JAX package's converter does not
+# read (`s3od_tpu/convert.py:101-144`): the mask token and the final
+# LayerNorm, dead for the DPT taps. The port's encoder keeps its own.
+HF_UNREAD = ("embeddings.mask_token", "norm.weight", "norm.bias")
+
+
+def load_hf_dinov3(path: str) -> Dict[str, torch.Tensor]:
+    """Pretrained DINOv3 encoder weights (`s3od_tpu.convert.load_hf_dinov3`)
+    from a local HF snapshot directory (`model.safetensors` or
+    `pytorch_model.bin`), a `.safetensors` file or a `.bin` file -> the HF
+    state dict, whose keys are the port encoder's (the `encoder.*` subtree
+    without the prefix). The reference pulls these through
+    `AutoModel.from_pretrained` (`model_training/model.py:14,25`); the
+    port makes no network call, so a hub id raises."""
+    p = Path(path)
+    if p.is_dir():
+        for name in ("model.safetensors", "pytorch_model.bin"):
+            if (p / name).exists():
+                p = p / name
+                break
+    if not p.is_file():
+        raise FileNotFoundError(
+            f"pretrained_encoder {path!r} is not a local HF snapshot "
+            "directory, .safetensors or .bin file; hub ids are not "
+            "downloaded (no network): fetch the snapshot first and pass "
+            "its directory")
+    if p.suffix == ".safetensors":
+        from safetensors.torch import load_file
+
+        return load_file(str(p))
+    return torch.load(str(p), map_location="cpu", weights_only=True)
+
+
+def load_hf_encoder_(encoder: torch.nn.Module, path: str) -> torch.nn.Module:
+    """Copy `load_hf_dinov3(path)` into the port's `DINOv3Encoder`: every
+    weight the JAX converter reads must be present (`KeyError` otherwise),
+    keys it does not read are ignored as it ignores them, and a key bias
+    (which the JAX converter would fuse into the qkv bias, and the
+    reference layout cannot hold) must be zero."""
+    sd = load_hf_dinov3(path)
+    want = [k for k in encoder.state_dict() if k not in HF_UNREAD]
+    missing = [k for k in want if k not in sd]
+    if missing:
+        raise KeyError(f"{path}: not a DINOv3 checkpoint of this width and "
+                       f"depth, missing {missing[:4]}")
+    for k, v in sd.items():
+        if k.endswith("attention.k_proj.bias") and float(v.abs().max()) > 1e-6:
+            raise ValueError(f"{path}: {k} is nonzero; the encoder has no "
+                             "key bias")
+    encoder.load_state_dict({k: sd[k].float() for k in want}, strict=False)
+    return encoder
+
+
 def export_torch_state_dict(params: dict, state: Optional[dict]) -> Dict:
     """Produce a state_dict in the exact layout `src/s3od/predictor.py:65-76`
     consumes, so checkpoints trained here load into the PyTorch reference.

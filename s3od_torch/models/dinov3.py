@@ -20,8 +20,9 @@ a `torch.autograd.Function` (K3/K6 with the K8 backward kernel, K1, K2,
 K4 and K5 with the vjp of their plain versions), parameters are cast to
 the compute dtype at use by a differentiable `.to()` (fp32 master weights,
 as JAX's `.astype(x.dtype)`), each block is checkpointed
-(`torch.utils.checkpoint`, the JAX `remat`), and the RoPE coordinates may
-be rescaled per step (`sample_rope_coord_scale`, `pos_embed_rescale`).
+(`torch.utils.checkpoint`, the JAX `remat`, with its policies in
+`ops/remat.py`), and the RoPE coordinates may be rescaled per step
+(`sample_rope_coord_scale`, `pos_embed_rescale`).
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 from s3od_torch.configs import EncoderConfig
 from s3od_torch.ops.attention import attention
@@ -43,6 +44,7 @@ from s3od_torch.ops.flash_attention import flash_attention_autograd, flash_seq_l
 from s3od_torch.ops.layernorm import layer_norm_autograd, layer_norm_exact
 from s3od_torch.ops.mlp_fused import mlp_fused_autograd
 from s3od_torch.ops.qkv_project import qkv_project_rope_autograd, rotate_half
+from s3od_torch.ops.remat import context_fn as remat_context
 
 ROUTES = ("kernel", "exact")
 
@@ -280,14 +282,13 @@ class DINOv3Encoder(nn.Module):
         Tap t is the output of block t - 1.
 
         `remat=True` checkpoints each block while gradients are recorded:
-        the backward recomputes the block, its kernels included. Only the
-        JAX default policy (save nothing) is ported."""
+        the backward recomputes the block. `remat_policy` chooses what the
+        block keeps for it (`s3od_torch.ops.remat`): None / "none"
+        nothing, "flash" K3's out and lse (the recompute skips K3),
+        "dots_flash" also every matrix product's output on the exact
+        route; an unknown name raises `ValueError`."""
         if route not in ROUTES:
             raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
-        if remat_policy not in (None, "none"):
-            raise NotImplementedError(
-                f"remat_policy {remat_policy!r}: the flash / dots_flash "
-                "policies are not ported yet (ROADMAP, Queue 1, item 8)")
         cfg = self.cfg
         b, hh, ww, _ = images.shape
         p = cfg.patch_size
@@ -308,12 +309,14 @@ class DINOv3Encoder(nn.Module):
             x = F.pad(x, (0, 0, 0, n_run - n_valid))
         cos, sin = rope_tables(nh, nw, cfg.head_dim, cfg.rope_theta,
                                n_prefix, n_run, x.device, rope_coord_scale)
+        keep = remat_context(remat_policy, route) if remat else None
         remat = remat and torch.is_grad_enabled()
         taps = {}
         for i in range(max(tap_layers)):
             if remat:
                 x = checkpoint(self.layer[i], x, cos, sin, n_valid, route,
-                               use_reentrant=False)
+                               use_reentrant=False,
+                               context_fn=keep or noop_context_fn)
             else:
                 x = self.layer[i](x, cos, sin, n_valid, route)
             if i + 1 in tap_layers:

@@ -37,6 +37,7 @@ from __future__ import annotations
 import torch
 
 from s3od_torch import _build
+from s3od_torch.ops.remat import kept_or_run
 
 SOFTMAX_BOUND_HI = 40.0
 SOFTMAX_BOUND_LO = -40.0
@@ -408,11 +409,14 @@ flash_attention_online.launches = 0
 class _FlashAttention(torch.autograd.Function):
     """K3/K6 forward, K8 backward; saves (q, k, v, o, lse) as the JAX
     forward rule does (`flash_attention.py:652-667`). On CPU tensors both
-    wrappers take their plain versions."""
+    wrappers take their plain versions. `remat.kept_or_run` lets a
+    checkpointed block keep (o, lse) (the `flash` policies)."""
 
     @staticmethod
     def forward(ctx, q, k, v, n_valid):
-        o, lse = flash_attention(q, k, v, n_valid)
+        # Under the `flash` remat policies a block's recompute reuses the
+        # forward's (o, lse) instead of launching K3 again.
+        o, lse = kept_or_run(lambda: flash_attention(q, k, v, n_valid))
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.n_valid = n_valid
         return o

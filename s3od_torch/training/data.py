@@ -11,14 +11,15 @@ Mirrors the reference data semantics (`model_training/dataset.py`):
   (`dataset.py:130-144`) with a consecutive-error circuit breaker
 - multiple roots concatenated (`dataset.py:369-401`)
 
-The host decodes and letterboxes to the fixed canvas (uint8); a
-thread-pool prefetcher keeps a small queue of ready batches, and
-`device_prefetch` overlaps the upload with the running step.
+The host decodes and letterboxes to the fixed canvas (uint8) and draws
+each sample's geometric augmentation (RandomResizedCrop, Rotate and the
+synthetic distortions) with the JAX loader's `random.Random` calls, in its
+order; the device samples them (`s3od_torch.ops.warp.apply_host_geometry`),
+so no OpenCV call sits on the augmentation path. A thread-pool prefetcher
+keeps a small queue of ready batches, and `device_prefetch` overlaps the
+upload (and the augmentation) with the running step.
 
-Not ported yet: the host geometric augmentation and RandomResizedCrop
-(they wait with the augmentation, ROADMAP Queue 1 item 8), the FLUX
-feature dataset (teacher training), and the memmap cache, for which
-`dataset.cache` raises `NotImplementedError`.
+Not ported: the FLUX feature dataset (teacher training).
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Iterator, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -70,6 +71,92 @@ def letterbox(
         mask_c[top : top + h, left : left + w] = mask_r
     return canvas, mask_c
 
+
+
+def draw_random_resized_crop(rng: random.Random, size: int,
+                             scale=(0.85, 1.0), ratio=(0.9, 1.1)
+                             ) -> Tuple[int, int, int, int]:
+    """RandomResizedCrop's box (y0, x0, ch, cw) on the letterboxed canvas
+    (reference `transforms.py:35-40`), with the draws of the JAX loader's
+    `_random_resized_crop` (`s3od_tpu/training/data.py:77-100`)."""
+    area = size * size * rng.uniform(*scale)
+    r = rng.uniform(*ratio)
+    cw = min(size, int(round((area * r) ** 0.5)))
+    ch = min(size, int(round((area / r) ** 0.5)))
+    x0 = rng.randint(0, size - cw)
+    y0 = rng.randint(0, size - ch)
+    return y0, x0, ch, cw
+
+
+def perspective_matrix(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
+    """The 3x3 homography (float64, h22 = 1) taking the four (x, y) points
+    `src` to `dst`, by the 8x8 linear solve of cv2.getPerspectiveTransform."""
+    a = np.zeros((8, 8))
+    rhs = np.zeros(8)
+    for i in range(4):
+        x, y = float(src[i, 0]), float(src[i, 1])
+        u, v = float(dst[i, 0]), float(dst[i, 1])
+        a[i] = [x, y, 1, 0, 0, 0, -x * u, -y * u]
+        a[i + 4] = [0, 0, 0, x, y, 1, -x * v, -y * v]
+        rhs[i], rhs[i + 4] = u, v
+    return np.append(np.linalg.solve(a, rhs), 1.0).reshape(3, 3)
+
+
+def draw_host_geometry(rng: random.Random, h: int, w: int, mode: str,
+                       p_rotate: float = 0.2, rotate_limit: float = 15.0,
+                       p_distort: float = 0.4, distort_limit: float = 0.3,
+                       grid_steps: int = 6) -> Dict:
+    """The draws of the JAX loader's `host_geometric`
+    (`s3od_tpu/training/data.py:103-201`), call for call: Rotate +-15 deg
+    p=.2 (`transforms.py:41`), then in synthetic mode the distortion OneOf
+    p=.4 — OpticalDistortion w=.3 / GridDistortion w=.3 / ElasticTransform
+    w=.2 / Perspective w=.15 (`transforms.py:159-178`).
+
+    Returns {"angle": degrees or None, "distort": None or (kind, params)}:
+    ("optical", k), ("grid", (ys (h,), xs (w,)) float32 source rows and
+    columns), ("elastic", (gh, gw, 2) float32 noise) or ("perspective",
+    the 3x3 float64 matrix from output to source pixels). The device
+    applies them (`s3od_torch.ops.warp.apply_host_geometry`).
+    """
+    out: Dict = {"angle": None, "distort": None}
+    if rng.random() < p_rotate:
+        out["angle"] = rng.uniform(-rotate_limit, rotate_limit)
+    if mode == "synthetic" and rng.random() < p_distort:
+        # normalized OneOf weights .3/.3/.2/.15
+        r = rng.random() * 0.95
+        if r < 0.30:
+            out["distort"] = ("optical",
+                              rng.uniform(-distort_limit, distort_limit))
+        elif r < 0.60:
+            def axis_map(n):
+                stretch = np.array(
+                    [1.0 + rng.uniform(-distort_limit, distort_limit)
+                     for _ in range(grid_steps)])
+                bounds = np.concatenate(
+                    [[0.0], np.cumsum(stretch / stretch.sum())]) * (n - 1.0)
+                t = np.arange(n, dtype=np.float32) / (n - 1.0) * grid_steps
+                i0 = np.clip(np.floor(t).astype(int), 0, grid_steps - 1)
+                frac = t - i0
+                return (bounds[i0] + (bounds[i0 + 1] - bounds[i0]) * frac
+                        ).astype(np.float32)
+            out["distort"] = ("grid", (axis_map(h), axis_map(w)))
+        elif r < 0.80:
+            alpha, sigma = 1.0, 25.0
+            gh = max(2, int(round(h / sigma)))
+            gw = max(2, int(round(w / sigma)))
+            nprng = np.random.default_rng(rng.getrandbits(32))
+            out["distort"] = ("elastic", nprng.standard_normal(
+                (gh, gw, 2)).astype(np.float32) * alpha)
+        else:
+            s = rng.uniform(0.05, 0.1)
+            nprng = np.random.default_rng(rng.getrandbits(32))
+            corners = np.array(
+                [[0, 0], [w - 1, 0], [0, h - 1], [w - 1, h - 1]], np.float32)
+            jitter = nprng.standard_normal((4, 2)).astype(np.float32) * (
+                s * np.array([w, h], np.float32))
+            out["distort"] = ("perspective",
+                              perspective_matrix(corners, corners + jitter))
+    return out
 
 
 class MaskFolderDataset:
@@ -165,27 +252,43 @@ def build_dataset(
     seed: int = 42,
     debug_subset_fraction: Optional[float] = None,
     cache: bool = False,
+    cache_root: Optional[str] = None,
 ):
-    """One `MaskFolderDataset` per root, concatenated."""
+    """One `MaskFolderDataset` per root, concatenated. ``cache=True`` serves
+    pre-decoded letterbox canvases from uint8 memmap shards
+    (`s3od_torch.training.cache`): decode once per (root, image_size)
+    instead of per epoch; masks then flow uint8 end to end."""
     if cache:
-        raise NotImplementedError(
-            "dataset.cache (the memmap letterbox cache) is not ported yet "
-            "(ROADMAP, Queue 1, item 8)")
-    parts = [
-        MaskFolderDataset(p, image_size, split, val_split, seed,
-                          debug_subset_fraction=debug_subset_fraction)
-        for p in dataset_paths
-    ]
+        from s3od_torch.training.cache import CachedMaskFolderDataset
+
+        parts = [
+            CachedMaskFolderDataset(p, image_size, split, val_split, seed,
+                                    debug_subset_fraction=debug_subset_fraction,
+                                    cache_root=cache_root)
+            for p in dataset_paths
+        ]
+    else:
+        parts = [
+            MaskFolderDataset(p, image_size, split, val_split, seed,
+                              debug_subset_fraction=debug_subset_fraction)
+            for p in dataset_paths
+        ]
     return parts[0] if len(parts) == 1 else ConcatMaskDataset(parts)
 
 
 class PrefetchLoader:
-    """Thread-pool batch loader.
+    """Thread-pool batch loader with the host's geometric draws.
 
-    Yields {"images": uint8 (B,S,S,3), "masks": float32 (B,S,S) in [0,1]}
-    numpy batches, with deterministic per-epoch shuffling from (seed,
-    epoch). The JAX loader's host augmentations (RandomResizedCrop, the
-    geometric warps) wait with the augmentation (ROADMAP, Queue 1, item 8).
+    Yields {"images": uint8 (B,S,S,3), "masks": (B,S,S)} numpy batches —
+    masks float32 in [0,1], or uint8 0..255 when the dataset is a
+    memmap-cached one (`training/cache.py`) — with deterministic
+    per-epoch shuffling from (seed, epoch). When it augments
+    (`random_resized_crop_p` > 0 or a `geometric_mode`), a batch also
+    carries "geometry": one dict per sample ({"crop": (y0, x0, ch, cw)}
+    and/or `draw_host_geometry`'s keys), drawn from the JAX loader's
+    per-batch `random.Random((seed * 1000 + epoch) * 100003 + b)` in its
+    order: every crop gate and box, then every sample's rotation and
+    distortion.
     """
 
     def __init__(
@@ -198,6 +301,8 @@ class PrefetchLoader:
         seed: int = 42,
         num_threads: int = 8,
         prefetch: int = 2,
+        random_resized_crop_p: float = 0.0,
+        geometric_mode: Optional[str] = None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -206,6 +311,9 @@ class PrefetchLoader:
         self.seed = seed
         self.num_threads = num_threads
         self.prefetch = prefetch
+        self.rrc_p = random_resized_crop_p
+        # "regular" | "synthetic": draw the rotation / distortion per sample.
+        self.geometric_mode = geometric_mode
 
     def _host_order(self, epoch: int) -> np.ndarray:
         order = np.arange(len(self.dataset))
@@ -217,6 +325,23 @@ class PrefetchLoader:
         n = len(self.dataset)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
+    def draw_geometry(self, epoch: int, b: int, n: int, size: int):
+        """Batch b's per-sample geometry (None when the loader does not
+        augment)."""
+        if not (self.rrc_p > 0 or self.geometric_mode):
+            return None
+        rng = random.Random((self.seed * 1000 + epoch) * 100003 + b)
+        geometry: List[Dict] = [{} for _ in range(n)]
+        if self.rrc_p > 0:
+            for g in geometry:
+                if rng.random() < self.rrc_p:
+                    g["crop"] = draw_random_resized_crop(rng, size)
+        if self.geometric_mode:
+            for g in geometry:
+                g.update(draw_host_geometry(rng, size, size,
+                                            self.geometric_mode))
+        return geometry
+
     def epoch(self, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
         order = self._host_order(epoch)
         n_batches = len(self)
@@ -224,8 +349,15 @@ class PrefetchLoader:
         def load_batch(b):
             idxs = order[b * self.batch_size : (b + 1) * self.batch_size]
             imgs, masks = zip(*(self.dataset.load(int(i)) for i in idxs))
-            return {"images": np.stack(imgs),
-                    "masks": np.stack(masks).astype(np.float32)}
+            masks_arr = np.stack(masks)
+            if masks_arr.dtype != np.uint8:
+                masks_arr = masks_arr.astype(np.float32)
+            out = {"images": np.stack(imgs), "masks": masks_arr}
+            geometry = self.draw_geometry(epoch, b, len(imgs),
+                                          imgs[0].shape[0])
+            if geometry is not None:
+                out["geometry"] = geometry
+            return out
 
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()

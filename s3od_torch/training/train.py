@@ -2,7 +2,7 @@
 `s3od_tpu/training/train.py:155-611`, for one device).
 
     python -m s3od_torch.training.train model=dinob dataset=synth \\
-        dataset.transform_mode=test backend=1chip data_dir=/data
+        backend=1chip data_dir=/data
 
 The same config groups and overrides as the JAX package
 (`training/config/`). The loop: per epoch, the training steps
@@ -12,13 +12,17 @@ when it is installed), top-k and `last` checkpoints by val dice, early
 stopping on val_iou_loss_full; after the fit, the optional evaluation of
 the test datasets and the export of `s3od_final.npz`.
 
+With `dataset.transform_mode` regular or synthetic the loader draws
+RandomResizedCrop (p 0.5) and the rotation / distortions on the host and
+the device applies them, then the batched photometric pipeline runs
+(`s3od_torch/ops/augment.py`), all inside the upload worker, so it
+overlaps the previous step (JAX's `train_pre` + prefetch worker,
+`s3od_tpu/training/train.py:316-326, 441-460`).
+
 The run is on the CUDA card unless `backend.accelerator` is `cpu`; it
 never falls back. Not ported yet, each raising `NotImplementedError`
-(ROADMAP, Queue 1): `dataset.transform_mode` other than `test` (the
-augmentation), `backend.devices` / `backend.fsdp` above 1 (DDP/FSDP),
-teacher training, `train_stage.enable_image_logging`,
-`backend.split_augment`, `pretrained_encoder`, and the `flash` /
-`dots_flash` remat policies.
+(ROADMAP, Queue 1): `backend.devices` / `backend.fsdp` above 1
+(DDP/FSDP) and teacher training.
 """
 
 from __future__ import annotations
@@ -64,18 +68,8 @@ def check_supported(cfg, config_name: str) -> None:
     """Raise for the parts of the JAX entry point the port lacks."""
     if config_name != "train" or cfg.model.get("use_flux_features"):
         raise _not_ported("teacher training", 10)
-    if cfg.dataset.transform_mode != "test":
-        raise _not_ported(
-            f"dataset.transform_mode={cfg.dataset.transform_mode!r} "
-            "(on-device augmentation; use dataset.transform_mode=test)", 8)
     if int(cfg.backend.devices) > 1 or int(cfg.backend.fsdp) > 1:
         raise _not_ported("backend.devices / backend.fsdp > 1 (DDP, FSDP)", 9)
-    if cfg.train_stage.get("enable_image_logging"):
-        raise _not_ported("train_stage.enable_image_logging", 8)
-    if cfg.backend.get("split_augment"):
-        raise _not_ported("backend.split_augment", 8)
-    if cfg.get("pretrained_encoder"):
-        raise _not_ported("pretrained_encoder (HF DINOv3 weights)", 8)
 
 
 def device_of(cfg) -> torch.device:
@@ -92,7 +86,7 @@ def device_of(cfg) -> torch.device:
 
 def build_model(cfg, device: torch.device, seed: int):
     from s3od_torch.configs import segmentation_config
-    from s3od_torch.convert import load_checkpoint
+    from s3od_torch.convert import load_checkpoint, load_hf_encoder_
     from s3od_torch.models.segmentation import S3ODSegmentation, init_weights_
 
     mcfg = segmentation_config(
@@ -109,8 +103,15 @@ def build_model(cfg, device: torch.device, seed: int):
         logger.info("initialized weights from %s", cfg.init_checkpoint)
     else:
         init_weights_(model, torch.Generator().manual_seed(seed))
-        logger.warning("no init_checkpoint: fully random init (the reference "
-                       "starts from a pretrained DINOv3 encoder)")
+        if cfg.get("pretrained_encoder"):
+            # Pretrained DINOv3 encoder + fresh head: the reference's
+            # default training init (`model_training/model.py:14,25`).
+            load_hf_encoder_(model.encoder, str(cfg.pretrained_encoder))
+            logger.info("encoder initialized from %s", cfg.pretrained_encoder)
+        else:
+            logger.warning(
+                "no init_checkpoint/pretrained_encoder: fully random init "
+                "(the reference pulls pretrained DINOv3 encoder weights)")
     return model.to(device)
 
 
@@ -119,6 +120,66 @@ def step_generator(seed: int, epoch: int, step: int) -> torch.Generator:
     step): a resumed run draws what a continuous run would."""
     return torch.Generator().manual_seed(
         ((seed + 1) * 1_000_003 + epoch) * 1_000_003 + step)
+
+
+def augment_generator(seed: int, epoch: int, step: int) -> torch.Generator:
+    """The augmentation stream of one step, a function of (seed, epoch,
+    step) apart from `step_generator`'s (JAX folds the epoch key with 1
+    for it and 0 for the step keys, `train.py:431-437`), so a resumed
+    run augments as a continuous run would."""
+    return torch.Generator().manual_seed(
+        ((seed + 2) * 1_000_003 + epoch) * 1_000_003 + step)
+
+
+def upload(batch, device: torch.device) -> Dict[str, torch.Tensor]:
+    """A loader batch onto the device: uint8 images, masks as uint8
+    0..255 (4x fewer bytes than float; cached datasets already are),
+    through pinned memory without waiting for the running step."""
+    from s3od_torch.ops.warp import host_to
+
+    masks = batch["masks"]
+    if masks.dtype != np.uint8:
+        masks = np.round(masks * 255.0).astype(np.uint8)
+    return {"images": host_to(torch.from_numpy(batch["images"]), device),
+            "masks": host_to(torch.from_numpy(masks), device)}
+
+
+def train_pre(batch, geometry, mode: str, generator: torch.Generator):
+    """The training input pipeline on the batch's device (JAX `train_pre`
+    with the loader's host warps, `train.py:316-326`): the geometry the
+    loader drew, then the flips and the photometric stages
+    (`augment_batch(..., device_geometric=False)`), then the ImageNet
+    normalization."""
+    from s3od_torch.ops.augment import augment_batch, normalize_imagenet
+    from s3od_torch.ops.warp import apply_host_geometry
+
+    images, masks = batch["images"], batch["masks"]
+    if geometry is not None:
+        images, masks = apply_host_geometry(images, masks, geometry)
+    x, m = augment_batch(images, masks.float() / 255.0, mode, generator,
+                         device_geometric=False)
+    return {"images": normalize_imagenet(x), "masks": m}
+
+
+@torch.no_grad()
+def log_val_images(writer, model, batch, compute_dtype, device, epoch: int,
+                   max_images: int) -> None:
+    """Side-by-side panels of the first val batch (JAX `_log_val_images`,
+    `train.py:614-650`; reference `lightning_module.py:269-283`)."""
+    from s3od_torch.ops.augment import normalize_imagenet
+    from s3od_torch.training.image_logger import ImageLogger
+
+    images = torch.from_numpy(batch["images"][:max_images]).to(device)
+    x = normalize_imagenet(images.float() / 255.0)
+    out = model(x.to(compute_dtype), training=False)
+    gt = np.asarray(batch["masks"][:max_images])
+    if gt.dtype == np.uint8:  # cached loader ships masks uint8 0..255
+        gt = gt.astype(np.float32) / 255.0
+    panels = ImageLogger(max_images)
+    panels.maybe_add(x.cpu().numpy(),
+                     torch.sigmoid(out["pred_masks"].float()).cpu().numpy(),
+                     out["pred_iou"].float().cpu().numpy(), gt)
+    panels.flush(writer, "val", epoch)
 
 
 def train(argv: Optional[list] = None) -> Dict[str, float]:
@@ -163,6 +224,8 @@ def train(argv: Optional[list] = None) -> Dict[str, float]:
     image_size = int(cfg.dataset.image_size)
     accum = int(cfg.backend.accumulate_grad_batches)
     global_batch = int(cfg.dataset.train_batch_size) * accum
+    # dataset.cache=true: pre-decoded uint8 letterbox memmap cache (decode
+    # once per dataset, not per epoch).
     use_cache = bool(cfg.dataset.get("cache"))
     train_ds = build_dataset(paths, image_size, "train",
                              float(cfg.dataset.val_split), seed,
@@ -170,9 +233,12 @@ def train(argv: Optional[list] = None) -> Dict[str, float]:
     val_ds = build_dataset(paths, image_size, "val",
                            float(cfg.dataset.val_split), seed, cache=use_cache)
     threads = int(cfg.backend.num_threads)
-    train_loader = PrefetchLoader(train_ds, global_batch, shuffle=True,
-                                  drop_last=True, seed=seed,
-                                  num_threads=threads)
+    mode = cfg.dataset.transform_mode
+    augmenting = mode != "test"
+    train_loader = PrefetchLoader(
+        train_ds, global_batch, shuffle=True, drop_last=True, seed=seed,
+        num_threads=threads, random_resized_crop_p=0.5 if augmenting else 0.0,
+        geometric_mode=mode if augmenting else None)
     val_loader = PrefetchLoader(val_ds, int(cfg.dataset.val_batch_size),
                                 shuffle=False, drop_last=True, seed=seed,
                                 num_threads=threads)
@@ -238,11 +304,27 @@ def train(argv: Optional[list] = None) -> Dict[str, float]:
             if start_epoch:
                 logger.info("resuming at epoch %d (step %d)", start_epoch, step)
 
-    def put_fn(i, batch):
-        # uint8 over the wire (4x fewer bytes); train_step decodes.
-        batch = {**batch, "masks": np.round(batch["masks"] * 255.0)
-                 .astype(np.uint8)}
-        return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    # backend.split_augment: the JAX package runs the augmentation as its
+    # own jitted program, per accumulation micro-slice, instead of inside
+    # the train step (`train.py:359-380`); only its draw stream differs.
+    # Here augmentation always runs as its own calls before the step, in
+    # the upload worker; the flag keeps JAX's per-micro-slice calls, which
+    # bound the pipeline's temporaries by the micro-batch.
+    split_aug = bool(cfg.backend.get("split_augment"))
+    image_logging = bool(cfg.train_stage.get("enable_image_logging"))
+
+    def put_fn(i, batch, epoch):
+        dev_batch = upload(batch, device)
+        if not augmenting:
+            return dev_batch  # train_step decodes
+        gen = augment_generator(seed, epoch, i)
+        geometry = batch.get("geometry")
+        n = dev_batch["images"].shape[0]
+        micro = max(1, n // accum) if split_aug else n
+        parts = [train_pre({k: v[j: j + micro] for k, v in dev_batch.items()},
+                           geometry and geometry[j: j + micro], mode, gen)
+                 for j in range(0, n, micro)]
+        return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
 
     max_epochs = int(cfg.backend.max_epochs)
     final_metrics: Dict[str, float] = {}
@@ -251,12 +333,15 @@ def train(argv: Optional[list] = None) -> Dict[str, float]:
         t0 = time.time()
         acc: Dict[str, torch.Tensor] = {}
         n_steps = 0
-        for i, batch in device_prefetch(train_loader.epoch(epoch), put_fn,
-                                        depth=prefetch_depth):
+        for i, batch in device_prefetch(
+                train_loader.epoch(epoch),
+                lambda i, b, epoch=epoch: put_fn(i, b, epoch),
+                depth=prefetch_depth):
             out = train_step(model, optimizer, loss_module, batch, epoch,
                              step, generator=step_generator(seed, epoch, i),
                              accum_steps=accum, compute_dtype=compute_dtype,
-                             remat_policy=remat_policy)
+                             remat_policy=remat_policy,
+                             preprocessed=augmenting)
             for k, v in out.items():
                 acc[k] = acc[k] + v if k in acc else v
             step += 1
@@ -275,10 +360,13 @@ def train(argv: Optional[list] = None) -> Dict[str, float]:
         vsums: Dict[str, float] = {}
         n_val = 0
         for batch in val_loader.epoch(0):
-            out = eval_step(model, loss_module, put_fn(n_val, batch), epoch,
+            out = eval_step(model, loss_module, upload(batch, device), epoch,
                             compute_dtype=compute_dtype)
             for k, v in out.items():
                 vsums[k] = vsums.get(k, 0.0) + float(v)
+            if n_val == 0 and writer and image_logging:
+                log_val_images(writer, model, batch, compute_dtype, device,
+                               epoch, int(cfg.train_stage.get("max_images", 8)))
             n_val += 1
         if n_val == 0 and epoch == start_epoch:
             logger.warning(

@@ -2,10 +2,10 @@
 `s3od_tpu/training/train_step.py`).
 
 One `train_step` is the JAX jitted step written out: decode the uint8
-batch and normalize it, split it into `accum_steps` micro-batches, and for
-each draw the RoPE coordinate scale, run the forward in training mode
-(batch-statistics BN, per-block remat), the loss and the confusion sums,
-and backpropagate; the gradients, the loss and its parts are averaged
+batch and normalize it (or take the batch the trainer augmented), split
+it into `accum_steps` micro-batches, and for each draw the RoPE
+coordinate scale, run the forward in training mode (batch-statistics BN,
+per-block remat), the loss and the confusion sums, and backpropagate; the gradients, the loss and its parts are averaged
 over the micro-batches, the sums added, and the BN running statistics
 thread through the micro-batches in order. Then one optimizer update.
 Results stay on the device (no host readback per step).
@@ -52,13 +52,17 @@ def best_mask_metrics(outputs, targets) -> Dict[str, torch.Tensor]:
 def train_step(model, optimizer, loss_module, batch, epoch: int, step: int,
                *, generator: torch.Generator, accum_steps: int = 1,
                compute_dtype: torch.dtype = torch.float32,
-               remat_policy: Optional[str] = None) -> Dict[str, torch.Tensor]:
+               remat_policy: Optional[str] = None,
+               preprocessed: bool = False) -> Dict[str, torch.Tensor]:
     """One optimizer step over `batch` (leading dim accum_steps x micro
     batch, on the model's device). `step` is the number of updates so far
     (the schedules' count); `generator` draws the RoPE scales when the
-    encoder config has `pos_embed_rescale`. Returns
+    encoder config has `pos_embed_rescale`. `preprocessed`: the batch is
+    already augmented and normalized (float images and masks, the
+    trainer's `train_pre`); else `preprocess` decodes it. Returns
     {"loss", *parts, "tp", "fp", "fn"} as 0-dim device tensors."""
-    batch = preprocess(batch)
+    if not preprocessed:
+        batch = preprocess(batch)
     rescale = model.cfg.encoder.pos_embed_rescale
     n = batch["images"].shape[0]
     if n % accum_steps:
