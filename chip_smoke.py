@@ -70,6 +70,25 @@ all started together) and the Triton kernel, then:
      and 2048^2 (NCHW memory), on NHWC memory and on H-innermost memory,
      by relative norm with a planted out x 1.01 caught, timed with the
      card held (warm and after an L2 flush) with the clocks sampled;
+  5c. exports serving bundles of the seeded ViT-B on the card
+     (`s3od_torch.aot`: K1-K6, K9a, K9b and K10 as `s3od::` ops in
+     `torch.export` graphs that take the weights as inputs): 1024² b1/b16
+     x full/best, 2048² b1 best (K6 through a graph), 1024² b1 full with
+     both decoder gates on; runs `verify_bundle` on each; holds the
+     bundle predictor's answers against the eager predictor's (max|d|
+     <= 1e-5 on "full", one uint8 step on "best") with K1-K5 launched 11
+     times a forward through each graph and K9a/K9b/K10 as the eager
+     gated forward launches them; checks that the graphs hold no
+     weights (< 5% of weights.npz); times both routes (img/s, host ms to
+     enqueue a forward) at 1024² b1/b16 in turns, and the cold
+     start to the first answer in a fresh process from the bundle and
+     from a `.npz`;
+  5d. runs the tools: `evaluation.test_efficiency` at ViT-B 840² b1 and
+     b16 with the profiler summary (the s3od:: ops' FLOPs held to the
+     formulas over the 2752 padded tokens), `evaluation.mine_samples`
+     with the tiny 1024² checkpoint (bf16 scores against fp32,
+     `MINE_TOL`), `export_model --verify --aot-output` on it, and the
+     demo's HTTP server answering `POST /predict` equal to a direct call;
   6. checks K8, the attention backward, against its plain version at the
      training shapes (12 and 48 x 4160 tokens, D = 64 and 32) and at
      2048^2, with +-1000-scale inputs, hot and cold, and cold rows near
@@ -4376,6 +4395,356 @@ def demo_phase(results):
     shutil.rmtree(DEMO_ROOT)
 
 
+AOT_ROOT = REPO / "build" / "chip_smoke_aot"
+TOOLS_ROOT = REPO / "build" / "chip_smoke_tools"
+AOT_STEP = 1 / 255 + 1e-6  # payload "best": one uint8 step of the mask
+MINE_TOL = 2e-2   # bf16 vs fp32 mining score (an S-measure product in [0, 1])
+
+
+def host_ms(fn, reps: int = 5, calls: int = 3) -> float:
+    """Host time to enqueue one call of `fn`: the wall time of `calls`
+    calls back to back after a synchronise, over `calls` (median of
+    `reps`), timed until they return, before the card finishes (were the
+    launch queue to fill, the time would approach the card's). A call
+    made alone after a synchronise read ~1.5x the back-to-back rate on
+    the H100 hosts, so the calls run in a row."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) * 1e3 / calls)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def cold_start(code: str) -> dict:
+    """Run `code` in a fresh `python` process; it prints one JSON object
+    as its last line. Adds the wall seconds from spawn to exit."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(out.returncode == 0, f"cold start failed: {out.stderr[-2000:]}")
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    res["wall_s"] = wall
+    return res
+
+
+COLD_CODE = """
+import json, time
+t0 = time.perf_counter()
+import numpy as np, torch
+from PIL import Image
+from s3od_torch import BackgroundRemoval
+t1 = time.perf_counter()
+pred = {load}
+t2 = time.perf_counter()
+r = pred.remove_background(np.array(Image.open({image!r}).convert("RGB")))
+torch.cuda.synchronize()
+t3 = time.perf_counter()
+print(json.dumps({{"import_s": t1 - t0, "load_s": t2 - t1,
+                   "first_answer_s": t3 - t2, "to_answer_s": t3 - t0,
+                   "iou0": float(r.all_ious[0])}}))
+"""
+
+
+def bundle_bytes(path: Path) -> dict:
+    graphs = sum(p.stat().st_size for p in path.glob("*.pt2"))
+    return {"graphs": graphs, "weights": (path / "weights.npz").stat().st_size}
+
+
+def aot_vs_eager(slot, aot, eager, imgs, payload, counts_want):
+    """The bundle predictor's answers against the eager predictor's on the
+    same images (batch 1 and the batch of all of `imgs`), the launches of
+    K1-K5 per forward through the graphs, and the largest differences."""
+    import numpy as np
+    import torch
+
+    tol = 1e-5 if payload == "full" else AOT_STEP
+    d_mask = d_iou = 0.0
+    reset_counts()
+    got = aot.remove_background(imgs[0], payload=payload)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check(all(v == counts_want for v in counts.values()),
+          f"bundle b1 {payload}: launches {counts}, want {counts_want} each")
+    ref = eager.remove_background(imgs[0], payload=payload)
+    pairs = [(got, ref)]
+    if len(imgs) > 1:
+        reset_counts()
+        got_b = aot.remove_background_batch(imgs, payload=payload)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        check(all(v == counts_want for v in counts.values()),
+              f"bundle b{len(imgs)} {payload}: launches {counts}")
+        pairs += list(zip(got_b, eager.remove_background_batch(imgs, payload=payload)))
+    for g, r in pairs:
+        d_mask = max(d_mask, float(np.abs(g.all_masks - r.all_masks).max()))
+        d_iou = max(d_iou, float(np.abs(g.all_ious - r.all_ious).max()))
+    slot[f"d_mask_{payload}"] = max(slot.get(f"d_mask_{payload}", 0.0), d_mask)
+    slot[f"d_iou_{payload}"] = max(slot.get(f"d_iou_{payload}", 0.0), d_iou)
+    check(d_mask <= tol and d_iou <= 1e-5,
+          f"bundle vs eager ({payload}, {len(pairs)} answers): max|d mask| "
+          f"{d_mask}, max|d iou| {d_iou}")
+    return counts
+
+
+def route_rates(aot, eager, canvases, iters):
+    """img/s of the device forward on uint8 canvases through the bundle and
+    eagerly, by CUDA events around `iters` back-to-back forwards (the host
+    is in it where it is the slower), in turns: eager, bundle, bundle,
+    eager; and each route's host time per forward."""
+    import torch
+
+    x = torch.from_numpy(canvases).cuda()
+    b = x.shape[0]
+    fns = {"eager": lambda: eager._forward_device(x, "full"),
+           "bundle": lambda: aot._forward_device(x, "full")}
+    ms = {k: [] for k in fns}
+    for name in ("eager", "bundle", "bundle", "eager"):
+        ms[name].append(run_ms(fns[name], iters))
+    out = {f"{k}_img_s": b / (min(v) / 1e3) for k, v in ms.items()}
+    out.update({f"{k}_fwd_ms": min(v) for k, v in ms.items()})
+    out.update({f"{k}_host_ms": host_ms(f) for k, f in fns.items()})
+    return out
+
+
+def aot_phase(results):
+    """The serving bundle at ViT-B width from seeds, bf16, exported on the
+    card: 1024^2 b1/b16 x full/best, 2048^2 b1 best (K6 through a graph),
+    1024^2 b1 full with both decoder gates on (K9a, K9b, K10); each bundle
+    verified, its predictor held against the eager predictor with launch
+    counts, the weights held once, img/s and host time per forward on
+    both routes, and cold starts in fresh processes."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from s3od_torch import BackgroundRemoval
+    from s3od_torch.aot import ServingBundle, save_serving_bundle, verify_bundle
+    from s3od_torch.convert import convert_state_dict, save_native
+
+    log("phase aot: serving bundles of ViT-B (seeded, bf16) exported on the card")
+    if AOT_ROOT.exists():
+        shutil.rmtree(AOT_ROOT)
+    AOT_ROOT.mkdir(parents=True)
+    model = vit_b_model(0)
+    per_forward = model.cfg.num_encoder_layers_used
+    a = results["_aot"] = {"export_s": {}, "verify": {}}
+    specs = {"b1024": dict(image_size=1024, batches=(1, B16)),
+             "b2048": dict(image_size=2048, batches=(1,), payloads=("best",)),
+             "gated": dict(image_size=1024, batches=(1,), payloads=("full",))}
+    preds = {}
+    for name, kw in specs.items():
+        with decoder_gates(name == "gated"):
+            out = save_serving_bundle(AOT_ROOT / name, model, **kw)
+        meta = json.loads((out / "meta.json").read_text())
+        a["export_s"].update({f"{name}/{k}": v for k, v in meta["export_s"].items()})
+        a[f"bytes_{name}"] = bundle_bytes(out)
+        preds[name] = pred = BackgroundRemoval.from_serving_bundle(out)
+        a["verify"][name] = verify_bundle(ServingBundle(pred.model, meta, pred._aot), n=1)
+        log(f"  bundle {name}: export s {meta['export_s']}, bytes "
+            f"{a[f'bytes_{name}']}, verify_bundle max|d| {a['verify'][name]:.3e}")
+    graphs = sum(a[f"bytes_{n}"]["graphs"] for n in specs)
+    a["graphs_share"] = graphs / a["bytes_b1024"]["weights"]
+    log(f"  all six graphs: {graphs} bytes, {100 * a['graphs_share']:.3f}% of "
+        f"weights.npz ({a['bytes_b1024']['weights']} bytes)")
+    check(a["graphs_share"] < 0.05, "the graphs must not hold the weights")
+
+    image = np.array(Image.open(IMAGE).convert("RGB"))
+    imgs = test_images(image)
+    eager = BackgroundRemoval.from_model(copy.deepcopy(model), image_size=1024)
+    aot = preds.pop("b1024")
+    check(sorted(aot._aot) == [(1, "best"), (1, "full"), (B16, "best"), (B16, "full")],
+          f"bundle graphs {sorted(aot._aot)}")
+    for payload in ("full", "best"):
+        aot_vs_eager(a, aot, eager, imgs, payload, per_forward)
+    reset_counts()
+    aot.remove_background_batch(imgs[:3])  # no b3 graph: the eager route
+    check(launch_counts()["K1_layer_norm"] == per_forward, "b3 eager fallback")
+    c1 = np.stack([aot._preprocess(imgs[0])[0]])
+    c16 = np.stack([aot._preprocess(im)[0] for im in imgs])
+    for tag, c, iters in (("b1", c1, 20), ("b16", c16, 5)):
+        rates = route_rates(aot, eager, c, iters)
+        a[f"rates_{tag}"] = rates
+        log(f"  1024^2 {tag}: bundle {rates['bundle_img_s']:.3f} img/s "
+            f"({rates['bundle_fwd_ms']:.3f} ms, host {rates['bundle_host_ms']:.3f} ms"
+            f" a forward), eager {rates['eager_img_s']:.3f} img/s "
+            f"({rates['eager_fwd_ms']:.3f} ms, host {rates['eager_host_ms']:.3f} ms)")
+    del aot, eager
+
+    eager = BackgroundRemoval.from_model(copy.deepcopy(model), image_size=2048)
+    aot = preds.pop("b2048")
+    counts = aot_vs_eager(a, aot, eager, imgs[:1], "best", per_forward)
+    log(f"  2048^2 b1 best through the graph: launches {counts} (K6 is "
+        f"the K3 wrapper's count), max|d mask| {a['d_mask_best']:.3e}")
+    del aot, eager
+
+    with decoder_gates(True):
+        eager = BackgroundRemoval.from_model(copy.deepcopy(model), image_size=1024)
+        aot = preds.pop("gated")
+        wraps = decoder_wrappers()
+        gated = {}
+        for tag, pred in (("eager", eager), ("bundle", aot)):
+            for fn in wraps.values():
+                fn.launches = 0
+            reset_counts()
+            res = pred.remove_background(imgs[0])
+            torch.cuda.synchronize()
+            gated[tag] = {**decoder_counts(wraps), **launch_counts()}
+            gated[f"{tag}_res"] = res
+        d = float(np.abs(gated["eager_res"].all_masks
+                         - gated["bundle_res"].all_masks).max())
+    a["gated"] = {"eager": gated["eager"], "bundle": gated["bundle"], "d_mask": d}
+    log(f"  gated 1024^2 b1: launches eager {gated['eager']}, bundle "
+        f"{gated['bundle']}, max|d mask| {d:.3e}")
+    check(gated["eager"] == gated["bundle"], "gated launches differ")
+    check(all(gated["bundle"][k] > 0 for k in wraps), "gated kernels unlaunched")
+    check(d <= 1e-5, f"gated bundle vs eager: max|d mask| {d}")
+    del aot, eager
+
+    npz = AOT_ROOT / "vit_b.npz"
+    save_native(str(npz), *convert_state_dict(model.cpu().state_dict(), model.cfg)[:2])
+    a["cold"] = {
+        "bundle": cold_start(COLD_CODE.format(
+            load=f"BackgroundRemoval.from_serving_bundle({str(AOT_ROOT / 'b1024')!r})",
+            image=str(IMAGE))),
+        "npz": cold_start(COLD_CODE.format(
+            load=f"BackgroundRemoval({str(npz)!r}, image_size=1024)",
+            image=str(IMAGE)))}
+    for k, v in a["cold"].items():
+        log(f"  cold start from the {k}: {v['wall_s']:.2f} s to the first "
+            f"answer (import {v['import_s']:.2f}, load {v['load_s']:.2f}, "
+            f"first answer {v['first_answer_s']:.2f})")
+    check(abs(a["cold"]["bundle"]["iou0"] - a["cold"]["npz"]["iou0"]) <= 1e-5,
+          "the two cold starts answer alike")
+    shutil.rmtree(AOT_ROOT)
+
+
+def tools_phase(results):
+    """`test_efficiency` at ViT-B 840^2 (b1 and b16, profiler summary),
+    `mine_samples` with the tiny 1024^2 checkpoint (bf16 scores against
+    fp32), `export_model --verify --aot-output` on it, and the demo's
+    HTTP server on the card against a direct call."""
+    import io
+    import shutil
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from s3od_torch import BackgroundRemoval, demo_app, export_model
+    from s3od_torch.evaluation import mine_samples, test_efficiency
+    from s3od_torch.evaluation.predictor import SODPredictor
+
+    log("phase tools: test_efficiency at ViT-B 840^2, mine_samples, "
+        "export_model, the demo server")
+    if TOOLS_ROOT.exists():
+        shutil.rmtree(TOOLS_ROOT)
+    TOOLS_ROOT.mkdir(parents=True)
+    t = results["_tools"] = {}
+    model = vit_b_model(0)
+    cfg, blocks = model.cfg.encoder, model.cfg.num_encoder_layers_used
+    sod = SODPredictor(image_size=840, _predictor=BackgroundRemoval.from_model(
+        model, image_size=840))
+    for batch in (1, B16):
+        r = test_efficiency.run_benchmark(
+            input_size=840, batch=batch, _predictor=sod,
+            output_file=str(TOOLS_ROOT / f"benchmark_results_b{batch}.txt"),
+            trace_dir=str(TOOLS_ROOT / f"trace_b{batch}"))
+        # K2 + K3 + K4 + K5 a block over 2709 tokens padded to 2752
+        n, c, f = 2752, cfg.hidden_size, cfg.intermediate_size
+        per_block = 6 * n * c * c + 4 * n * n * c + 2 * n * c * c + 4 * n * c * f
+        want = batch * per_block * blocks
+        t[f"b{batch}"] = {k: r[k] for k in ("fps", "latency_ms", "params",
+                                            "flops", "s3od_flops", "peak_bytes",
+                                            "tokens")}
+        t[f"b{batch}"]["trace_top"] = r["trace_summary"]["by_category"][:6]
+        log(f"  report b{batch}:\n" + r["report"])
+        check(r["s3od_flops"] == want,
+              f"s3od:: FLOPs {r['s3od_flops']} != the formulas' {want}")
+        check(r["tokens"] == 2709, f"tokens at 840^2: {r['tokens']}")
+        check(r["params"] > 100e6, f"params {r['params']}")
+    log(f"  encoder FLOPs at 840^2 b1: {t['b1']['s3od_flops'] / 1e12:.4f} T over "
+        f"2752 padded tokens (24 N C^2 + 4 N^2 C at N = 2709 gives "
+        f"{11 * (24 * 2709 * 768**2 + 4 * 2709**2 * 768) / 1e12:.4f} T)")
+    del sod, model
+
+    image = np.array(Image.open(IMAGE).convert("RGB"))
+    mask = np.array(Image.open(MASK).convert("L"))
+    mine_dir = TOOLS_ROOT / "mine"
+    for sub in ("images", "masks"):
+        (mine_dir / sub).mkdir(parents=True)
+    h, w = mask.shape
+    variants = {"cat_0": (image, mask), "cat_1": (image[:, ::-1], mask[:, ::-1]),
+                "dog_0": (image[h // 8:, : 7 * w // 8], mask[h // 8:, : 7 * w // 8]),
+                "dog_1": (image[::-1], mask[::-1])}
+    for name, (im, m) in variants.items():
+        Image.fromarray(np.ascontiguousarray(im)).save(mine_dir / "images" / f"{name}.png")
+        Image.fromarray(np.ascontiguousarray(m)).save(mine_dir / "masks" / f"{name}.png")
+    runs = {dt: mine_samples.mine(str(mine_dir), str(TINY_1024), img_size=1024,
+                                  output_dir=str(TOOLS_ROOT / f"mine_{dt}"),
+                                  dtype=dt)
+            for dt in ("bfloat16", "float32")}
+    d = max(abs(a - b) for cat in runs["float32"]["category_sample_scores"]
+            for a, b in zip(runs["bfloat16"]["category_sample_scores"][cat],
+                            runs["float32"]["category_sample_scores"][cat]))
+    t["mine"] = {"scores_bf16": runs["bfloat16"]["category_scores"],
+                 "scores_fp32": runs["float32"]["category_scores"],
+                 "new_samples_bf16": runs["bfloat16"]["new_samples"],
+                 "new_samples_fp32": runs["float32"]["new_samples"], "max_d": d}
+    log(f"  mine_samples (tiny 1024^2): {t['mine']}")
+    check(len(runs["bfloat16"]["category_scores"]) == 2, "two mined categories")
+    check(d <= MINE_TOL, f"mining scores bf16 vs fp32 differ by {d}")
+
+    ex = TOOLS_ROOT / "export"
+    ex.mkdir()
+    t["export_model"] = export_model.main([
+        "--checkpoint", str(TINY_1024), "--output", str(ex / "s3od.npz"),
+        "--torch-output", str(ex / "s3od.pt"), "--aot-output", str(ex / "bundle"),
+        "--aot-batches", "1", "--verify"])
+    log(f"  export_model --verify --aot-output (tiny, 1024^2 b1 bf16): "
+        f"{t['export_model']}")
+
+    pred = BackgroundRemoval(str(TINY_1024), image_size=1024)
+    demo_app._model_cache["tiny"] = pred
+    server = demo_app.make_http_server("tiny", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        buf = io.BytesIO()
+        Image.fromarray(image).save(buf, format="PNG")
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.server_address[1]}/predict",
+            data=buf.getvalue(), headers={"Content-Type": "image/png"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            body = resp.read()
+            info = json.loads(resp.headers["X-S3OD-Info"])
+        t["demo_s"] = time.perf_counter() - t0
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+    got = np.asarray(Image.open(io.BytesIO(body)))
+    direct = pred.remove_background(image)
+    same = bool(np.array_equal(got, np.asarray(direct.rgba_image)))
+    t["demo"] = {"equal": same, "info": info}
+    log(f"  demo POST /predict on the card: {t['demo_s']:.3f} s, equal to a "
+        f"direct call: {same}, info {info}")
+    check(same, "the demo's answer differs from a direct call")
+    shutil.rmtree(TOOLS_ROOT)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4405,28 +4774,40 @@ def main(argv=None) -> int:
         f"(hash {_build.source_hash()})")
 
     results: dict = {}
-    kernel_phases(results)
-    pred, pred32 = slice_phase(results)
-    quality_phase(results)
-    highres_phase(results)
-    serving_phase(results, pred)
-    decoder_phase(results, pred, pred32)
+    seconds: dict = {}
+
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[fn.__name__] = time.perf_counter() - t0
+        log(f"  [{fn.__name__}: {seconds[fn.__name__]:.1f} s]")
+        return out
+
+    timed(kernel_phases, results)
+    pred, pred32 = timed(slice_phase, results)
+    timed(quality_phase, results)
+    timed(highres_phase, results)
+    timed(serving_phase, results, pred)
+    timed(decoder_phase, results, pred, pred32)
     del pred, pred32
     torch.cuda.empty_cache()
-    train_entry_phase(results)
-    train_step_phase(results)
-    grad_agreement_phase(results)
-    highres_train_phase(results)
-    augment_phase(results)
-    remat_phase(results)
-    train_options_phase(results)
-    demo_phase(results)
+    timed(aot_phase, results)
+    timed(tools_phase, results)
     torch.cuda.empty_cache()
-    k7_phase(results)
-    experiments_phase(results)
+    timed(train_entry_phase, results)
+    timed(train_step_phase, results)
+    timed(grad_agreement_phase, results)
+    timed(highres_train_phase, results)
+    timed(augment_phase, results)
+    timed(remat_phase, results)
+    timed(train_options_phase, results)
+    timed(demo_phase, results)
     torch.cuda.empty_cache()
-    pipe = factory_phase(results)
-    lora_phase(results, pipe)
+    timed(k7_phase, results)
+    timed(experiments_phase, results)
+    torch.cuda.empty_cache()
+    pipe = timed(factory_phase, results)
+    timed(lora_phase, results, pipe)
     del pipe
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "s3od_tpu"))
@@ -4446,6 +4827,9 @@ def main(argv=None) -> int:
                     "highres": results["_highres"],
                     "serving": results["_serving"],
                     "decoder": results["_decoder"],
+                    "aot": results["_aot"],
+                    "tools": results["_tools"],
+                    "phase_s": seconds,
                     "train": results["_train"],
                     "augment": results["_augment"],
                     "demo": results["_demo"],

@@ -19,6 +19,18 @@ The stream API launches from several threads at once, so the build runs
 under a lock, and every wrapper counts its launches with `count_launch`,
 under another.
 
+The serving kernels (K1-K6, K9a, K9b, K10) are also registered as
+`torch.library` ops in the `s3od::` namespace, each with a fake
+implementation that gives its outputs' shapes from its inputs' alone, so
+that `torch.export` can trace a forward through them (a fake tensor has
+no address for a C entry point). A wrapper calls its op's implementation
+directly, and goes through the registered op only where `via_ops()` says
+so: while `torch.export` traces, and inside `through_ops()` (a FLOP count
+reads the ops by their registered formulas). A loaded serving graph calls
+the op's function in place of the op (`OP_FUNCTIONS`), as eager calls
+do: the op's dispatch costs ~20 us of host time a call. Every route runs
+the same implementation.
+
 Nothing here runs at import time.
 """
 
@@ -85,6 +97,10 @@ _COUNT_LOCK = threading.Lock()
 _TRITON_ENV_LOCK = threading.RLock()
 _BUILD_LOCK = threading.Lock()
 _LIBRARY: ctypes.CDLL | None = None
+_THROUGH_OPS = 0  # depth of open `through_ops()` scopes
+# Each registered `s3od::` op's overload -> the Python function it runs,
+# which a loaded serving graph calls in its place (`aot.GraphRunner`).
+OP_FUNCTIONS: dict = {}
 
 
 def build_dir() -> Path:
@@ -213,3 +229,45 @@ def aligned16(t: torch.Tensor) -> torch.Tensor:
 def stream_ptr(t: torch.Tensor) -> int:
     """The current CUDA stream of `t`'s device, for the C entry points."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def register_op(name: str, fn, fake) -> None:
+    """Register `fn` as the op `s3od::<name>` (its schema from `fn`'s
+    annotations; no input is mutated) with `fake` as its fake
+    implementation, and record `fn` in `OP_FUNCTIONS`."""
+    torch.library.custom_op(f"s3od::{name}", fn, mutates_args=()
+                            ).register_fake(fake)
+    OP_FUNCTIONS[getattr(torch.ops.s3od, name).default] = fn
+
+
+def via_ops() -> bool:
+    """Whether a kernel wrapper calls its registered `s3od::` op rather
+    than the op's implementation: while `torch.export` traces, and inside
+    `through_ops()`."""
+    return _THROUGH_OPS > 0 or torch.compiler.is_exporting()
+
+
+@contextlib.contextmanager
+def through_ops():
+    """Send every kernel wrapper through its registered `s3od::` op for
+    the span of the scope (e.g. so that `FlopCounterMode` sees the ops
+    and counts them by their formulas)."""
+    global _THROUGH_OPS
+    with _COUNT_LOCK:
+        _THROUGH_OPS += 1
+    try:
+        yield
+    finally:
+        with _COUNT_LOCK:
+            _THROUGH_OPS -= 1
+
+
+def op_outputs(outs):
+    """An op implementation's outputs as the registered op must return
+    them: contiguous, as the kernels write them and the fake
+    implementations describe them (a plain version may return strided
+    views; `.contiguous()` copies those and returns the others as they
+    are)."""
+    if isinstance(outs, torch.Tensor):
+        return outs.contiguous()
+    return tuple(t.contiguous() for t in outs)

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -94,8 +94,11 @@ def _full_tables(nh, nw, head_dim, theta, n_prefix, n_run, device):
 
 def rope_tables(nh, nw, head_dim, theta, n_prefix, n_run, device,
                 coord_scale: Optional[torch.Tensor] = None):
-    """`_full_tables`, or tables built anew for a rescaled step."""
-    if coord_scale is None:
+    """`_full_tables`, or tables built anew for a rescaled step. While
+    `torch.export` traces, the tables are built in the graph and not
+    cached: the cache would hand the trace's fake tensors to the next
+    eager call."""
+    if coord_scale is None and not torch.compiler.is_exporting():
         return _full_tables(nh, nw, head_dim, theta, n_prefix, n_run, device)
     return _tables(nh, nw, head_dim, theta, n_prefix, n_run, device,
                    coord_scale)
@@ -110,6 +113,18 @@ def _tables(nh, nw, head_dim, theta, n_prefix, n_run, device,
     cos = torch.cat([ones(n_prefix), cos, ones(tail)])
     sin = torch.cat([zeros(n_prefix), sin, zeros(tail)])
     return cos.to(device), sin.to(device)
+
+
+def encoder_tables(cfg: EncoderConfig, height: int, width: int, route: str,
+                   device):
+    """The RoPE tables the encoder builds for (height, width) images on
+    `route`: the `rope_tables` argument of its forward. The serving graphs
+    take them as inputs, made once by this call outside the trace."""
+    p = cfg.patch_size
+    nh, nw = height // p, width // p
+    n_run = attn_seq_len(cfg.num_prefix_tokens + nh * nw, route)
+    return rope_tables(nh, nw, cfg.head_dim, cfg.rope_theta,
+                       cfg.num_prefix_tokens, n_run, device)
 
 
 def attn_seq_len(n: int, route: str) -> int:
@@ -276,7 +291,9 @@ class DINOv3Encoder(nn.Module):
     def forward(self, images, tap_layers: Sequence[int], route: str, *,
                 rope_coord_scale: Optional[torch.Tensor] = None,
                 remat: bool = False,
-                remat_policy: Optional[str] = None) -> List[torch.Tensor]:
+                remat_policy: Optional[str] = None,
+                tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                ) -> List[torch.Tensor]:
         """images (B, H, W, 3) normalized, in the compute dtype -> one
         (B, h*w, C) patch-token tensor per tap (prefix tokens stripped).
         Tap t is the output of block t - 1.
@@ -286,7 +303,9 @@ class DINOv3Encoder(nn.Module):
         block keeps for it (`s3od_torch.ops.remat`): None / "none"
         nothing, "flash" K3's out and lse (the recompute skips K3),
         "dots_flash" also every matrix product's output on the exact
-        route; an unknown name raises `ValueError`."""
+        route; an unknown name raises `ValueError`. `tables`: the RoPE
+        (cos, sin) of `encoder_tables` for these images, given instead of
+        built (the serving graphs take them as inputs)."""
         if route not in ROUTES:
             raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
         cfg = self.cfg
@@ -307,8 +326,11 @@ class DINOv3Encoder(nn.Module):
         n_run = attn_seq_len(n_valid, route)
         if n_run != n_valid:
             x = F.pad(x, (0, 0, 0, n_run - n_valid))
-        cos, sin = rope_tables(nh, nw, cfg.head_dim, cfg.rope_theta,
-                               n_prefix, n_run, x.device, rope_coord_scale)
+        if tables is not None:
+            cos, sin = tables
+        else:
+            cos, sin = rope_tables(nh, nw, cfg.head_dim, cfg.rope_theta,
+                                   n_prefix, n_run, x.device, rope_coord_scale)
         keep = remat_context(remat_policy, route) if remat else None
         remat = remat and torch.is_grad_enabled()
         taps = {}

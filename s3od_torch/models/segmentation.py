@@ -9,7 +9,7 @@
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -29,7 +29,8 @@ class S3ODSegmentation(nn.Module):
     def forward(self, images, training: bool = False,
                 rope_coord_scale: Optional[torch.Tensor] = None,
                 remat_policy: Optional[str] = None,
-                serving_fast_output: bool = False):
+                serving_fast_output: bool = False,
+                rope_tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
         """images (B, H, W, 3) normalized, in the compute dtype.
 
         Returns {"pred_masks": (B, n, H, W) logits, "pred_iou": (B, n) fp32
@@ -42,14 +43,17 @@ class S3ODSegmentation(nn.Module):
         `rope_coord_scale` rescales the RoPE coordinates.
         `serving_fast_output` marks the serving forward, as in the JAX
         package: only it may run the fused mask tail (K10, behind
-        `models/dpt.MASK_TAIL_FUSED`); the masks stay NCHW either way."""
+        `models/dpt.MASK_TAIL_FUSED`); the masks stay NCHW either way.
+        `rope_tables`: the encoder's RoPE (cos, sin), given instead of
+        built (`models/dinov3.encoder_tables`)."""
         route = "kernel" if images.dtype == torch.bfloat16 else "exact"
         cfg = self.cfg
         p = cfg.encoder.patch_size
         taps = self.encoder(images, cfg.tap_layers, route,
                             rope_coord_scale=rope_coord_scale,
                             remat=training,
-                            remat_policy=remat_policy)
+                            remat_policy=remat_policy,
+                            tables=rope_tables)
         masks, iou = self.seg_head(
             taps, (images.shape[1] // p, images.shape[2] // p), p, training,
             serving_fast_output)

@@ -11,11 +11,16 @@ Two kernels, chosen by an explicit dispatch on D in the C entry point
 tiles are split along the columns over a 2-block cluster that shares the
 LayerNorm statistics (`plan` mirrors its launch); at D = 32 (the tiny
 checkpoints) the mma.sync kernel.
+
+The kernel is also the registered op `s3od::attn_epilogue`
+(`_build.via_ops`), whose implementation is `_attn_epilogue`, with the
+FLOP formula of its product, 2 B N C^2.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from s3od_torch import _build
 from s3od_torch.ops.autograd import plain_vjp
@@ -92,6 +97,14 @@ def attn_epilogue(a, wo, bo, x, ls, lw, lb, eps: float):
     CPU tensors take the plain version. CUDA tensors launch the kernel or
     raise: all bf16, N a multiple of 64; D = 64 with C in `WIDTHS`, or
     D = 32 with C a multiple of 64 up to 1024 (`kernel_route`)."""
+    if _build.via_ops():
+        return torch.ops.s3od.attn_epilogue(a, wo, bo, x, ls, lw, lb,
+                                            float(eps))
+    return _attn_epilogue(a, wo, bo, x, ls, lw, lb, eps)
+
+
+def _attn_epilogue(a, wo, bo, x, ls, lw, lb, eps: float):
+    """`attn_epilogue`'s implementation, and its op's."""
     if x.device.type == "cpu":
         return attn_epilogue_plain(a, wo, bo, x, ls, lw, lb, eps)
     b, n, c = x.shape
@@ -125,6 +138,27 @@ def attn_epilogue(a, wo, bo, x, ls, lw, lb, eps: float):
 
 
 attn_epilogue.launches = 0
+
+
+def _attn_epilogue_op(
+        a: torch.Tensor, wo: torch.Tensor, bo: torch.Tensor, x: torch.Tensor,
+        ls: torch.Tensor, lw: torch.Tensor, lb: torch.Tensor, eps: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    return _build.op_outputs(_attn_epilogue(a, wo, bo, x, ls, lw, lb, eps))
+
+
+def _attn_epilogue_fake(a, wo, bo, x, ls, lw, lb, eps):
+    return x.new_empty(x.shape), x.new_empty(x.shape)
+
+
+_build.register_op("attn_epilogue", _attn_epilogue_op, _attn_epilogue_fake)
+
+
+@register_flop_formula(torch.ops.s3od.attn_epilogue)
+def _attn_epilogue_flops(a_shape, wo_shape, bo_shape, x_shape, *args,
+                         out_shape=None, **kwargs):
+    b, n, c = x_shape
+    return 2 * b * n * c * wo_shape[0]
 
 
 class _AttnEpilogue(torch.autograd.Function):

@@ -27,15 +27,21 @@ The kernel streams rows through persistent 2-block clusters
 `mask_tail_streamed` computes the function in the kernel's order: strips
 of 62 output columns, rolling windows of 3 input rows and 3 h1 rows,
 restarted at each run's start and strip change).
+
+The kernel is also the registered op `s3od::mask_tail` (`_build.via_ops`),
+whose implementation is `_mask_tail`; its output keeps x's memory order
+on every device, and its FLOP formula counts its three products, as the
+plain version's two convs and one matmul count them.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from s3od_torch import _build
-from s3od_torch.ops.experimental.winograd import _empty_like_layout
+from s3od_torch.ops.experimental.winograd import _empty_like_layout, _in_layout
 
 # (C_in, C_mid) the kernel is built for: the mask head of every ViT config
 # but the tiny test ones (inter 32: 64 -> 96).
@@ -179,6 +185,13 @@ def mask_tail(x, w1, b1, w0, b0, k1, bk):
     """The fused tail. CPU tensors take the plain version. CUDA tensors
     launch the kernel or raise: bf16 x (B, H, W, C_in) with (C_in, C_mid)
     = `KERNEL_WIDTHS` and n_out <= 4."""
+    if _build.via_ops():
+        return torch.ops.s3od.mask_tail(x, w1, b1, w0, b0, k1, bk)
+    return _mask_tail(x, w1, b1, w0, b0, k1, bk)
+
+
+def _mask_tail(x, w1, b1, w0, b0, k1, bk):
+    """`mask_tail`'s implementation, and its op's."""
     if x.device.type == "cpu":
         return mask_tail_plain(x, w1, b1, w0, b0, k1, bk)
     bsz, h, w, cin = x.shape
@@ -209,3 +222,24 @@ def mask_tail(x, w1, b1, w0, b0, k1, bk):
 
 
 mask_tail.launches = 0
+
+
+def _mask_tail_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                  w0: torch.Tensor, b0: torch.Tensor, k1: torch.Tensor,
+                  bk: torch.Tensor) -> torch.Tensor:
+    return _in_layout(_mask_tail(x, w1, b1, w0, b0, k1, bk), x)
+
+
+def _mask_tail_fake(x, w1, b1, w0, b0, k1, bk):
+    return _empty_like_layout(x, k1.shape[-1])
+
+
+_build.register_op("mask_tail", _mask_tail_op, _mask_tail_fake)
+
+
+@register_flop_formula(torch.ops.s3od.mask_tail)
+def _mask_tail_flops(x_shape, w1_shape, b1_shape, w0_shape, b0_shape,
+                     k1_shape, *args, out_shape=None, **kwargs):
+    bsz, h, w, cin = x_shape
+    cmid, nout = k1_shape
+    return 2 * bsz * h * w * (9 * cin * cin + 9 * cin * cmid + cmid * nout)

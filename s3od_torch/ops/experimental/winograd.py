@@ -43,12 +43,21 @@ convs on the second route, each an input transform and a Winograd GEMM
 (`winograd_transform_plain` and `winograd_gemm_plain` are those launches'
 plain halves); its intermediate h is rounded once and zero-padded by
 conv2 as in the TPU kernel.
+
+Both kernels are also registered ops, `s3od::winograd_conv` and
+`s3od::winograd_rcu` (`_build.via_ops`), whose implementations are
+`_winograd_conv` and `_winograd_rcu`; their outputs keep the input's
+memory order on every device (`_in_layout`), and their FLOP formulas
+count the products of the Winograd algorithm that the kernels and the
+plain versions do: U's two small products and the 16 (P, C) x (C, K)
+products over P = B (H/2) (W/2) tiles, 4/9 of a direct conv's.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from s3od_torch import _build
 from s3od_torch.ops.autograd import plain_vjp
@@ -68,10 +77,14 @@ _G_ON: dict = {}  # device -> G: one host-to-device copy, not one a call
 
 
 def transform_weights(w: torch.Tensor) -> torch.Tensor:
-    """(3, 3, C, K) HWIO -> (16, C, K) Winograd-domain weights, fp32."""
+    """(3, 3, C, K) HWIO -> (16, C, K) Winograd-domain weights, fp32.
+    Under `torch.export` G is made in the graph, never cached: a cached
+    fake tensor would reach the next eager call."""
     g = _G_ON.get(w.device)
     if g is None:
-        g = _G_ON[w.device] = torch.tensor(_G, dtype=torch.float32, device=w.device)
+        g = torch.tensor(_G, dtype=torch.float32, device=w.device)
+        if not torch.compiler.is_exporting():
+            _G_ON[w.device] = g
     # G w over k, then G over l: two matmuls (an einsum lowered to far
     # slower kernels on the card), bit-identical to it on the CPU
     t = torch.matmul(g, w.float().reshape(3, -1)).reshape(4, 3, -1)
@@ -450,6 +463,14 @@ def check_conv_inputs(x, w, b) -> dict:
     return plan
 
 
+def _in_layout(out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """`out` (B, H, W, K) in the memory order `_empty_like_layout` gives
+    for x: the layout the kernels write and the ops' fake implementations
+    describe (a copy only where a plain version wrote another)."""
+    dst = _empty_like_layout(x, out.shape[-1])
+    return out if dst.stride() == out.stride() else dst.copy_(out)
+
+
 def winograd_conv(x, w, b):
     """K9a: the 3x3/s1/p1 conv + bias through the Winograd domain: U's
     transform, then either one fused launch (k = 128) or, in chunks of
@@ -458,6 +479,13 @@ def winograd_conv(x, w, b):
 
     CPU tensors take the plain version. CUDA tensors launch the kernels or
     raise (`check_conv_inputs`)."""
+    if _build.via_ops():
+        return torch.ops.s3od.winograd_conv(x, w, b)
+    return _winograd_conv(x, w, b)
+
+
+def _winograd_conv(x, w, b):
+    """`winograd_conv`'s implementation, and its op's."""
     if x.device.type == "cpu":
         return winograd_conv_plain(x, w, b)
     plan = check_conv_inputs(x, w, b)
@@ -489,6 +517,13 @@ def winograd_rcu(x, w1, b1, w2, b2):
 
     CPU tensors take the plain version. CUDA tensors launch the kernels or
     raise (`check_rcu_inputs`)."""
+    if _build.via_ops():
+        return torch.ops.s3od.winograd_rcu(x, w1, b1, w2, b2)
+    return _winograd_rcu(x, w1, b1, w2, b2)
+
+
+def _winograd_rcu(x, w1, b1, w2, b2):
+    """`winograd_rcu`'s implementation, and its op's."""
     if x.device.type == "cpu":
         return winograd_rcu_plain(x, w1, b1, w2, b2)
     check_rcu_inputs(x, w1, b1, w2, b2)
@@ -512,6 +547,49 @@ def winograd_rcu(x, w1, b1, w2, b2):
 
 
 winograd_rcu.launches = 0
+
+
+def _winograd_conv_op(x: torch.Tensor, w: torch.Tensor,
+                      b: torch.Tensor) -> torch.Tensor:
+    return _in_layout(_winograd_conv(x, w, b), x)
+
+
+def _winograd_conv_fake(x, w, b):
+    return _empty_like_layout(x, w.shape[-1])
+
+
+_build.register_op("winograd_conv", _winograd_conv_op, _winograd_conv_fake)
+
+
+def _winograd_rcu_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                     w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    return _in_layout(_winograd_rcu(x, w1, b1, w2, b2), x)
+
+
+def _winograd_rcu_fake(x, w1, b1, w2, b2):
+    return _empty_like_layout(x, x.shape[-1])
+
+
+_build.register_op("winograd_rcu", _winograd_rcu_op, _winograd_rcu_fake)
+
+
+def winograd_flops(x_shape, k: int) -> int:
+    """Products of one Winograd conv of x (B, H, W, C) -> k channels: U
+    (G w: 4 x 3 x 3Ck, then G over the other axis: 4 x (4 x 3 x Ck)) and
+    the 16 (P, C) x (C, k) products."""
+    bsz, h, w, c = x_shape
+    p = bsz * (h // 2) * (w // 2)
+    return 2 * 16 * p * c * k + (72 + 96) * c * k
+
+
+@register_flop_formula(torch.ops.s3od.winograd_conv)
+def _winograd_conv_flops(x_shape, w_shape, *args, out_shape=None, **kwargs):
+    return winograd_flops(x_shape, w_shape[-1])
+
+
+@register_flop_formula(torch.ops.s3od.winograd_rcu)
+def _winograd_rcu_flops(x_shape, *args, out_shape=None, **kwargs):
+    return 2 * winograd_flops(x_shape, x_shape[-1])
 
 
 # ----------------------------------------------------------------------------

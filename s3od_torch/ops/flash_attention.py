@@ -30,11 +30,20 @@ The port pads the token sequence to a multiple of 64 (`flash_seq_len`),
 the kernel's tile; the TPU's block rule (`_pick_blocks`, a VMEM limit) is
 not ported. Padding is transparent: padded keys are masked through
 `n_valid` and padded tokens carry identity RoPE rows.
+
+K3/K6 is also the registered op `s3od::flash_attention`
+(`_build.via_ops`), whose implementation is `_flash_attention`, with the
+FLOP formula of its two products over the padded sequence, 4 BH N^2 D
+(the kernel walks every key tile to N, and the plain version multiplies
+by all N keys too). K7 and K8 stay plain wrappers: they are on no
+serving graph (K7 runs in the factory and the LoRA fine-tuning, K8 in
+training).
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from s3od_torch import _build
 from s3od_torch.ops.remat import kept_or_run
@@ -111,6 +120,13 @@ def flash_attention(q, k, v, n_valid: int):
 
     CPU tensors take the plain version. CUDA tensors launch the kernel or
     raise: bf16 (BH, N, D) with N a multiple of 64 and D in {32, 64}."""
+    if _build.via_ops():
+        return torch.ops.s3od.flash_attention(q, k, v, int(n_valid))
+    return _flash_attention(q, k, v, n_valid)
+
+
+def _flash_attention(q, k, v, n_valid: int):
+    """`flash_attention`'s implementation, and its op's."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, n_valid)
     bh, n, d = q.shape
@@ -136,6 +152,24 @@ def flash_attention(q, k, v, n_valid: int):
 
 
 flash_attention.launches = 0
+
+
+def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        n_valid: int) -> tuple[torch.Tensor, torch.Tensor]:
+    return _build.op_outputs(_flash_attention(q, k, v, n_valid))
+
+
+def _flash_attention_fake(q, k, v, n_valid):
+    return q.new_empty(q.shape), q.new_empty(q.shape[:2], dtype=torch.float32)
+
+
+_build.register_op("flash_attention", _flash_attention_op, _flash_attention_fake)
+
+
+@register_flop_formula(torch.ops.s3od.flash_attention)
+def _flash_attention_flops(q_shape, k_shape, *args, out_shape=None, **kwargs):
+    bh, n, d = q_shape
+    return 4 * bh * n * k_shape[1] * d
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, g, n_valid: int):

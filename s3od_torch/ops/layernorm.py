@@ -16,12 +16,15 @@ is imported only when the kernel launches.
 
 Plain LayerNorm for the exact (float32) route, the two-pass formula of
 `s3od_tpu/ops/layernorm.py:_xla_layer_norm`, lives here too.
+
+The kernel is also the registered op `s3od::layer_norm` (`_build.via_ops`),
+whose implementation is `_layer_norm`: a LayerNorm does no product, so
+it has no FLOP formula, as aten's own LayerNorm has none.
 """
 
 from __future__ import annotations
 
 import functools
-
 import torch
 
 from s3od_torch import _build
@@ -78,6 +81,13 @@ def layer_norm(x, weight, bias, eps: float):
 
     CPU tensors take `layer_norm_plain`. CUDA tensors launch the Triton
     kernel (bf16 rows, C a multiple of 64 up to 1024) or raise."""
+    if _build.via_ops():
+        return torch.ops.s3od.layer_norm(x, weight, bias, float(eps))
+    return _layer_norm(x, weight, bias, eps)
+
+
+def _layer_norm(x, weight, bias, eps: float):
+    """`layer_norm`'s implementation, and its op's."""
     if x.device.type == "cpu":
         return layer_norm_plain(x, weight, bias, eps)
     c = x.shape[-1]
@@ -102,6 +112,19 @@ def layer_norm(x, weight, bias, eps: float):
 
 
 layer_norm.launches = 0
+
+
+def _layer_norm_op(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                   eps: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return _build.op_outputs(_layer_norm(x, weight, bias, eps))
+
+
+def _layer_norm_fake(x, weight, bias, eps):
+    stat = x.new_empty((*x.shape[:-1], 1), dtype=torch.float32)
+    return x.new_empty(x.shape), stat, torch.empty_like(stat)
+
+
+_build.register_op("layer_norm", _layer_norm_op, _layer_norm_fake)
 
 
 class _LayerNorm(torch.autograd.Function):

@@ -21,12 +21,17 @@ limit that sends ViT-L (C = 1024, F = 4096) to the unfused XLA MLP, with
 other rounding points. The Hopper kernel streams 64-wide K slices of
 both operands, so its shared memory does not grow with C or F and ViT-L
 runs through it here.
+
+The kernel is also the registered op `s3od::mlp_fused` (`_build.via_ops`),
+whose implementation is `_mlp_fused` and returns (out, h), with the FLOP
+formula of its two products, 4 rows C F.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from s3od_torch import _build
 from s3od_torch.ops.autograd import plain_vjp
@@ -120,11 +125,18 @@ def mlp_fused(x_ln, wu, bu, wd, bd, res, ls, return_hidden: bool = False):
     or raise: all bf16, x_ln and res of one shape with at least one row, C
     and F multiples of 64. One call counts one launch of K5 (two device
     launches)."""
+    if _build.via_ops():
+        out, h = torch.ops.s3od.mlp_fused(x_ln, wu, bu, wd, bd, res, ls)
+    else:
+        out, h = _mlp_fused(x_ln, wu, bu, wd, bd, res, ls)
+    return (out, h) if return_hidden else out
+
+
+def _mlp_fused(x_ln, wu, bu, wd, bd, res, ls):
+    """`mlp_fused`'s implementation, and its op's: -> (out, h)."""
     if x_ln.device.type == "cpu":
-        if return_hidden:
-            h = mlp_up_plain(x_ln, wu, bu)
-            return mlp_down_plain(h, wd, bd, res, ls), h
-        return mlp_fused_plain(x_ln, wu, bu, wd, bd, res, ls)
+        h = mlp_up_plain(x_ln, wu, bu)
+        return mlp_down_plain(h, wd, bd, res, ls), h
     c = x_ln.shape[-1]
     f = wu.shape[0]
     rows = x_ln.numel() // c if c else 0
@@ -149,10 +161,33 @@ def mlp_fused(x_ln, wu, bu, wd, bd, res, ls, return_hidden: bool = False):
     )
     _build.check(code, "mlp_fused")
     _build.count_launch(mlp_fused)
-    return (out, h) if return_hidden else out
+    return out, h
 
 
 mlp_fused.launches = 0
+
+
+def _mlp_fused_op(
+        x_ln: torch.Tensor, wu: torch.Tensor, bu: torch.Tensor,
+        wd: torch.Tensor, bd: torch.Tensor, res: torch.Tensor,
+        ls: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    return _build.op_outputs(_mlp_fused(x_ln, wu, bu, wd, bd, res, ls))
+
+
+def _mlp_fused_fake(x_ln, wu, bu, wd, bd, res, ls):
+    return (res.new_empty(res.shape),
+            x_ln.new_empty((*x_ln.shape[:-1], wu.shape[0])))
+
+
+_build.register_op("mlp_fused", _mlp_fused_op, _mlp_fused_fake)
+
+
+@register_flop_formula(torch.ops.s3od.mlp_fused)
+def _mlp_fused_flops(x_shape, wu_shape, *args, out_shape=None, **kwargs):
+    rows = 1
+    for s in x_shape[:-1]:
+        rows *= s
+    return 4 * rows * x_shape[-1] * wu_shape[0]
 
 
 class _MLPFused(torch.autograd.Function):

@@ -14,11 +14,16 @@ Two kernels, chosen by an explicit dispatch on D in the C entry point
 (`kernel_route`): at D = 64 (ViT-B, ViT-L) a warp-specialised TMA +
 wgmma GEMM with the RoPE in its epilogue (`plan` mirrors its launch); at
 D = 32 (the tiny checkpoints) the mma.sync kernel.
+
+The kernel is also the registered op `s3od::qkv_project_rope`
+(`_build.via_ops`), whose implementation is `_qkv_project_rope`, with the
+FLOP formula of its product, 2 B N C 3C.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from s3od_torch import _build
 from s3od_torch.ops.autograd import plain_vjp
@@ -111,6 +116,14 @@ def qkv_project_rope(x, weight, bias, cos, sin, num_heads: int, scale: float):
     CPU tensors take the plain version. CUDA tensors launch the kernel or
     raise: bf16 x/weight/bias, fp32 tables, N and C multiples of 64,
     C <= 1024, D in {32, 64} (`kernel_route`)."""
+    if _build.via_ops():
+        return torch.ops.s3od.qkv_project_rope(x, weight, bias, cos, sin,
+                                               int(num_heads), float(scale))
+    return _qkv_project_rope(x, weight, bias, cos, sin, num_heads, scale)
+
+
+def _qkv_project_rope(x, weight, bias, cos, sin, num_heads: int, scale: float):
+    """`qkv_project_rope`'s implementation, and its op's."""
     if x.device.type == "cpu":
         return qkv_project_rope_plain(x, weight, bias, cos, sin, num_heads,
                                       scale)
@@ -143,6 +156,29 @@ def qkv_project_rope(x, weight, bias, cos, sin, num_heads: int, scale: float):
 
 
 qkv_project_rope.launches = 0
+
+
+def _qkv_project_rope_op(
+        x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+        cos: torch.Tensor, sin: torch.Tensor, num_heads: int, scale: float,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return _build.op_outputs(_qkv_project_rope(x, weight, bias, cos, sin,
+                                               num_heads, scale))
+
+
+def _qkv_project_rope_fake(x, weight, bias, cos, sin, num_heads, scale):
+    b, n, c = x.shape
+    shape = (b, num_heads, n, c // num_heads)
+    return tuple(x.new_empty(shape) for _ in range(3))
+
+
+_build.register_op("qkv_project_rope", _qkv_project_rope_op, _qkv_project_rope_fake)
+
+
+@register_flop_formula(torch.ops.s3od.qkv_project_rope)
+def _qkv_project_rope_flops(x_shape, w_shape, *args, out_shape=None, **kwargs):
+    b, n, c = x_shape
+    return 2 * b * n * c * w_shape[0]
 
 
 class _QKVProjectRope(torch.autograd.Function):

@@ -13,6 +13,8 @@ host pre- and postprocess overlap the device), each with a readback
 `payload` of "full" (all soft masks), "best" (the best mask, chosen and
 quantized to uint8 on the device) or "best_small" ("best" pooled 2x2).
 `s3od_torch.serving.InferenceServer` serves this predictor.
+`BackgroundRemoval.from_serving_bundle` loads a serving bundle
+(`s3od_torch.aot`): its exported graphs serve the batches it holds.
 
 `RemovalResult` and the host resize helpers are the port's own copies of
 the JAX package's.
@@ -133,6 +135,31 @@ def _postprocess_best(image: np.ndarray, pad_info, mask_u8: np.ndarray,
     )
 
 
+def serving_forward(model_fn, x_u8: torch.Tensor, mean: torch.Tensor,
+                    inv_std: torch.Tensor, dtype: torch.dtype,
+                    payload: str = "full"):
+    """The serving forward: (B, S, S, 3) uint8 canvases -> (masks, ious),
+    ious (B, n) fp32 sigmoid scores. `model_fn(x)` runs the model
+    (`serving_fast_output`) on the images normalized in `dtype`. masks:
+    "full" (B, n, S, S) sigmoid in the compute dtype; "best" (B, S, S)
+    uint8, the argmax-IoU mask's fp32 sigmoid x 255 rounded half to even;
+    "best_small" the same after a 2x2 mean, (B, S/2, S/2). The eager
+    predictor and every exported graph (`s3od_torch.aot`) run this."""
+    x = ((x_u8.float() - mean) * inv_std).to(dtype)
+    out = model_fn(x)
+    ious = torch.sigmoid(out["pred_iou"])
+    if payload == "full":
+        return torch.sigmoid(out["pred_masks"]), ious
+    b = x.shape[0]
+    best = ious.argmax(-1)
+    logits = out["pred_masks"][torch.arange(b, device=best.device), best]
+    mask = torch.sigmoid(logits.float())
+    if payload == "best_small":
+        s = mask.shape[-1]
+        mask = mask.reshape(b, s // 2, 2, s // 2, 2).mean((2, 4))
+    return torch.round(mask * 255.0).to(torch.uint8), ious
+
+
 def _check(value: str, allowed, what: str) -> None:
     if value not in allowed:
         raise ValueError(f"{what} must be one of {allowed}, got {value!r}")
@@ -175,6 +202,10 @@ class BackgroundRemoval:
         self._mean = torch.tensor(IMAGENET_MEAN * 255.0, device=self.device)
         self._inv_std = torch.tensor(1.0 / (IMAGENET_STD * 255.0),
                                      device=self.device)
+        # The serving bundle's graphs by (batch, payload), and their canvas
+        # (`from_serving_bundle`); empty otherwise.
+        self._aot: Dict[Tuple[int, str], Any] = {}
+        self._aot_canvas: Optional[int] = None
 
     @classmethod
     def from_pretrained(cls, model_id: str, **kwargs) -> "BackgroundRemoval":
@@ -193,6 +224,31 @@ class BackgroundRemoval:
         """From a constructed model (e.g. seeded random weights); the
         model is prepared in place."""
         return cls(_model=model, **kwargs)
+
+    @classmethod
+    def from_serving_bundle(cls, path, **kwargs) -> "BackgroundRemoval":
+        """From a serving bundle (`s3od_torch.aot`): the bundle's prepared
+        weights, and its exported graphs for the batches and payloads it
+        holds at its canvas. `device` defaults to "cuda" as for the
+        constructor and must be the bundle's; a `dtype` other than the
+        bundle's raises; BN folding is skipped (the bundle's tree is
+        folded already)."""
+        from s3od_torch.aot import load_serving_bundle
+
+        device = kwargs.get("device", "cuda")
+        bundle = load_serving_bundle(path, device=device)
+        if kwargs.get("dtype") not in (None, bundle.meta["dtype"]):
+            raise ValueError(
+                f"dtype={kwargs['dtype']!r} conflicts with the bundle's "
+                f"dtype={bundle.meta['dtype']!r}; re-export the bundle "
+                "with the desired dtype instead")
+        kwargs.setdefault("dtype", bundle.meta["dtype"])
+        kwargs.setdefault("image_size", bundle.meta["image_size"])
+        kwargs["fold_bn"] = False
+        pred = cls(_model=bundle.model, **kwargs)
+        pred._aot = dict(bundle.graphs)
+        pred._aot_canvas = bundle.meta["image_size"]
+        return pred
 
     @classmethod
     def _resolve(cls, model_id: str) -> Path:
@@ -255,23 +311,17 @@ class BackgroundRemoval:
     @torch.inference_mode()
     def _forward_device(self, x_u8: torch.Tensor, payload: str = "full"):
         """(B, S, S, 3) uint8 canvases on the device -> (masks, ious) on
-        the device, ious (B, n) fp32 sigmoid scores. masks: "full" (B, n,
-        S, S) sigmoid in the compute dtype; "best" (B, S, S) uint8, the
-        argmax-IoU mask's fp32 sigmoid x 255 rounded half to even;
-        "best_small" the same after a 2x2 mean, (B, S/2, S/2)."""
-        x = ((x_u8.float() - self._mean) * self._inv_std).to(self.compute_dtype)
-        out = self.model(x, serving_fast_output=True)
-        ious = torch.sigmoid(out["pred_iou"])
-        if payload == "full":
-            return torch.sigmoid(out["pred_masks"]), ious
-        b = x.shape[0]
-        best = ious.argmax(-1)
-        logits = out["pred_masks"][torch.arange(b, device=best.device), best]
-        mask = torch.sigmoid(logits.float())
-        if payload == "best_small":
-            s = mask.shape[-1]
-            mask = mask.reshape(b, s // 2, 2, s // 2, 2).mean((2, 4))
-        return torch.round(mask * 255.0).to(torch.uint8), ious
+        the device, as `serving_forward` gives them. A predictor loaded
+        from a serving bundle runs the bundle's exported graph for a
+        (batch, payload) it holds at the bundle's canvas, and the eager
+        forward otherwise (as the JAX predictor falls back to jit)."""
+        graph = (self._aot.get((int(x_u8.shape[0]), payload))
+                 if x_u8.shape[1] == self._aot_canvas else None)
+        if graph is not None:
+            return graph(x_u8)
+        return serving_forward(
+            lambda x: self.model(x, serving_fast_output=True), x_u8,
+            self._mean, self._inv_std, self.compute_dtype, payload)
 
     @staticmethod
     def _readback(masks: torch.Tensor, ious: torch.Tensor):
