@@ -4745,6 +4745,380 @@ def tools_phase(results):
     shutil.rmtree(TOOLS_ROOT)
 
 
+# Bounds of `parallel_phase` (a): ||P - P_plain|| / ||P_plain|| over every
+# parameter as one vector after two SGD steps from the same weights and
+# batch, and the loss's relative difference. The steps run with torch's
+# deterministic algorithms: without them two plain runs differ by 1.0e-2
+# on a zero-init bias (its gradient's rounding; measured on one H100). With
+# them a second plain run is bit-equal, and so must DDP over one rank be;
+# FSDP2 rounds otherwise (1.05e-2 on a zero-init bias, as much as a
+# planted x 1.01 on one parameter, so no per-parameter bound holds it):
+# 1.5x measured: 8.534e-08 and 2.262e-06 in two runs (PERF.md, section
+# 2). SGD, not AdamW: AdamW's first steps move every weight by ~lr
+# whatever its gradient.
+PAR_TOL = {"ddp": {"params": 0.0, "loss": 0.0},
+           "plain2": {"params": 0.0, "loss": 0.0},
+           "fsdp": {"params": 1.28e-7, "loss": 3.39e-6}}
+PAR_LR = 1e-2
+PAR_ROOT = REPO / "build" / "chip_smoke_parallel"
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms (cuDNN's included) while the body
+    runs."""
+    import torch
+
+    prev = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+            torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev[:2]
+        torch.use_deterministic_algorithms(prev[2], warn_only=prev[3])
+
+
+class ParSGD:
+    """p -= lr * g over `params` (DTensors too), the optimizer interface
+    `train_step` calls."""
+
+    def __init__(self, params, lr):
+        self.params, self.lr = list(params), lr
+
+    def zero_grad(self):
+        for p in self.params:
+            p.grad = None
+
+    def step(self, step):
+        import torch
+
+        with torch.no_grad():
+            for p in self.params:
+                if p.grad is not None:
+                    p -= self.lr * p.grad
+
+
+def par_errors(params, ref):
+    """(relative norm over all parameters as one vector, the worst
+    parameter's own relative norm, its name) of `params` against `ref`
+    (both {name: fp32 tensor})."""
+    worst, name, num, den = 0.0, None, 0.0, 0.0
+    for n, p in ref.items():
+        num += float((params[n] - p).double().pow(2).sum())
+        den += float(p.double().pow(2).sum())
+        e = rel_norm(params[n], p)
+        if e > worst:
+            worst, name = e, n
+    return (num / den) ** 0.5, worst, name
+
+
+def par_step_run(kind, batch):
+    """Two ViT-B 1024^2 b4 bf16 steps from seed-2 weights (deterministic
+    algorithms): the plain step, DDP over a one-rank NCCL group, or FSDP2
+    through `shard_module` on a one-rank ("data", "fsdp") mesh. Returns
+    losses, launches, the parameters after the steps, then step ms, peak
+    GiB and the idle share (torch's default algorithms)."""
+    import torch
+
+    from s3od_torch.parallel import distributed as pd
+    from s3od_torch.parallel.mesh import (full_tensor, make_mesh,
+                                          shard_module, unwrap)
+    from s3od_torch.training.loss import LOSS_PRESETS, LossModule
+    from s3od_torch.training.train_step import train_step
+
+    model = vit_b_model(2)
+    if kind != "plain":
+        pd.ensure_group("cuda")
+        model = shard_module(model, make_mesh(fsdp=1, device_type="cuda"),
+                             wrap=kind)
+    opt = ParSGD(unwrap(model).parameters(), PAR_LR)
+    loss_module = LossModule(LOSS_PRESETS["focal_iou"])
+    state = {"step": 0}
+
+    def step():
+        out = train_step(model, opt, loss_module, batch, 0, state["step"],
+                         generator=torch.Generator().manual_seed(state["step"]),
+                         compute_dtype=torch.bfloat16)
+        state["step"] += 1
+        return out
+
+    reset_counts()
+    with deterministic():
+        losses = [float(step()["loss"]) for _ in range(2)]
+    counts = dict(launch_counts(), K8=k8_launches())
+    params = {n: full_tensor(p).detach().float().clone()
+              for n, p in unwrap(model).named_parameters()}
+    out = {"losses": losses, "counts": counts, "params": params,
+           "wrapper": type(model).__name__}
+    out["step_ms"] = cuda_ms(step, iters=3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    busy = sum(ms for _, ms, _ in kernel_breakdown(step, iters=1))
+    out["busy_ms"] = busy
+    out["idle_share"] = max(0.0, 1.0 - busy / out["step_ms"]) if busy else None
+    del model, opt
+    pd.destroy()
+    torch.cuda.empty_cache()
+    return out
+
+
+def parallel_phase(results):
+    """Data parallelism on the card at world size 1, bf16, full width.
+    (a) The ViT-B 1024^2 b4 train step in turns: plain, DDP over a one-rank
+    NCCL group, FSDP2 through `shard_module` on a one-rank mesh, plain
+    again, two steps each from the same seeded weights and batch: K1-K5
+    and K8 launches equal to the plain step's, the loss and every
+    parameter against the first plain run (PAR_TOL, a planted parameter x
+    1.01 caught), step ms, peak GiB and the idle share. (b) The CLI under
+    `torch.distributed.run --standalone --nproc_per_node=1` on the fixture
+    dataset: it joins from the launcher's environment and writes the
+    checkpoint keys of a plain run. (d) `BackgroundRemoval(data_parallel=
+    True)` at 1024^2 b16 answers as `data_parallel=False`, and two
+    replicas on the one card (`data_parallel=["cuda:0", "cuda:0"]`, the
+    chunk of 16 split 8 + 8) answer as one replica at chunk 8."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from s3od_torch import BackgroundRemoval
+    from s3od_torch.training.train import train
+
+    r = results["_parallel"] = {}
+    batch = fixture_batch(4, 1024)
+    log("phase parallel (a): ViT-B 1024^2 b4 bf16 train step, 2 steps each: "
+        "plain, DDP (1-rank NCCL), FSDP2 (1-rank mesh), plain")
+    runs = {}
+    for kind in ("plain", "ddp", "fsdp", "plain2"):
+        runs[kind] = par_step_run("plain" if kind == "plain2" else kind,
+                                  batch)
+    ref = runs["plain"]
+    for kind in ("ddp", "fsdp", "plain2"):
+        got = runs[kind]
+        check(got["counts"] == ref["counts"],
+              f"{kind}: launches {got['counts']} != plain {ref['counts']}")
+        err, worst, name = par_errors(got["params"], ref["params"])
+        loss_err = max(abs(a - b) / abs(b) for a, b in
+                       zip(got["losses"], ref["losses"]))
+        r[kind] = {"wrapper": got["wrapper"], "param_rel": err,
+                   "param_worst": [name, worst], "loss_rel": loss_err,
+                   "step_ms": got["step_ms"], "peak_gib": got["peak_gib"],
+                   "busy_ms": got["busy_ms"], "idle_share": got["idle_share"]}
+        log(f"  {kind} ({got['wrapper']}): launches {got['counts']}; loss "
+            f"{got['losses']} (rel {loss_err:.3e}); parameters rel. norm "
+            f"{err:.3e}, the worst one {worst:.3e} ({name}); step "
+            f"{got['step_ms']:.2f} ms, peak "
+            f"{got['peak_gib']:.2f} GiB, busy {got['busy_ms']:.2f} ms, idle "
+            f"share {got['idle_share']}")
+        tol = PAR_TOL[kind]
+        check(err <= tol["params"] and loss_err <= tol["loss"],
+              f"{kind}: parameters {err:.3e} / loss {loss_err:.3e} over "
+              f"{tol}")
+        planted = dict(got["params"])
+        key = "encoder.layer.0.attention.qkv.weight"
+        planted[key] = planted[key] * 1.01
+        r[kind]["planted_rel"] = par_errors(planted, ref["params"])[0]
+        log(f"    planted {key} x 1.01: parameters rel. norm "
+            f"{r[kind]['planted_rel']:.3e}")
+        check(r[kind]["planted_rel"] > tol["params"],
+              f"{kind}: a planted parameter x 1.01 passed")
+    plain = ref
+    r["plain"] = {"step_ms": plain["step_ms"], "peak_gib": plain["peak_gib"],
+                  "busy_ms": plain["busy_ms"],
+                  "idle_share": plain["idle_share"],
+                  "counts": plain["counts"]}
+    log(f"  plain: step {plain['step_ms']:.2f} ms, peak "
+        f"{plain['peak_gib']:.2f} GiB, busy {plain['busy_ms']:.2f} ms; "
+        f"DDP {r['ddp']['step_ms'] / plain['step_ms'] - 1:+.2%}, FSDP2 "
+        f"{r['fsdp']['step_ms'] / plain['step_ms'] - 1:+.2%} against it")
+    del runs
+    torch.cuda.empty_cache()
+
+    log("phase parallel (b): python -m torch.distributed.run --standalone "
+        "--nproc_per_node=1 -m s3od_torch.training.train (ViT-B 1024^2 b4, "
+        "1 epoch) against the same run in-process")
+    if PAR_ROOT.exists():
+        shutil.rmtree(PAR_ROOT)
+    write_fixture_dataset(PAR_ROOT, n=10)
+    args = train_args(PAR_ROOT, "plain", "backend.max_epochs=1",
+                      "dataset.val_batch_size=2")
+    reset_counts()
+    train(args)
+    plain_counts = dict(launch_counts(), K8=k8_launches())
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node=1", "-m", "s3od_torch.training.train",
+         *train_args(PAR_ROOT, "torchrun", "backend.max_epochs=1",
+                     "dataset.val_batch_size=2")],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    r["torchrun_s"] = time.perf_counter() - t0
+    text = proc.stdout + proc.stderr
+    if proc.returncode:
+        log(text[-4000:])
+    check(proc.returncode == 0, f"torchrun exit {proc.returncode}")
+    check("joined the process group from the launcher's environment: rank 0 "
+          "of 1 (nccl)" in text, "the CLI joined through init_distributed's "
+          "environment path")
+    a = torch.load(only_run(PAR_ROOT / "plain") / "last" / "state.pt",
+                   map_location="cpu", weights_only=False)
+    b = torch.load(only_run(PAR_ROOT / "torchrun") / "last" / "state.pt",
+                   map_location="cpu", weights_only=False)
+    same_keys = (list(a["model"]) == list(b["model"])
+                 and list(a["optimizer"]["state"]) == list(b["optimizer"]["state"])
+                 and all(sorted(a["optimizer"]["state"][i]) ==
+                         sorted(b["optimizer"]["state"][i])
+                         for i in a["optimizer"]["state"]))
+    with np.load(only_run(PAR_ROOT / "plain") / "s3od_final.npz") as za, \
+            np.load(only_run(PAR_ROOT / "torchrun") / "s3od_final.npz") as zb:
+        same_npz = sorted(za.files) == sorted(zb.files)
+    worst = max(rel_norm(b["model"][k], a["model"][k]) for k in a["model"]
+                if a["model"][k].is_floating_point()
+                and a["model"][k].norm() > 0)
+    r["torchrun"] = {"seconds": r["torchrun_s"], "same_keys": same_keys,
+                     "same_npz_keys": same_npz, "worst_rel_vs_plain": worst,
+                     "plain_counts": plain_counts}
+    log(f"  torchrun run {r['torchrun_s']:.1f} s (process start and build "
+        f"load included); checkpoint keys equal {same_keys}, export keys "
+        f"equal {same_npz}; worst weight rel. norm vs the plain run "
+        f"{worst:.3e}; plain run's launches {plain_counts}")
+    check(same_keys and same_npz, "the torchrun checkpoint and export keep "
+          "a plain run's keys")
+    shutil.rmtree(PAR_ROOT)
+
+    log("phase parallel (d): BackgroundRemoval(data_parallel=True) at 1024^2 "
+        "b16 against data_parallel=False")
+    imgs = test_images(np.array(Image.open(IMAGE).convert("RGB")))
+    outs, parts = {}, {}
+    for name, dp, chunk in (("plain", False, None), ("true", True, None),
+                            ("plain8", False, 8),
+                            ("two", ["cuda:0", "cuda:0"], None)):
+        pred = BackgroundRemoval.from_model(vit_b_model(6), image_size=1024,
+                                            device="cuda", data_parallel=dp)
+        seen = []
+        for i, (model, _, _) in enumerate(pred._replicas):
+            model.register_forward_pre_hook(
+                lambda m, a, i=i: seen.append((i, int(a[0].shape[0]))))
+        outs[name] = pred.remove_background_batch(imgs, chunk=chunk,
+                                                  payload="best")
+        parts[name] = seen
+        r[f"replicas_{name}"] = len(pred._replicas)
+        del pred
+
+    def same(a, b):
+        return len(outs[a]) == len(outs[b]) == 16 and all(
+            np.array_equal(x.predicted_mask, y.predicted_mask)
+            and np.array_equal(x.all_ious, y.all_ious)
+            for x, y in zip(outs[a], outs[b]))
+
+    r["data_parallel_equal"] = same("plain", "true")
+    r["two_replicas_equal"] = same("plain8", "two")
+    r["two_replicas_parts"] = parts["two"]
+    log(f"  {len(imgs)} images; data_parallel=True: replicas "
+        f"{r['replicas_true']}, answers equal {r['data_parallel_equal']}; two "
+        f"replicas on one card: forwards (replica, batch) {parts['two']}, "
+        f"answers equal to one replica at chunk 8 {r['two_replicas_equal']}")
+    check(r["data_parallel_equal"],
+          "data_parallel=True answers as data_parallel=False")
+    check(parts["two"] == [(0, 8), (1, 8)] and r["two_replicas_equal"],
+          "two replicas split the chunk 8 + 8 and answer as one at chunk 8")
+    torch.cuda.empty_cache()
+
+
+def factory_step_run(pipe, inputs, reps=3):
+    """A plain and a concept MMDiT step at 1024^2: (velocity of each, K7
+    launches of each, median device ms of each, peak GiB)."""
+    import torch
+
+    from s3od_torch.ops import flash_attention as fa
+
+    out = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for name, kw in (("plain", dict(inputs, concepts=None,
+                                    pooled_concepts=None)),
+                     ("concept", inputs)):
+        with torch.no_grad():  # FSDP2's gathers need version counters
+            fa.flash_attention_online.launches = 0
+            res = pipe.model(**kw)
+            launches = fa.flash_attention_online.launches
+            ms = cuda_ms(lambda: pipe.model(**kw), iters=reps)
+        out[name] = {"velocity": res["output"].float().clone(),
+                     "launches": launches, "ms": ms}
+    torch.cuda.synchronize()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def parallel_factory_phase(results, pipe):
+    """(c) The factory's MMDiT at FLUX.1-dev's full width (the
+    `factory_phase` model, bf16): one plain and one concept step at 1024^2
+    unsharded, then the same module sharded in place by FSDP2 over a
+    one-rank mesh (`shard_module(wrap="fsdp")`, as `from_config(fsdp=1)`
+    shards it): K7 57 and 76 launches a step, the velocity within
+    K7_STEP_TOL, step ms and peak GiB."""
+    import torch
+
+    from s3od_torch.datagen.diffusion import (calculate_shift, make_img_ids,
+                                              shifted_sigmas)
+    from s3od_torch.parallel import distributed as pd
+    from s3od_torch.parallel.mesh import make_mesh, shard_module
+
+    r = results["_parallel"].setdefault("factory", {})
+    log("phase parallel (c): FLUX.1-dev MMDiT 1024^2 plain + concept steps, "
+        "unsharded, then sharded in place by FSDP2 over a 1-rank mesh")
+    cfg, dev = pipe.cfg, pipe.device
+    g = torch.Generator(device=dev).manual_seed(21)
+    randn = lambda *s: torch.randn(*s, generator=g, device=dev)
+    ph = pw = 64
+    sig = shifted_sigmas(28, calculate_shift(ph * pw))[25]
+    inputs = dict(latents=randn(1, ph * pw, cfg.in_channels),
+                  txt=randn(1, 512, cfg.text_dim),
+                  pooled=randn(1, cfg.pooled_dim),
+                  timestep=torch.full((1,), float(sig), device=dev),
+                  img_ids=torch.from_numpy(make_img_ids(ph, pw)).to(dev),
+                  txt_ids=torch.zeros(512, 3, device=dev),
+                  guidance=torch.full((1,), 3.5, device=dev),
+                  concepts=randn(1, 2, cfg.text_dim),
+                  pooled_concepts=randn(1, cfg.pooled_dim),
+                  concept_layers=pipe.concept_layers,
+                  compute_dtype=torch.bfloat16)
+    base = factory_step_run(pipe, inputs)
+    pd.ensure_group("cuda")
+    shard_module(pipe.model, make_mesh(fsdp=1, device_type="cuda"),
+                 wrap="fsdp")
+    sharded = factory_step_run(pipe, inputs)
+    pd.destroy()
+    for name in ("plain", "concept"):
+        err = rel_norm(sharded[name]["velocity"], base[name]["velocity"])
+        want = 57 if name == "plain" else 76
+        r[name] = {"unsharded_ms": base[name]["ms"],
+                   "sharded_ms": sharded[name]["ms"],
+                   "launches": [base[name]["launches"],
+                                sharded[name]["launches"]],
+                   "velocity_rel": err}
+        log(f"  {name} step: unsharded {base[name]['ms']:.2f} ms, sharded "
+            f"{sharded[name]['ms']:.2f} ms ({sharded[name]['ms'] - base[name]['ms']:+.2f}); "
+            f"K7 launches {r[name]['launches']} (want {want}); velocity rel. "
+            f"norm {err:.3e} (<= {K7_STEP_TOL['velocity']:.1e})")
+        check(r[name]["launches"] == [want, want],
+              f"{name} step: K7 launches {r[name]['launches']}, want {want}")
+        check(err <= K7_STEP_TOL["velocity"],
+              f"{name} step: sharded velocity {err:.3e}")
+    r["peak_gib"] = [base["peak_gib"], sharded["peak_gib"]]
+    log(f"  peak GiB unsharded {base['peak_gib']:.2f}, sharded "
+        f"{sharded['peak_gib']:.2f}")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4756,7 +5130,8 @@ def main(argv=None) -> int:
                     help="directory holding the parent commit's attn_epilogue.cu, "
                          "flash_attention_bwd.cu, mask_tail.cu, hopper.cuh, mma.cuh "
                          "and exp_layernorm.py, to time against")
-    TURNS = ap.parse_args(argv).turns
+    opts = ap.parse_args(argv)
+    TURNS = opts.turns
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4803,11 +5178,13 @@ def main(argv=None) -> int:
     timed(train_options_phase, results)
     timed(demo_phase, results)
     torch.cuda.empty_cache()
+    timed(parallel_phase, results)
     timed(k7_phase, results)
     timed(experiments_phase, results)
     torch.cuda.empty_cache()
     pipe = timed(factory_phase, results)
     timed(lora_phase, results, pipe)
+    timed(parallel_factory_phase, results, pipe)
     del pipe
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "s3od_tpu"))
@@ -4835,6 +5212,7 @@ def main(argv=None) -> int:
                     "demo": results["_demo"],
                     "factory": results["_factory"],
                     "lora": results["_lora"],
+                    "parallel": results["_parallel"],
                     "experiments": results["_experiments"],
                     "kernel_extra": {k: {x: y for x, y in v.items()
                                          if x not in ("launches",)}

@@ -12,10 +12,16 @@ PyTorch (counterpart of `s3od_tpu/datagen/diffusion.py`).
   stream on the last 3 of 28 steps;
 - feature taps compressed 3072 -> 768 by the mean over 4 adjacent
   channels; concept maps averaged over (step, layer), min-max normalized;
-- img2img / single-step inversion for feature extraction.
+- img2img / single-step inversion for feature extraction;
+- `mesh=` / `from_config(fsdp=)`: the MMDiT sharded over a
+  `torch.distributed` device mesh with FSDP2 (`parallel.shard_module`),
+  each dual and single block a unit whose weights are gathered for its
+  forward and freed after. Every rank runs the same batch-1 sample
+  (activations stay replicated), as under the JAX mesh.
 
 The denoising loop is a Python loop over MMDiT forwards on the device
-under `torch.inference_mode()`: every attention launches K7. The initial
+under `torch.inference_mode()` (`torch.no_grad()` when sharded): every
+attention launches K7. The initial
 noise comes from `initial_noise` (a `torch.Generator` seeded with `seed`),
 the one place where the port's numbers differ from the JAX pipeline's
 (`jax.random.normal`); tests replace it with JAX's draw.
@@ -33,9 +39,17 @@ import torch
 from s3od_torch.models.mmdit import MMDiT, minmax_normalize
 from s3od_torch.utils import compute_dtype_for, resolve_device
 
-_QUEUE_FSDP = ("sharding the MMDiT (`mesh=` / `fsdp=`) is not ported: "
-               "ROADMAP Queue 1, item 9 (the H100's 80 GB holds the bf16 "
-               "model whole)")
+def fsdp_mesh(fsdp: int, device_type: str):
+    """A ("data", "fsdp") mesh with `fsdp` ranks to a shard (-1 or 0: the
+    whole world); raises unless it divides the world size."""
+    from s3od_torch.parallel.distributed import expected_world_size
+    from s3od_torch.parallel.mesh import make_mesh
+
+    world = expected_world_size()
+    n = world if fsdp in (-1, 0) else int(fsdp)
+    if n < 1 or world % n:
+        raise ValueError(f"fsdp={fsdp} does not divide the world size {world}")
+    return make_mesh(dp=world // n, fsdp=n, device_type=device_type)
 
 
 # ----------------------------------------------------------------------------
@@ -193,7 +207,11 @@ class ConceptAttentionPipeline:
     default bf16 on the card and float32 on the CPU. `lora`: LoRA adapters
     (a `flux_finetune` `.npz` path or a tree; `datagen/lora.read_lora`),
     merged once here into copies of the targeted weights, which every step
-    runs on through `functional_call`: `model` itself is not changed."""
+    runs on through `functional_call`: `model` itself is not changed.
+    `mesh`: a `DeviceMesh` with an "fsdp" axis (`parallel.make_mesh`);
+    the MMDiT is sharded over it in place after the LoRA merge, as the
+    JAX pipeline shards its merged tree (`diffusion.py:289-295`), so
+    under a mesh the merged weights replace the targeted ones."""
 
     def __init__(self, model: MMDiT, *,
                  text_encoders=None, vae=None, num_inference_steps: int = 28,
@@ -203,8 +221,6 @@ class ConceptAttentionPipeline:
                  compute_dtype: Optional[str] = None, lora=None,
                  lora_scale: Optional[float] = None, mesh=None,
                  device: Optional[str] = None):
-        if mesh is not None:
-            raise NotImplementedError(_QUEUE_FSDP)
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.merged = None
@@ -214,6 +230,17 @@ class ConceptAttentionPipeline:
             tree, lcfg = read_lora(lora, lora_scale, self.device)
             with torch.no_grad():
                 self.merged = merge_lora(self.model, tree, lcfg)
+        if mesh is not None:
+            from s3od_torch.parallel.mesh import shard_module
+
+            if self.merged is not None:
+                with torch.no_grad():
+                    params = dict(self.model.named_parameters())
+                    for name, w in self.merged.items():
+                        params[name].copy_(w)
+                self.merged = None
+            shard_module(self.model, mesh, wrap="fsdp")
+        self.mesh = mesh
         self.cfg = model.cfg
         self.text_encoders = text_encoders or TextEncoders()
         self.vae = vae
@@ -235,11 +262,12 @@ class ConceptAttentionPipeline:
                     fsdp: Optional[int] = None, **kwargs):
         """Build from a converted MMDiT `.npz` (the port's `load_native`;
         the configuration stored beside the weights, else FLUX.1-dev's),
-        made in the compute dtype on the device."""
+        made in the compute dtype on the device. `fsdp`: shard the MMDiT
+        over that many ranks (-1: all of them) of the process group (the
+        launcher's, else this process alone); it must divide the world
+        size, and the rest of the world replicates it."""
         from s3od_torch.convert import load_mmdit
 
-        if fsdp is not None:
-            raise NotImplementedError(_QUEUE_FSDP)
         if not checkpoint:
             raise RuntimeError(
                 "No diffusion checkpoint provided. Pass checkpoint=path to a "
@@ -247,6 +275,8 @@ class ConceptAttentionPipeline:
                 "testing.")
         device = resolve_device(kwargs.get("device"))
         dtype = compute_dtype_for(device, kwargs.get("compute_dtype"))
+        if fsdp is not None and kwargs.get("mesh") is None:
+            kwargs["mesh"] = fsdp_mesh(fsdp, device.type)
         return cls(load_mmdit(checkpoint, device=device, dtype=dtype), **kwargs)
 
     # -- internals ---------------------------------------------------------
@@ -266,8 +296,16 @@ class ConceptAttentionPipeline:
                                               kwargs)
         return self.model(**kwargs)
 
-    @torch.inference_mode()
-    def __call__(self, prompt: str, *, height: int, width: int, seed: int = 0,
+    def _no_grad(self):
+        """Inference mode, or no_grad for a sharded MMDiT: FSDP2's
+        gathers keep version counters, which inference tensors lack."""
+        return torch.no_grad() if self.mesh is not None else torch.inference_mode()
+
+    def __call__(self, *args, **kwargs) -> ConceptAttentionOutput:
+        with self._no_grad():
+            return self._run(*args, **kwargs)
+
+    def _run(self, prompt: str, *, height: int, width: int, seed: int = 0,
                  concepts: Optional[Sequence[str]] = None,
                  init_image_latents: Optional[np.ndarray] = None,
                  strength_step: Optional[int] = None,

@@ -34,6 +34,7 @@ import yaml
 
 from s3od_torch.datagen.resizer import FluxResizer
 from s3od_torch.datagen.sharding import detect_task, filter_unprocessed, task_slice
+from s3od_torch.parallel.distributed import broadcast_object, rank
 
 logger = logging.getLogger("s3od_torch.extract")
 
@@ -131,7 +132,10 @@ def run(config_path: str, task_id: Optional[int] = None,
 
     tid, ntasks = detect_task(task_id, num_tasks)
     jobs = task_slice(jobs, tid, ntasks)
-    jobs = filter_unprocessed(jobs, lambda j: storage.exists(j[0]))
+    # Under `fsdp` every rank extracts every image in step: rank 0's view
+    # of what exists decides, and rank 0 alone writes.
+    jobs = broadcast_object(
+        filter_unprocessed(jobs, lambda j: storage.exists(j[0])))
     logger.info("task %d/%d: %d images", tid, ntasks, len(jobs))
 
     done = 0
@@ -141,7 +145,8 @@ def run(config_path: str, task_id: Optional[int] = None,
             caption = meta.get("caption", "a photo of a salient object")
             tag = meta.get("tag", "object")
             features, cmaps = extractor.extract(image, caption, tag)
-            storage.save(sample_id, features, cmaps)
+            if rank() == 0:
+                storage.save(sample_id, features, cmaps)
             done += 1
         except Exception as e:  # noqa: BLE001 — one failed image never stops a run
             logger.error("failed %s: %s", sample_id, e)

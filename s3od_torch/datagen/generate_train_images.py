@@ -14,6 +14,11 @@ are the port's own: `t5_checkpoint` and `clip_checkpoint` (converted
 encoders come from transformers, loaded at the first prompt (the card has
 none); `device` ("cuda" by default, "cpu" for the plain path).
 
+With `fsdp` set, the MMDiT is sharded over the process group (launch with
+`torchrun`): every rank runs every sample in step, rank 0's view of which
+outputs and prompts exist decides what is skipped and prompted, and
+only rank 0 writes.
+
 Usage:
     python -m s3od_torch.datagen.generate_train_images --config generation.yaml
 """
@@ -33,6 +38,7 @@ import yaml
 
 from s3od_torch.datagen.prompts import FilePromptProvider, ImagePromptGenerator
 from s3od_torch.datagen.sharding import detect_task, task_slice
+from s3od_torch.parallel.distributed import broadcast_object, rank
 
 # Generation samples from a gentler-aspect list than the resizer's
 # feature-extraction buckets ((width, height) pairs).
@@ -157,11 +163,14 @@ class ImageMaskGenerationPipeline:
         self.cfg = cfg
         self.backend = backend
         self.mask_generator = mask_generator
+        self.writer = rank() == 0
         gen = ImagePromptGenerator(seed=cfg.seed)
-        self.prompts = FilePromptProvider(cfg.prompts_dir, gen)
+        self.prompts = (FilePromptProvider(cfg.prompts_dir, gen)
+                        if self.writer else None)
         self.out = Path(cfg.output_dir)
-        (self.out / "images").mkdir(parents=True, exist_ok=True)
-        (self.out / "masks").mkdir(parents=True, exist_ok=True)
+        if self.writer:
+            (self.out / "images").mkdir(parents=True, exist_ok=True)
+            (self.out / "masks").mkdir(parents=True, exist_ok=True)
 
     def _paths(self, class_name: str, idx: int) -> Tuple[Path, Path]:
         stem = f"{class_name.replace(' ', '_')}_{idx:04d}"
@@ -173,11 +182,13 @@ class ImageMaskGenerationPipeline:
         from PIL import Image
 
         rng = random.Random(f"{self.cfg.seed}/{class_name}")
-        prompts = self.prompts.get_prompts(class_name, n_samples)
+        prompts = broadcast_object(
+            self.prompts.get_prompts(class_name, n_samples) if self.writer
+            else None)
         done = 0
         for i, prompt in enumerate(prompts[:n_samples]):
             img_path, mask_path = self._paths(class_name, i)
-            if img_path.exists() and mask_path.exists():
+            if broadcast_object(img_path.exists() and mask_path.exists()):
                 done += 1
                 continue
             try:
@@ -191,8 +202,9 @@ class ImageMaskGenerationPipeline:
                     mask = (cmaps["category"] > 0.5).astype(np.uint8) * 255
                     mask = np.array(Image.fromarray(mask).resize(
                         (w, h), Image.NEAREST))
-                Image.fromarray(image).save(img_path, quality=95)
-                Image.fromarray(mask).save(mask_path)
+                if self.writer:
+                    Image.fromarray(image).save(img_path, quality=95)
+                    Image.fromarray(mask).save(mask_path)
                 done += 1
             except Exception as e:  # noqa: BLE001 — continue past failures
                 logger.error("failed %s[%d]: %s", class_name, i, e)

@@ -53,8 +53,8 @@ def rope_cos_sin(nh: int, nw: int, head_dim: int, theta: float,
                  coord_scale: Optional[torch.Tensor] = None):
     """fp32 (nh*nw, head_dim) RoPE tables over patch centres in [-1, 1],
     in the same fp32 operation order as `s3od_tpu` `rope_cos_sin`.
-    `coord_scale` (an fp32 scalar) rescales the coordinates: the training
-    augmentation `pos_embed_rescale`."""
+    `coord_scale` (an fp32 scalar, a 0-dim tensor or its float) rescales
+    the coordinates: the training augmentation `pos_embed_rescale`."""
     dim4 = head_dim // 4
     inv_freq = 1.0 / theta ** np.arange(0, 1, 1.0 / dim4, dtype=np.float64)
     coords_h = (np.arange(0.5, nh, dtype=np.float64) / nh) * 2 - 1

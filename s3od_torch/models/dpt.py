@@ -31,6 +31,7 @@ from __future__ import annotations
 from typing import List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -64,20 +65,52 @@ def _linear(mod: nn.Linear, x):
     return F.linear(x, mod.weight.to(x.dtype), mod.bias.to(x.dtype))
 
 
-def batch_norm(bn: nn.Module, x, training: bool):
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over a process group; the backward sums the ranks' gradients
+    (each rank's statistics feed every rank's loss)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def batch_norm(bn: nn.Module, x, training: bool, group=None):
     """BatchNorm2d over NCHW as `s3od_tpu/ops/conv.py:batch_norm` computes
     it: fp32 statistics (E[x^2] - E[x]^2 over the batch in training, the
     running ones otherwise), then y = x * scale + shift with scale and
     shift rounded to x's dtype. Training updates the running statistics
     in place with torch's convention: momentum 0.1, unbiased variance in
-    the running statistics, biased in the normalization."""
+    the running statistics, biased in the normalization. Given a process
+    `group` whose ranks hold different rows of one batch (the trainer's,
+    under data parallelism), the training statistics are that global
+    batch's, n counting every rank's rows; `nn.SyncBatchNorm` would round
+    in another order. Without a group each rank's rows alone."""
     if isinstance(bn, nn.Identity):
         return x
     if training:
         xf = x.float()
         mean = xf.mean(dim=(0, 2, 3))
-        var = (xf * xf).mean(dim=(0, 2, 3)) - mean * mean
+        ex2 = (xf * xf).mean(dim=(0, 2, 3))
         n = x.numel() // x.shape[1]
+        if group is not None:
+            # The global batch's statistics, as the JAX step takes them
+            # over its sharded batch: the ranks' [mean, E[x^2]] averaged
+            # (equal row counts), through a collective that carries
+            # autograd (its backward sums the ranks' gradients).
+            w = dist.get_world_size(group)
+            stats = _AllReduceSum.apply(torch.stack([mean, ex2]), group) / w
+            mean, ex2 = stats[0], stats[1]
+            n *= w
+        var = ex2 - mean * mean
         m = bn.momentum
         with torch.no_grad():
             unbiased = var * (n / max(n - 1, 1))
@@ -102,7 +135,7 @@ class ResidualConvUnit(nn.Module):
         bn = (lambda: nn.BatchNorm2d(features)) if use_bn else nn.Identity
         self.bn1, self.bn2 = bn(), bn()
 
-    def forward(self, x, training: bool = False):
+    def forward(self, x, training: bool = False, bn_group=None):
         if self._chained(x):
             p1 = {"kernel": self.conv1.weight.to(x.dtype).permute(2, 3, 1, 0),
                   "bias": self.conv1.bias}
@@ -110,8 +143,10 @@ class ResidualConvUnit(nn.Module):
                   "bias": self.conv2.bias}
             y = rcu_winograd(x.permute(0, 2, 3, 1), p1, p2)
             return y.permute(0, 3, 1, 2)
-        out = batch_norm(self.bn1, _conv(self.conv1, F.relu(x)), training)
-        out = batch_norm(self.bn2, _conv(self.conv2, F.relu(out)), training)
+        out = batch_norm(self.bn1, _conv(self.conv1, F.relu(x)), training,
+                         bn_group)
+        out = batch_norm(self.bn2, _conv(self.conv2, F.relu(out)), training,
+                         bn_group)
         return out + x
 
     def _chained(self, x) -> bool:
@@ -134,10 +169,10 @@ class FeatureFusionBlock(nn.Module):
         self.resConfUnit2 = ResidualConvUnit(features, use_bn)
 
     def forward(self, x, res: Optional[torch.Tensor], out_hw,
-                training: bool = False):
+                training: bool = False, bn_group=None):
         if res is not None:
-            x = x + self.resConfUnit1(res, training)
-        x = self.resConfUnit2(x, training)
+            x = x + self.resConfUnit1(res, training, bn_group)
+        x = self.resConfUnit2(x, training, bn_group)
         # 1x1 conv and bilinear resize commute; the conv runs on 4x fewer
         # pixels first (as in the JAX package).
         return resize_bilinear(_conv(self.out_conv, x), out_hw)
@@ -221,12 +256,13 @@ class DPTHead(nn.Module):
         self.mask_head = MaskHead(f, cfg.mask_inter_features, cfg.num_outputs)
 
     def forward(self, taps: List[torch.Tensor], patch_hw, patch_size: int,
-                training: bool = False, serving: bool = False):
+                training: bool = False, serving: bool = False, bn_group=None):
         """`training` normalizes with batch statistics and updates the
-        BatchNorms' running statistics; `serving` marks the serving forward
-        (the JAX `serving_fast_output`), the one that may run K10."""
+        BatchNorms' running statistics (the global batch's over `bn_group`,
+        `batch_norm`); `serving` marks the serving forward (the JAX
+        `serving_fast_output`), the one that may run K10."""
         return self.decode(self.neck(taps, patch_hw), patch_hw, patch_size,
-                           training, serving)
+                           training, serving, bn_group)
 
     def neck(self, taps: List[torch.Tensor], patch_hw) -> List[torch.Tensor]:
         """Project and resize each tap to its pyramid level (strides 4, 8,
@@ -242,16 +278,18 @@ class DPTHead(nn.Module):
                 for i, f in enumerate(feats)]
 
     def decode(self, rn: List[torch.Tensor], patch_hw, patch_size: int,
-               training: bool = False, serving: bool = False):
+               training: bool = False, serving: bool = False,
+               bn_group=None):
         """Refinenets 4..1 over the pyramid, then the IoU and mask heads."""
         ph, pw = patch_hw
         s = self.scratch
         hw = lambda a: tuple(a.shape[-2:])
-        path = s.refinenet4(rn[3], None, hw(rn[2]), training)
-        path = s.refinenet3(path, rn[2], hw(rn[1]), training)
-        path = s.refinenet2(path, rn[1], hw(rn[0]), training)
+        path = s.refinenet4(rn[3], None, hw(rn[2]), training, bn_group)
+        path = s.refinenet3(path, rn[2], hw(rn[1]), training, bn_group)
+        path = s.refinenet2(path, rn[1], hw(rn[0]), training, bn_group)
         path1 = s.refinenet1(path, rn[0], (2 * rn[0].shape[-2],
-                                           2 * rn[0].shape[-1]), training)
+                                           2 * rn[0].shape[-1]), training,
+                             bn_group)
 
         pooled = path1.float().mean(dim=(2, 3)).to(path1.dtype)
         fc1, fc2 = self.classifier_head[2], self.classifier_head[4]

@@ -30,7 +30,8 @@ class S3ODSegmentation(nn.Module):
                 rope_coord_scale: Optional[torch.Tensor] = None,
                 remat_policy: Optional[str] = None,
                 serving_fast_output: bool = False,
-                rope_tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+                rope_tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                bn_group=None):
         """images (B, H, W, 3) normalized, in the compute dtype.
 
         Returns {"pred_masks": (B, n, H, W) logits, "pred_iou": (B, n) fp32
@@ -45,7 +46,10 @@ class S3ODSegmentation(nn.Module):
         package: only it may run the fused mask tail (K10, behind
         `models/dpt.MASK_TAIL_FUSED`); the masks stay NCHW either way.
         `rope_tables`: the encoder's RoPE (cos, sin), given instead of
-        built (`models/dinov3.encoder_tables`)."""
+        built (`models/dinov3.encoder_tables`). `bn_group`: in training,
+        the process group whose ranks hold the other rows of the batch;
+        the BatchNorms then take the global batch's statistics
+        (`models/dpt.batch_norm`)."""
         route = "kernel" if images.dtype == torch.bfloat16 else "exact"
         cfg = self.cfg
         p = cfg.encoder.patch_size
@@ -56,10 +60,24 @@ class S3ODSegmentation(nn.Module):
                             tables=rope_tables)
         masks, iou = self.seg_head(
             taps, (images.shape[1] // p, images.shape[2] // p), p, training,
-            serving_fast_output)
+            serving_fast_output, bn_group)
         if training:
             masks = masks.float()
         return {"pred_masks": masks, "pred_iou": iou.float()}
+
+    def unused_parameter_names(self):
+        """Parameters the forward never reads: the encoder blocks past the
+        last tap, the final LayerNorm, the mask token, and refinenet4's
+        first RCU (refinenet4 has no skip input). Data-parallel wrappers
+        leave them out of the gradient reduction (`parallel.shard_module`);
+        the optimizer gives them zero gradients."""
+        used = self.cfg.num_encoder_layers_used
+        prefixes = [f"encoder.layer.{i}." for i in
+                    range(used, len(self.encoder.layer))]
+        prefixes += ["encoder.norm.", "encoder.embeddings.mask_token",
+                     "seg_head.scratch.refinenet4.resConfUnit1."]
+        return [n for n, _ in self.named_parameters()
+                if any(n.startswith(p) for p in prefixes)]
 
     @torch.no_grad()
     def prepare_serving_(self, dtype: torch.dtype, fold_bn: bool = True):

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from s3od_torch.ops import warp as W
+from s3od_torch.parallel.mesh import shard_batch
 
 Params = Dict[str, torch.Tensor]
 
@@ -790,6 +791,34 @@ def draw_augment(generator: torch.Generator, b: int, h: int, w: int,
     return plan
 
 
+def shard_plan(plan: Dict, shard: Tuple[int, int]) -> Dict:
+    """The plan of the rows `shard_batch(.., shard)` takes of the batch it
+    was drawn for (every parameter is per sample, in sample order within
+    its branch)."""
+    if plan["mode"] == "test":
+        return plan
+    rows = lambda p, idx: {k: v[idx] for k, v in p.items()}
+    b = len(plan["stages"][0]["branch"]) if plan["stages"] else \
+        plan["flips"]["h"].shape[0]
+    keep = shard_batch(list(range(b)), shard)
+    out = {"mode": plan["mode"], "flips": rows(plan["flips"], keep),
+           "stages": []}
+    if "geometric" in plan:
+        out["geometric"] = rows(plan["geometric"], keep)
+    for stage in plan["stages"]:
+        branch = stage["branch"]
+        params = {}
+        for i, p in stage["params"].items():
+            members = [j for j, k in enumerate(branch) if k == i]
+            idx = [members.index(j) for j in keep if branch[j] == i]
+            if idx:
+                params[i] = rows(p, idx)
+        out["stages"].append({"name": stage["name"],
+                              "branch": [branch[j] for j in keep],
+                              "params": params})
+    return out
+
+
 def apply_augment(images_u8: torch.Tensor, masks: torch.Tensor,
                   plan: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run a drawn plan: deterministic given the plan."""
@@ -816,12 +845,16 @@ def apply_augment(images_u8: torch.Tensor, masks: torch.Tensor,
 def augment_batch(images_u8: torch.Tensor, masks: torch.Tensor,
                   mode: str = "regular",
                   generator: Optional[torch.Generator] = None,
-                  device_geometric: bool = True
+                  device_geometric: bool = True,
+                  shard: Optional[Tuple[int, int]] = None,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full batched augmentation: images uint8 (B, S, S, 3), masks float
     (B, S, S) -> (images float32 in [0, 1], masks). Modes: test | regular
     | synthetic. `generator` is a CPU `torch.Generator` (required unless
-    mode is test).
+    mode is test). `shard` = (rank, world): the batch is the rows
+    `parallel.mesh.shard_batch` takes of a global batch of B * world; the
+    draws are the global batch's, sliced the same way (`shard_plan`), so
+    that they do not depend on the world size.
 
     Op-for-op checklist vs `model_training/transforms.py`:
 
@@ -856,8 +889,11 @@ def augment_batch(images_u8: torch.Tensor, masks: torch.Tensor,
     if mode != "test" and generator is None:
         raise ValueError("augment_batch needs an explicit torch.Generator")
     b, h, w = images_u8.shape[0], images_u8.shape[1], images_u8.shape[2]
-    plan = draw_augment(generator, b, h, w, mode, images_u8.device,
+    world = shard[1] if shard is not None else 1
+    plan = draw_augment(generator, b * world, h, w, mode, images_u8.device,
                         device_geometric)
+    if world > 1:
+        plan = shard_plan(plan, shard)
     return apply_augment(images_u8, masks, plan)
 
 

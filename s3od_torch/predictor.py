@@ -8,7 +8,9 @@ best IoU score and compose RGBA on the host. bf16 on CUDA by default
 (through the hand-written kernels), float32 exact mode otherwise.
 
 Entry points: `remove_background` (one image), `remove_background_batch`
-(device steps of up to 16 images), `remove_background_stream` (pipelined:
+(device steps of up to 16 images a replica; with `data_parallel` the
+model is replicated on every visible card, or on the devices given, and
+each step split across the replicas), `remove_background_stream` (pipelined:
 host pre- and postprocess overlap the device), each with a readback
 `payload` of "full" (all soft masks), "best" (the best mask, chosen and
 quantized to uint8 on the device) or "best_small" ("best" pooled 2x2).
@@ -22,11 +24,14 @@ the JAX package's.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Any, Dict, Iterable, Iterator, List, Optional, Tuple, Union
+from typing import (Any, Dict, Iterable, Iterator, List, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 import torch
@@ -176,8 +181,15 @@ class BackgroundRemoval:
         device: str = "cuda",
         dtype: Optional[str] = None,
         fold_bn: bool = True,
+        data_parallel: Union[bool, Sequence[Union[str, torch.device]]] = False,
         _model: Optional[S3ODSegmentation] = None,
     ):
+        """`data_parallel`: one replica of the model a device, and each
+        device step split across them (`forward_canvases`; 16 images a
+        replica by default in `remove_background_batch`). True: every
+        visible CUDA card, `device` first (on one card, or on the CPU, one
+        replica: the path of `data_parallel=False`). A list of devices: one
+        replica on each, the first being `device`; a device may repeat."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -202,10 +214,33 @@ class BackgroundRemoval:
         self._mean = torch.tensor(IMAGENET_MEAN * 255.0, device=self.device)
         self._inv_std = torch.tensor(1.0 / (IMAGENET_STD * 255.0),
                                      device=self.device)
+        # (model, mean, inv_std) a replica; the first is `model` on `device`.
+        self._replicas = [(self.model, self._mean, self._inv_std)]
+        for dev in self._replica_devices(data_parallel)[1:]:
+            self._replicas.append((copy.deepcopy(self.model).to(dev),
+                                   self._mean.to(dev), self._inv_std.to(dev)))
         # The serving bundle's graphs by (batch, payload), and their canvas
         # (`from_serving_bundle`); empty otherwise.
         self._aot: Dict[Tuple[int, str], Any] = {}
         self._aot_canvas: Optional[int] = None
+
+    def _replica_devices(self, data_parallel) -> List[torch.device]:
+        first = self._mean.device
+        if data_parallel is True:
+            if first.type != "cuda":
+                return [first]
+            return [first] + [torch.device("cuda", i)
+                              for i in range(torch.cuda.device_count())
+                              if i != first.index]
+        if not data_parallel:
+            return [first]
+        devices = [torch.device(d) for d in data_parallel]
+        if devices[0].type == "cuda" and devices[0].index is None:
+            devices[0] = torch.device("cuda", torch.cuda.current_device())
+        if devices[0] != first:
+            raise ValueError(f"data_parallel's first device {devices[0]} is "
+                             f"not the predictor's device {first}")
+        return devices
 
     @classmethod
     def from_pretrained(cls, model_id: str, **kwargs) -> "BackgroundRemoval":
@@ -235,6 +270,9 @@ class BackgroundRemoval:
         folded already)."""
         from s3od_torch.aot import load_serving_bundle
 
+        if kwargs.get("data_parallel"):
+            raise ValueError("a serving bundle's graphs are bound to one "
+                             "device: load one predictor a device")
         device = kwargs.get("device", "cuda")
         bundle = load_serving_bundle(path, device=device)
         if kwargs.get("dtype") not in (None, bundle.meta["dtype"]):
@@ -304,14 +342,17 @@ class BackgroundRemoval:
             torch.from_numpy(buf).to(self.device))
         return canvas
 
-    def _upload(self, canvases) -> torch.Tensor:
-        """(B, S, S, 3) uint8 host canvases (an array or a list) -> device."""
-        return torch.from_numpy(np.stack(canvases)).to(self.device)
+    def _upload(self, canvases, replica: int = 0) -> torch.Tensor:
+        """(B, S, S, 3) uint8 host canvases (an array or a list) -> the
+        replica's device."""
+        return torch.from_numpy(np.stack(canvases)).to(
+            self._replicas[replica][1].device)
 
     @torch.inference_mode()
-    def _forward_device(self, x_u8: torch.Tensor, payload: str = "full"):
-        """(B, S, S, 3) uint8 canvases on the device -> (masks, ious) on
-        the device, as `serving_forward` gives them. A predictor loaded
+    def _forward_device(self, x_u8: torch.Tensor, payload: str = "full",
+                        replica: int = 0):
+        """(B, S, S, 3) uint8 canvases on the replica's device -> (masks,
+        ious) there, as `serving_forward` gives them. A predictor loaded
         from a serving bundle runs the bundle's exported graph for a
         (batch, payload) it holds at the bundle's canvas, and the eager
         forward otherwise (as the JAX predictor falls back to jit)."""
@@ -319,9 +360,12 @@ class BackgroundRemoval:
                  if x_u8.shape[1] == self._aot_canvas else None)
         if graph is not None:
             return graph(x_u8)
-        return serving_forward(
-            lambda x: self.model(x, serving_fast_output=True), x_u8,
-            self._mean, self._inv_std, self.compute_dtype, payload)
+        model, mean, inv_std = self._replicas[replica]
+        with (torch.cuda.device(mean.device) if mean.device.type == "cuda"
+              else contextlib.nullcontext()):
+            return serving_forward(
+                lambda x: model(x, serving_fast_output=True), x_u8, mean,
+                inv_std, self.compute_dtype, payload)
 
     @staticmethod
     def _readback(masks: torch.Tensor, ious: torch.Tensor):
@@ -340,10 +384,20 @@ class BackgroundRemoval:
     def forward_canvases(self, canvases_u8: np.ndarray, payload: str = "full"):
         """(B, S, S, 3) uint8 canvases -> (masks, sigmoid IoU scores (B, n)
         fp32) as numpy; masks as `_forward_device` gives them for
-        `payload`, the "full" ones as (B, n, S, S) fp32."""
+        `payload`, the "full" ones as (B, n, S, S) fp32. The batch is split
+        in order across the replicas (`np.array_split`: no padding, the
+        first parts one larger where it does not split evenly); every
+        part's forward is queued before any is read back."""
         _check(payload, PAYLOADS, "payload")
-        masks, ious = self._forward_device(self._upload(canvases_u8), payload)
-        return self._readback(masks, ious)
+        parts = [p for p in np.array_split(canvases_u8, len(self._replicas))
+                 if len(p)]
+        outs = [self._forward_device(self._upload(p, i), payload, i)
+                for i, p in enumerate(parts)]
+        read = [self._readback(m, i) for m, i in outs]
+        if len(read) == 1:
+            return read[0]
+        return (np.concatenate([m for m, _ in read]),
+                np.concatenate([i for _, i in read]))
 
     def remove_background(self, image: Union[np.ndarray, Image.Image],
                           threshold: float = 0.5,
@@ -359,10 +413,12 @@ class BackgroundRemoval:
         payload: str = "full",
     ) -> List[RemovalResult]:
         """Batched inference: device steps over chunks of `chunk` images
-        (default 16), host postprocess per image. The JAX predictor pads a
-        short final chunk up to a power of two so that jit compiles fewer
-        shapes; PyTorch runs eagerly, so the chunk runs at its own size."""
-        chunk = chunk or self.BATCH_CHUNK
+        (default 16 a replica), host postprocess per image. The JAX
+        predictor pads a short final chunk up to a power of two (and to a
+        multiple of its devices) so that jit compiles fewer shapes;
+        PyTorch runs eagerly, so a chunk runs at its own size, split
+        across the replicas by `forward_canvases`."""
+        chunk = chunk or self.BATCH_CHUNK * len(self._replicas)
         arrays = [as_rgb_uint8(im) for im in images]
         results: List[RemovalResult] = []
         for i in range(0, len(arrays), chunk):

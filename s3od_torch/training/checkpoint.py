@@ -109,21 +109,50 @@ def restore_external(path: str, *, steps_per_epoch: int = 1
     return tree, start_epoch
 
 
-def export_inference(model, out_path: str) -> None:
+def key_bias_max(model) -> torch.Tensor:
+    """max |b_k| of each encoder block's fused-qkv key segment, (L,).
+    Under FSDP2 each rank reads its shard and the maxima are reduced over
+    the world, so every rank must call it."""
+    from s3od_torch.parallel.mesh import is_dtensor, local_rows, unwrap
+
+    out = []
+    sharded = False
+    for blk in unwrap(model).encoder.layer:
+        bias = blk.attention.qkv.bias.detach()
+        local, offset = local_rows(bias)
+        c = bias.shape[0] // 3
+        a, b = max(c - offset, 0), min(2 * c - offset, local.shape[0])
+        part = local[a: b] if b > a else local[:0]
+        out.append(part.abs().max() if part.numel()
+                   else torch.zeros((), device=local.device))
+        sharded = sharded or is_dtensor(bias)
+    out = torch.stack(out).float()
+    if sharded:
+        torch.distributed.all_reduce(out, op=torch.distributed.ReduceOp.MAX)
+    return out
+
+
+def export_inference(model, out_path: str,
+                     state_dict: Optional[Dict[str, Any]] = None,
+                     key_bias: Optional[torch.Tensor] = None) -> None:
     """Weights-only export for `BackgroundRemoval`: the model's state dict
     in the JAX package's native `.npz` layout. The fused-qkv key-bias
-    segment must be zero (the reference layout has no key bias)."""
+    segment must be zero (the reference layout has no key bias). A
+    sharded model passes what every rank gathered: `state_dict`
+    (`parallel.mesh.full_state_dict`) and `key_bias` (`key_bias_max`)."""
     from s3od_torch.convert import convert_state_dict, save_native
+    from s3od_torch.parallel.mesh import unwrap
 
-    for i, blk in enumerate(model.encoder.layer):
-        bias = blk.attention.qkv.bias
-        c = bias.shape[0] // 3
-        k_max = float(bias[c: 2 * c].detach().abs().max())
+    model = unwrap(model)
+    if key_bias is None:
+        key_bias = key_bias_max(model)
+    for i, k_max in enumerate(key_bias.tolist()):
         if k_max > 1e-6:
             raise ValueError(
                 f"layer {i}: fused-QKV key-bias segment is nonzero (max "
                 f"|b_k| = {k_max:.2e}); train with the key-bias freeze")
-    params, state, _ = convert_state_dict(model.state_dict(), model.cfg)
+    sd = state_dict if state_dict is not None else model.state_dict()
+    params, state, _ = convert_state_dict(sd, model.cfg)
     save_native(out_path, params, state)
 
 

@@ -36,6 +36,8 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from s3od_torch.parallel.mesh import shard_batch
+
 VALID_EXTENSIONS = {".jpg", ".jpeg", ".png"}
 
 def _resize_longest(img: np.ndarray, size: int, is_mask: bool) -> np.ndarray:
@@ -303,6 +305,7 @@ class PrefetchLoader:
         prefetch: int = 2,
         random_resized_crop_p: float = 0.0,
         geometric_mode: Optional[str] = None,
+        process_shard: Optional[Tuple[int, int]] = None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -314,15 +317,31 @@ class PrefetchLoader:
         self.rrc_p = random_resized_crop_p
         # "regular" | "synthetic": draw the rotation / distortion per sample.
         self.geometric_mode = geometric_mode
+        # Data parallelism: (rank, world). Every rank shuffles the same
+        # global order (seed + epoch) and keeps the interleaved slice
+        # r::world, truncated to a multiple of world so that every rank
+        # yields as many batches (the JAX loader's `process_shard`,
+        # `s3od_tpu/training/data.py:440-455`); batch_size is per rank.
+        # Batch b of rank r is then rows r::world of the global batch b
+        # that one process with batch_size * world would load, and the
+        # geometry is drawn for that global batch and sliced the same way,
+        # so the augmentation does not depend on the world size.
+        self.process_shard = process_shard
 
     def _host_order(self, epoch: int) -> np.ndarray:
         order = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng(self.seed + epoch).shuffle(order)
+        if self.process_shard is not None:
+            w = self.process_shard[1]
+            order = shard_batch(order[: len(order) - len(order) % w],
+                                self.process_shard)
         return order
 
     def __len__(self) -> int:
         n = len(self.dataset)
+        if self.process_shard is not None:
+            n = n // self.process_shard[1]
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def draw_geometry(self, epoch: int, b: int, n: int, size: int):
@@ -330,6 +349,11 @@ class PrefetchLoader:
         augment)."""
         if not (self.rrc_p > 0 or self.geometric_mode):
             return None
+        w = self.process_shard[1] if self.process_shard is not None else 1
+        return shard_batch(self._draw(epoch, b, n * w, size),
+                           self.process_shard)
+
+    def _draw(self, epoch: int, b: int, n: int, size: int):
         rng = random.Random((self.seed * 1000 + epoch) * 100003 + b)
         geometry: List[Dict] = [{} for _ in range(n)]
         if self.rrc_p > 0:

@@ -19,6 +19,11 @@ What the JAX chain does, step by step, and how it is kept here:
    square root); they agree up to float32 rounding.
 The schedule of step i is evaluated at optax's count i (0 for the first
 update).
+
+Under FSDP2 the parameters and gradients are DTensors sharded along rows:
+the freeze zeroes the key rows that fall in this rank's shard, the clip
+reduces the shards' squares over the ranks before it reads the norm, and
+`load_state_dict` shards whole moments as their parameters.
 """
 
 from __future__ import annotations
@@ -27,6 +32,13 @@ import math
 from typing import Callable, Dict, Optional
 
 import torch
+
+from s3od_torch.parallel.mesh import (
+    distribute_like,
+    is_dtensor,
+    local_rows,
+    shard_groups,
+)
 
 
 def hold_cosine_schedule(
@@ -106,7 +118,7 @@ class Optimizer:
         for blk in self.model.encoder.layer:
             grad = blk.attention.qkv.bias.grad
             c = grad.shape[0] // 3
-            grad[c: 2 * c] = 0
+            zero_rows_(grad, c, 2 * c)
         groups = self.torch_optimizer.param_groups
         for group, lr in zip(groups, self.lrs(step)):
             group["lr"] = lr
@@ -121,16 +133,53 @@ class Optimizer:
         return self.torch_optimizer.state_dict()
 
     def load_state_dict(self, state: Dict) -> None:
-        self.torch_optimizer.load_state_dict(state)
+        """A state as `state_dict` gave it, or whole (gathered, or saved
+        at another world size): the moments of sharded parameters are
+        sharded as the parameters are, from this rank's copy."""
+        params = [p for g in self.torch_optimizer.param_groups
+                  for p in g["params"]]
+        per_param = {}
+        for i, st in state["state"].items():
+            p = params[int(i)]
+            per_param[i] = {k: (distribute_like(v, p) if torch.is_tensor(v)
+                                and v.shape == p.shape and v.dim() else v)
+                            for k, v in st.items()}
+        self.torch_optimizer.load_state_dict({**state, "state": per_param})
+
+
+@torch.no_grad()
+def zero_rows_(grad: torch.Tensor, start: int, stop: int) -> None:
+    """Zero rows [start, stop) of a gradient; of a DTensor sharded along
+    rows (FSDP2), the part of them in this rank's shard."""
+    local, offset = local_rows(grad)
+    a = max(start - offset, 0)
+    b = min(stop - offset, local.shape[0])
+    if b > a:
+        local[a: b] = 0
 
 
 @torch.no_grad()
 def clip_by_global_norm_(params, max_norm: float) -> None:
     """optax's `clip_by_global_norm` in place over `params`' gradients:
     unchanged while the global norm is below `max_norm`, else each
-    gradient g becomes (g / norm) * max_norm."""
+    gradient g becomes (g / norm) * max_norm. Sharded gradients (FSDP2
+    DTensors) add their shards' squares over the ranks first."""
     grads = [p.grad for p in params]
-    norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+    sq = torch.zeros((), device=grads[0].device, dtype=torch.float32)
+    sharded = torch.zeros_like(sq)
+    groups = []
+    for g in grads:
+        local, _ = local_rows(g)
+        part = (local.float() ** 2).sum()
+        if is_dtensor(g):
+            sharded = sharded + part
+            groups = groups or shard_groups(g)
+        else:
+            sq = sq + part
+    for group in groups:
+        torch.distributed.all_reduce(sharded, group=group)
+    norm = torch.sqrt(sq + sharded)
     if float(norm) >= max_norm:
         for g in grads:
-            g.div_(norm.to(g.dtype)).mul_(max_norm)
+            local, _ = local_rows(g)
+            local.div_(norm.to(local.dtype)).mul_(max_norm)

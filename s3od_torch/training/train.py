@@ -1,8 +1,10 @@
 """Training entry point on PyTorch (counterpart of
-`s3od_tpu/training/train.py:155-611`, for one device).
+`s3od_tpu/training/train.py:155-611`).
 
     python -m s3od_torch.training.train model=dinob dataset=synth \\
         backend=1chip data_dir=/data
+    python -m s3od_torch.training.train ... backend=8gpu   # 8 local cards
+    torchrun --nproc_per_node=8 -m s3od_torch.training.train ... backend=8gpu
 
 The same config groups and overrides as the JAX package
 (`training/config/`). The loop: per epoch, the training steps
@@ -19,10 +21,25 @@ the device applies them, then the batched photometric pipeline runs
 overlaps the previous step (JAX's `train_pre` + prefetch worker,
 `s3od_tpu/training/train.py:316-326, 441-460`).
 
+Data parallelism: one process per device (`s3od_torch.parallel`). Under
+a launcher (`torchrun`, SLURM) each process joins the group; without one,
+`backend.devices = N > 1` spawns N local workers, which then join the same
+way. The global batch is `train_batch_size x world x accumulation` (JAX
+`train.py:238`); rank r loads rows r::world of each global batch
+(`PrefetchLoader(process_shard=)`), and its augmentation draws are the
+global batch's rows (`augment_batch(shard=)`), so a run does not depend on
+the world size but for the order of reductions. `backend.fsdp = 1` wraps
+the model in DDP, above 1 in FSDP2 over a ("dcn", "data", "fsdp") mesh
+(`make_hybrid_mesh`: replicated over the hosts and "data"); the
+BatchNorms take the global micro-batch's statistics (`models/dpt.py`).
+Rank 0 alone logs, writes the checkpoints (the whole, unprefixed state
+dict) and the export; the epoch's sums are reduced over the ranks first.
+
 The run is on the CUDA card unless `backend.accelerator` is `cpu`; it
-never falls back. Not ported yet, each raising `NotImplementedError`
-(ROADMAP, Queue 1): `backend.devices` / `backend.fsdp` above 1
-(DDP/FSDP) and teacher training.
+never falls back: `backend.devices` above the visible cards, an `fsdp`
+that does not divide the world size, or a failed NCCL init raise. Not
+ported yet, raising `NotImplementedError` (ROADMAP, Queue 1): teacher
+training.
 """
 
 from __future__ import annotations
@@ -68,20 +85,35 @@ def check_supported(cfg, config_name: str) -> None:
     """Raise for the parts of the JAX entry point the port lacks."""
     if config_name != "train" or cfg.model.get("use_flux_features"):
         raise _not_ported("teacher training", 10)
-    if int(cfg.backend.devices) > 1 or int(cfg.backend.fsdp) > 1:
-        raise _not_ported("backend.devices / backend.fsdp > 1 (DDP, FSDP)", 9)
+
+
+def on_cpu(cfg) -> bool:
+    return str(cfg.backend.get("accelerator", "cuda")).lower() == "cpu"
+
+
+def check_parallel(cfg, world: int) -> None:
+    """The refusals: more devices than the visible cards, an fsdp that
+    does not divide the world size."""
+    devices, fsdp = int(cfg.backend.devices), int(cfg.backend.fsdp)
+    if devices > 1 and not on_cpu(cfg) and devices > torch.cuda.device_count():
+        raise RuntimeError(
+            f"backend.devices={devices} but {torch.cuda.device_count()} CUDA "
+            "device(s) are visible")
+    if fsdp < 1 or world % fsdp:
+        raise ValueError(
+            f"backend.fsdp={fsdp} does not divide the world size {world}")
 
 
 def device_of(cfg) -> torch.device:
     """`backend.accelerator: cpu` -> the CPU; anything else -> the CUDA
-    card, which must be present."""
-    if str(cfg.backend.get("accelerator", "cuda")).lower() == "cpu":
+    card (this rank's), which must be present."""
+    if on_cpu(cfg):
         return torch.device("cpu")
     if not torch.cuda.is_available():
         raise RuntimeError(
             "training runs on the CUDA card unless backend.accelerator=cpu, "
             "and no CUDA device is present")
-    return torch.device("cuda")
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 def build_model(cfg, device: torch.device, seed: int):
@@ -144,12 +176,14 @@ def upload(batch, device: torch.device) -> Dict[str, torch.Tensor]:
             "masks": host_to(torch.from_numpy(masks), device)}
 
 
-def train_pre(batch, geometry, mode: str, generator: torch.Generator):
+def train_pre(batch, geometry, mode: str, generator: torch.Generator,
+              shard=None):
     """The training input pipeline on the batch's device (JAX `train_pre`
     with the loader's host warps, `train.py:316-326`): the geometry the
     loader drew, then the flips and the photometric stages
     (`augment_batch(..., device_geometric=False)`), then the ImageNet
-    normalization."""
+    normalization. `shard` = (rank, world): the batch is those rows of
+    the global one, and draws as it would."""
     from s3od_torch.ops.augment import augment_batch, normalize_imagenet
     from s3od_torch.ops.warp import apply_host_geometry
 
@@ -157,7 +191,7 @@ def train_pre(batch, geometry, mode: str, generator: torch.Generator):
     if geometry is not None:
         images, masks = apply_host_geometry(images, masks, geometry)
     x, m = augment_batch(images, masks.float() / 255.0, mode, generator,
-                         device_geometric=False)
+                         device_geometric=False, shard=shard)
     return {"images": normalize_imagenet(x), "masks": m}
 
 
@@ -165,7 +199,9 @@ def train_pre(batch, geometry, mode: str, generator: torch.Generator):
 def log_val_images(writer, model, batch, compute_dtype, device, epoch: int,
                    max_images: int) -> None:
     """Side-by-side panels of the first val batch (JAX `_log_val_images`,
-    `train.py:614-650`; reference `lightning_module.py:269-283`)."""
+    `train.py:614-650`; reference `lightning_module.py:269-283`). Every
+    rank runs the forward (a sharded model gathers its weights); only a
+    rank with a writer draws."""
     from s3od_torch.ops.augment import normalize_imagenet
     from s3od_torch.training.image_logger import ImageLogger
 
@@ -175,6 +211,8 @@ def log_val_images(writer, model, batch, compute_dtype, device, epoch: int,
     gt = np.asarray(batch["masks"][:max_images])
     if gt.dtype == np.uint8:  # cached loader ships masks uint8 0..255
         gt = gt.astype(np.float32) / 255.0
+    if writer is None:
+        return
     panels = ImageLogger(max_images)
     panels.maybe_add(x.cpu().numpy(),
                      torch.sigmoid(out["pred_masks"].float()).cpu().numpy(),
@@ -185,10 +223,20 @@ def log_val_images(writer, model, batch, compute_dtype, device, epoch: int,
 def train(argv: Optional[list] = None) -> Dict[str, float]:
     from s3od_torch.evaluation.compute_metrics import evaluate_datasets
     from s3od_torch.ops.precision import set_exact_float32
+    from s3od_torch.parallel import distributed as pd
+    from s3od_torch.parallel.mesh import (
+        all_reduce_sums,
+        batch_sharding,
+        full_state_dict,
+        full_tree,
+        shard_module,
+        unwrap,
+    )
     from s3od_torch.training.checkpoint import (
         CheckpointManager,
         EarlyStopping,
         export_inference,
+        key_bias_max,
         restore_external,
     )
     from s3od_torch.training.config import load_config
@@ -201,7 +249,8 @@ def train(argv: Optional[list] = None) -> Dict[str, float]:
     from s3od_torch.training.optim import Optimizer
     from s3od_torch.training.train_step import eval_step, train_step
 
-    args = list(argv if argv is not None else sys.argv[1:])
+    argv = list(argv if argv is not None else sys.argv[1:])
+    args = list(argv)
     config_name = "train"
     for a in list(args):
         if a.startswith("config_name="):
@@ -210,11 +259,47 @@ def train(argv: Optional[list] = None) -> Dict[str, float]:
     cfg = load_config(args, config_name=config_name)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     check_supported(cfg, config_name)
+
+    # --- process group ---------------------------------------------------
+    device_type = "cpu" if on_cpu(cfg) else "cuda"
+    devices = int(cfg.backend.devices)
+    had_group = torch.distributed.is_initialized()
+    if pd.launcher_env() is None and not had_group:
+        check_parallel(cfg, devices)
+        if devices > 1:
+            # No launcher: N local workers, each joining as torchrun's would.
+            threads = (max(1, torch.get_num_threads() // devices)
+                       if device_type == "cpu" else None)
+            return pd.spawn_local(devices, train, argv,
+                                  device_type=device_type,
+                                  threads=threads)[0]
+    joined = pd.init_distributed(device_type)
+    world, rank = pd.world_size(), pd.rank()
+    check_parallel(cfg, world)
+    if joined and devices not in (1, world):
+        raise ValueError(f"backend.devices={devices} under a launcher of "
+                         f"{world} processes")
+    if rank:
+        logger.setLevel(logging.WARNING)
     device = device_of(cfg)
+    mesh, shard, bn_group = None, None, None
+    if joined:
+        # Replicated over the hosts ("dcn") and "data", sharded over
+        # "fsdp"; the batch over every axis, so this rank's rows are
+        # `batch_sharding`'s and the BatchNorms' group is the world.
+        mesh = pd.make_hybrid_mesh(fsdp=int(cfg.backend.fsdp),
+                                   device_type=device_type)
+        shard = batch_sharding(mesh)
+        if world > 1:
+            bn_group = torch.distributed.group.WORLD
 
     seed = int(cfg.backend.seed)
     np.random.seed(seed)
     exp_name = get_experiment_name(cfg)
+    if world > 1:  # one run directory: rank 0's name
+        names = [exp_name]
+        torch.distributed.broadcast_object_list(names, src=0)
+        exp_name = names[0]
     save_dir = Path(cfg.base_dir) / "checkpoints" / exp_name
     log_dir = Path(cfg.base_dir) / "logs" / exp_name
 
@@ -223,7 +308,8 @@ def train(argv: Optional[list] = None) -> Dict[str, float]:
     paths = [str(data_dir / p) for p in cfg.dataset.paths]
     image_size = int(cfg.dataset.image_size)
     accum = int(cfg.backend.accumulate_grad_batches)
-    global_batch = int(cfg.dataset.train_batch_size) * accum
+    per_rank = int(cfg.dataset.train_batch_size) * accum
+    global_batch = per_rank * world
     # dataset.cache=true: pre-decoded uint8 letterbox memmap cache (decode
     # once per dataset, not per epoch).
     use_cache = bool(cfg.dataset.get("cache"))
@@ -236,16 +322,16 @@ def train(argv: Optional[list] = None) -> Dict[str, float]:
     mode = cfg.dataset.transform_mode
     augmenting = mode != "test"
     train_loader = PrefetchLoader(
-        train_ds, global_batch, shuffle=True, drop_last=True, seed=seed,
+        train_ds, per_rank, shuffle=True, drop_last=True, seed=seed,
         num_threads=threads, random_resized_crop_p=0.5 if augmenting else 0.0,
-        geometric_mode=mode if augmenting else None)
+        geometric_mode=mode if augmenting else None, process_shard=shard)
     val_loader = PrefetchLoader(val_ds, int(cfg.dataset.val_batch_size),
                                 shuffle=False, drop_last=True, seed=seed,
-                                num_threads=threads)
+                                num_threads=threads, process_shard=shard)
     steps_per_epoch = max(1, len(train_loader))
-    logger.info("device=%s global_batch=%d steps/epoch=%d train=%d val=%d",
-                device, global_batch, steps_per_epoch, len(train_ds),
-                len(val_ds))
+    logger.info("device=%s world=%d global_batch=%d steps/epoch=%d train=%d "
+                "val=%d", device, world, global_batch, steps_per_epoch,
+                len(train_ds), len(val_ds))
 
     # --- model / optimizer ---------------------------------------------
     compute_dtype = (torch.bfloat16 if cfg.backend.precision == "bf16"
@@ -253,9 +339,17 @@ def train(argv: Optional[list] = None) -> Dict[str, float]:
     if compute_dtype == torch.float32:
         set_exact_float32()
     model = build_model(cfg, device, seed)
+    start_epoch, step, tree = 0, 0, None
+    if cfg.get("checkpoint_path"):
+        tree, start_epoch = restore_external(str(cfg.checkpoint_path),
+                                             steps_per_epoch=steps_per_epoch)
+        model.load_state_dict(tree["model"], strict=True)
+    if joined:
+        model = shard_module(model, mesh)
+    core = unwrap(model)
     grad_clip = cfg.optimizer.get("grad_clip")
     optimizer = Optimizer(
-        model, float(cfg.optimizer.lr),
+        core, float(cfg.optimizer.lr),
         head_lr_mult=float(cfg.optimizer.head_lr_mult),
         weight_decay=float(cfg.optimizer.weight_decay),
         steps_per_epoch=steps_per_epoch,
@@ -265,35 +359,7 @@ def train(argv: Optional[list] = None) -> Dict[str, float]:
         grad_clip=float(grad_clip) if grad_clip is not None else None,
         warmup_epochs=float(cfg.scheduler.get("warmup_epochs", 0.0)),
     )
-    loss_module = LossModule(compose_loss_config(cfg.loss))
-    remat_policy = cfg.backend.get("remat_policy")
-
-    # --- bookkeeping ----------------------------------------------------
-    ckpt = CheckpointManager(
-        str(save_dir), top_k=int(cfg.train_stage.checkpoint_top_k),
-        monitor=cfg.train_stage.checkpoint_monitor,
-        mode=cfg.train_stage.checkpoint_mode)
-    es_cfg = cfg.train_stage.early_stopping
-    early = EarlyStopping(es_cfg.monitor, int(es_cfg.patience), es_cfg.mode,
-                          float(es_cfg.min_delta))
-    writer = None
-    try:
-        # TensorBoard loads TensorFlow when it is installed (and TensorFlow
-        # may load jax); its `notf` marker module selects the TF-free stub,
-        # which is all the scalar writer needs.
-        sys.modules.setdefault("tensorboard.compat.notf",
-                               types.ModuleType("tensorboard.compat.notf"))
-        from torch.utils.tensorboard import SummaryWriter
-
-        writer = SummaryWriter(str(log_dir))
-    except Exception:  # pragma: no cover
-        logger.warning("tensorboard unavailable; scalar logging to stdout only")
-
-    start_epoch, step = 0, 0
-    if cfg.get("checkpoint_path"):
-        tree, start_epoch = restore_external(str(cfg.checkpoint_path),
-                                             steps_per_epoch=steps_per_epoch)
-        model.load_state_dict(tree["model"], strict=True)
+    if tree is not None:
         if cfg.get("weights_only"):
             # Weights only (reference `train.py:127-133`): fresh optimizer,
             # schedules and epoch counter.
@@ -303,6 +369,34 @@ def train(argv: Optional[list] = None) -> Dict[str, float]:
             step = int(tree["step"])
             if start_epoch:
                 logger.info("resuming at epoch %d (step %d)", start_epoch, step)
+        del tree
+    loss_module = LossModule(compose_loss_config(cfg.loss))
+    remat_policy = cfg.backend.get("remat_policy")
+
+    # --- bookkeeping (rank 0 writes) -------------------------------------
+    ckpt = None
+    if rank == 0:
+        ckpt = CheckpointManager(
+            str(save_dir), top_k=int(cfg.train_stage.checkpoint_top_k),
+            monitor=cfg.train_stage.checkpoint_monitor,
+            mode=cfg.train_stage.checkpoint_mode)
+    es_cfg = cfg.train_stage.early_stopping
+    early = EarlyStopping(es_cfg.monitor, int(es_cfg.patience), es_cfg.mode,
+                          float(es_cfg.min_delta))
+    writer = None
+    if rank == 0:
+        try:
+            # TensorBoard loads TensorFlow when it is installed (and
+            # TensorFlow may load jax); its `notf` marker module selects the
+            # TF-free stub, which is all the scalar writer needs.
+            sys.modules.setdefault("tensorboard.compat.notf",
+                                   types.ModuleType("tensorboard.compat.notf"))
+            from torch.utils.tensorboard import SummaryWriter
+
+            writer = SummaryWriter(str(log_dir))
+        except Exception:  # pragma: no cover
+            logger.warning(
+                "tensorboard unavailable; scalar logging to stdout only")
 
     # backend.split_augment: the JAX package runs the augmentation as its
     # own jitted program, per accumulation micro-slice, instead of inside
@@ -322,13 +416,15 @@ def train(argv: Optional[list] = None) -> Dict[str, float]:
         n = dev_batch["images"].shape[0]
         micro = max(1, n // accum) if split_aug else n
         parts = [train_pre({k: v[j: j + micro] for k, v in dev_batch.items()},
-                           geometry and geometry[j: j + micro], mode, gen)
+                           geometry and geometry[j: j + micro], mode, gen,
+                           shard)
                  for j in range(0, n, micro)]
         return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
 
     max_epochs = int(cfg.backend.max_epochs)
     final_metrics: Dict[str, float] = {}
     prefetch_depth = max(1, int(cfg.backend.get("device_prefetch", 2)))
+    confusion = ("tp", "fp", "fn")
     for epoch in range(start_epoch, max_epochs):
         t0 = time.time()
         acc: Dict[str, torch.Tensor] = {}
@@ -341,7 +437,7 @@ def train(argv: Optional[list] = None) -> Dict[str, float]:
                              step, generator=step_generator(seed, epoch, i),
                              accum_steps=accum, compute_dtype=compute_dtype,
                              remat_policy=remat_policy,
-                             preprocessed=augmenting)
+                             preprocessed=augmenting, bn_group=bn_group)
             for k, v in out.items():
                 acc[k] = acc[k] + v if k in acc else v
             step += 1
@@ -352,9 +448,10 @@ def train(argv: Optional[list] = None) -> Dict[str, float]:
                 f"{len(train_ds)} train samples < global batch "
                 f"{global_batch} with drop_last — shrink "
                 "dataset.train_batch_size / accumulation or add data")
-        sums = {k: float(v) for k, v in acc.items()}
+        sums = all_reduce_sums(acc, [k for k in acc if k not in confusion],
+                               device)
         metrics = {f"train_{k}": v / n_steps for k, v in sums.items()
-                   if k not in ("tp", "fp", "fn")}
+                   if k not in confusion}
         metrics.update({f"train_{k}": v for k, v in micro_dice_iou(sums).items()})
 
         vsums: Dict[str, float] = {}
@@ -364,7 +461,7 @@ def train(argv: Optional[list] = None) -> Dict[str, float]:
                             compute_dtype=compute_dtype)
             for k, v in out.items():
                 vsums[k] = vsums.get(k, 0.0) + float(v)
-            if n_val == 0 and writer and image_logging:
+            if n_val == 0 and image_logging:
                 log_val_images(writer, model, batch, compute_dtype, device,
                                epoch, int(cfg.train_stage.get("max_images", 8)))
             n_val += 1
@@ -374,8 +471,10 @@ def train(argv: Optional[list] = None) -> Dict[str, float]:
                 "val_batch_size %d with drop_last) — val metrics read 0/nan "
                 "and checkpoint selection by val_dice is meaningless",
                 len(val_ds), int(cfg.dataset.val_batch_size))
+        vsums = all_reduce_sums(vsums, [k for k in vsums if k not in confusion],
+                                device)
         metrics.update({f"val_{k}": v / max(n_val, 1) for k, v in vsums.items()
-                        if k not in ("tp", "fp", "fn")})
+                        if k not in confusion})
         metrics.update({f"val_{k}": v for k, v in micro_dice_iou(vsums).items()})
         final_metrics = metrics
 
@@ -394,21 +493,29 @@ def train(argv: Optional[list] = None) -> Dict[str, float]:
             metrics.get("val_dice", float("nan")))
 
         save_every = max(1, int(cfg.backend.get("save_every", 1)))
-        ckpt.save({"model": model.state_dict(),
-                   "optimizer": optimizer.state_dict(),
-                   "step": step, "epoch": epoch},
-                  epoch=epoch, metrics=metrics,
-                  save_last=((epoch + 1) % save_every == 0
-                             or epoch + 1 == max_epochs))
+        # What world size 1 saves: gathered whole under FSDP2 (a
+        # collective on every rank), unprefixed under DDP.
+        model_sd = full_state_dict(model) if joined else model.state_dict()
+        optim_sd = (full_tree(optimizer.state_dict()) if joined
+                    else optimizer.state_dict())
+        if ckpt is not None:
+            ckpt.save({"model": model_sd, "optimizer": optim_sd,
+                       "step": step, "epoch": epoch},
+                      epoch=epoch, metrics=metrics,
+                      save_last=((epoch + 1) % save_every == 0
+                                 or epoch + 1 == max_epochs))
+        del model_sd, optim_sd
         if early.update(metrics):
             logger.info("early stopping at epoch %d", epoch)
             break
 
-    if cfg.get("evaluation", {}).get("enabled"):
+    model_sd = full_state_dict(model) if joined else model.state_dict()
+    key_bias = key_bias_max(core)
+    if rank == 0 and cfg.get("evaluation", {}).get("enabled"):
         from s3od_torch.convert import convert_state_dict
 
         results = evaluate_datasets(
-            model_params=convert_state_dict(model.state_dict(), model.cfg),
+            model_params=convert_state_dict(model_sd, core.cfg),
             input_dir=str(cfg.evaluation.input_dir),
             datasets=list(cfg.dataset.test_datasets),
             image_size=int(cfg.evaluation.get("image_size")
@@ -421,7 +528,11 @@ def train(argv: Optional[list] = None) -> Dict[str, float]:
 
     if writer:
         writer.close()
-    export_inference(model, str(save_dir / "s3od_final.npz"))
+    if rank == 0:
+        export_inference(core, str(save_dir / "s3od_final.npz"), model_sd,
+                         key_bias)
+    if joined and not had_group:
+        pd.destroy()
     return final_metrics
 
 

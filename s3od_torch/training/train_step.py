@@ -9,6 +9,12 @@ per-block remat), the loss and the confusion sums, and backpropagate; the gradie
 over the micro-batches, the sums added, and the BN running statistics
 thread through the micro-batches in order. Then one optimizer update.
 Results stay on the device (no host readback per step).
+
+Under data parallelism `model` is the DDP / FSDP2 module
+(`parallel.shard_module`) and `batch` this rank's rows of the global
+batch (rows r::W): the gradients are reduced in the backward of the last
+micro-batch only (`parallel.mesh.grad_sync`), and the returned sums are
+this rank's (the trainer reduces them over the ranks once an epoch).
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from typing import Dict, Optional
 import torch
 
 from s3od_torch.models.dinov3 import sample_rope_coord_scale
+from s3od_torch.parallel.mesh import grad_sync, unwrap
 
 # ImageNet statistics (`s3od_tpu/ops/augment.py:normalize_imagenet`).
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -53,17 +60,20 @@ def train_step(model, optimizer, loss_module, batch, epoch: int, step: int,
                *, generator: torch.Generator, accum_steps: int = 1,
                compute_dtype: torch.dtype = torch.float32,
                remat_policy: Optional[str] = None,
-               preprocessed: bool = False) -> Dict[str, torch.Tensor]:
+               preprocessed: bool = False,
+               bn_group=None) -> Dict[str, torch.Tensor]:
     """One optimizer step over `batch` (leading dim accum_steps x micro
     batch, on the model's device). `step` is the number of updates so far
     (the schedules' count); `generator` draws the RoPE scales when the
     encoder config has `pos_embed_rescale`. `preprocessed`: the batch is
     already augmented and normalized (float images and masks, the
-    trainer's `train_pre`); else `preprocess` decodes it. Returns
+    trainer's `train_pre`); else `preprocess` decodes it. `bn_group`:
+    the process group over which the batch is sharded, for the
+    BatchNorms' global-batch statistics (None: this batch alone). Returns
     {"loss", *parts, "tp", "fp", "fn"} as 0-dim device tensors."""
     if not preprocessed:
         batch = preprocess(batch)
-    rescale = model.cfg.encoder.pos_embed_rescale
+    rescale = unwrap(model).cfg.encoder.pos_embed_rescale
     n = batch["images"].shape[0]
     if n % accum_steps:
         raise ValueError(f"batch {n} does not split into {accum_steps} "
@@ -75,11 +85,16 @@ def train_step(model, optimizer, loss_module, batch, epoch: int, step: int,
         mb = {k: v[j * micro: (j + 1) * micro] for k, v in batch.items()}
         scale = None
         if rescale:
-            scale = sample_rope_coord_scale(generator, rescale)
-        outputs = model(mb["images"].to(compute_dtype), training=True,
-                        rope_coord_scale=scale, remat_policy=remat_policy)
-        loss, parts = loss_module(outputs, mb, epoch)
-        (loss / accum_steps).backward()
+            # A Python float (the fp32 draw, exactly): FSDP2 moves tensor
+            # arguments to the device, and the RoPE tables are built on
+            # the host.
+            scale = float(sample_rope_coord_scale(generator, rescale))
+        with grad_sync(model, j == accum_steps - 1):
+            outputs = model(mb["images"].to(compute_dtype), training=True,
+                            rope_coord_scale=scale, remat_policy=remat_policy,
+                            bn_group=bn_group)
+            loss, parts = loss_module(outputs, mb, epoch)
+            (loss / accum_steps).backward()
         terms = {"loss": loss.detach() / accum_steps,
                  **{k: v.detach() / accum_steps for k, v in parts.items()},
                  **best_mask_metrics(outputs, mb["masks"])}

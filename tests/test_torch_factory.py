@@ -198,14 +198,19 @@ def test_pipeline_t2i_and_extract_features_match_jax(tiny_pipelines, monkeypatch
 
 
 def test_pipeline_refuses_lora_and_fsdp_naming_the_queue(tiny_pipelines):
-    """Sharding (`mesh=`, `fsdp=`) is refused naming its ROADMAP item;
-    `lora=` is ported (`tests/test_torch_lora.py`): a missing adapter file
-    now fails as a missing file."""
+    """Sharding is ported (`tests/test_torch_parallel.py`): a `mesh=` that
+    is not a `DeviceMesh`, and an `fsdp=` that does not divide the world
+    size (1 here), are refused before any process group is made. `lora=`
+    is ported (`tests/test_torch_lora.py`): a missing adapter file fails as
+    a missing file."""
+    import torch.distributed as dist
+
     _, tpipe, _ = tiny_pipelines
-    with pytest.raises(NotImplementedError, match="Queue 1"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         td.ConceptAttentionPipeline(tpipe.model, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1"):
+    with pytest.raises(ValueError, match="does not divide"):
         td.ConceptAttentionPipeline.from_config("x.npz", fsdp=4, device="cpu")
+    assert not dist.is_initialized()
     with pytest.raises(FileNotFoundError):
         td.ConceptAttentionPipeline(tpipe.model, device="cpu",
                                     lora="adapters.npz")

@@ -15,6 +15,15 @@ import torch
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "s3od_torch"
 
+# Under pytest-xdist the workers share the host's cores. Each worker
+# imports every test module while collecting, so this sets torch's
+# intra-op threads for the whole session: a worker's share of the cores.
+# At torch's default (all cores in every worker) OpenMP's waits cost up to
+# 500x on the port tests' small ops (a 0.08 s case read 41 s under load).
+if os.environ.get("PYTEST_XDIST_WORKER_COUNT"):
+    torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                              // int(os.environ["PYTEST_XDIST_WORKER_COUNT"])))
+
 
 def test_import_and_cpu_forward_leave_jax_and_triton_out():
     code = (
@@ -95,6 +104,41 @@ def test_training_import_and_cpu_step_leave_jax_triton_and_s3od_tpu_out():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["False", "False", "False"]
+
+
+def _ddp_step_in_a_worker():
+    """One DDP step of the tiny model in a spawned gloo worker (the
+    parallel package, the train step, global-batch BatchNorm); the
+    top-level packages it loaded among jax, triton and s3od_tpu."""
+    from s3od_torch.configs import tiny_test_config
+    from s3od_torch.models.segmentation import S3ODSegmentation, init_weights_
+    from s3od_torch.parallel import make_mesh, shard_module
+    from s3od_torch.training.loss import LOSS_PRESETS, LossModule
+    from s3od_torch.training.optim import Optimizer
+    from s3od_torch.training.train_step import train_step
+
+    m = init_weights_(S3ODSegmentation(tiny_test_config()),
+                      torch.Generator().manual_seed(0))
+    ddp = shard_module(m, make_mesh(device_type="cpu"))
+    b = {"images": torch.zeros(2, 32, 32, 3, dtype=torch.uint8),
+         "masks": torch.full((2, 32, 32), 255, dtype=torch.uint8)}
+    out = train_step(ddp, Optimizer(m, 1e-4, steps_per_epoch=1),
+                     LossModule(LOSS_PRESETS["focal_iou"]), b, 0, 0,
+                     generator=torch.Generator().manual_seed(1))
+    assert torch.isfinite(out["loss"])
+    return sorted({n.split(".")[0] for n in sys.modules}
+                  & {"jax", "triton", "s3od_tpu"}), type(ddp).__name__
+
+
+def test_spawned_data_parallel_workers_leave_jax_triton_and_s3od_tpu_out():
+    """Workers spawned by `parallel.spawn_local` (as `backend.devices=N`
+    starts them) import this module to find their function: a DDP step
+    there imports neither jax, nor triton, nor any module of s3od_tpu."""
+    from s3od_torch.parallel.distributed import spawn_local
+
+    res = spawn_local(2, _ddp_step_in_a_worker, device_type="cpu", threads=1,
+                      timeout=300)
+    assert res == {r: ([], "DistributedDataParallel") for r in (0, 1)}
 
 
 def test_factory_cpu_generation_leaves_jax_triton_transformers_out():

@@ -766,11 +766,25 @@ def test_train_entrypoint_end_to_end_with_resume(tmp_path):
 
 @pytest.mark.parametrize("override", ["backend.devices=2", "backend.fsdp=2"])
 def test_train_entrypoint_raises_for_what_is_not_ported(tmp_path, override):
+    """Teacher training is not ported and raises naming the ROADMAP; data
+    parallelism is (`tests/test_torch_parallel.py`), and with these
+    overrides the entry point refuses only what it cannot honour: more
+    devices than the visible cards, an fsdp that does not divide the world
+    size (here 1)."""
     from s3od_torch.training.train import train
 
+    base = ["model=tiny", "dataset.transform_mode=test",
+            f"data_dir={tmp_path}", f"base_dir={tmp_path}", override]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train(["model=tiny", "backend=cpu", "dataset.transform_mode=test",
-               f"data_dir={tmp_path}", f"base_dir={tmp_path}", override])
+        train(base + ["backend=cpu", "config_name=train_teacher"])
+    if override == "backend.devices=2":
+        if torch.cuda.device_count() >= 2:
+            pytest.skip("two CUDA devices are present")
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            train(base + ["backend=1chip"])
+    else:
+        with pytest.raises(ValueError, match="does not divide"):
+            train(base + ["backend=cpu"])
 
 
 def test_train_entrypoint_needs_a_card_unless_cpu(tmp_path):
