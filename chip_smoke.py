@@ -113,7 +113,7 @@ all started together) and the Triton kernel, then:
      augmentation, remat flash and split_augment at ViT-B, then with
      `dataset.cache=true` and with image logging at the tiny width; and
      the training demo (`s3od_torch.training.demo_e2e`, cut to ViT-S at
-     160^2, 8 epochs), whose val dice and holdout IoU must pass 0.5;
+     160^2, 4 epochs), whose val dice and holdout IoU must pass 0.5;
  10. checks K7, the online-softmax attention forward, against its plain
      version at the MMDiT's shapes (24 heads of 128: 4608, 4160 with
      n_valid 4098, 3840 tokens; and D = 64) and on adversarial logits
@@ -167,7 +167,26 @@ all started together) and the Triton kernel, then:
      blocks, bf16 K7 + K8 vs fp32 exact, after one update; the adapters
      written by `save_native`, loaded by `ConceptAttentionPipeline(lora=
      path)` and one 1024^2 image generated with them merged; and
-     `flux_finetune.run` end to end on the card at the tiny MMDiT.
+     `flux_finetune.run` end to end on the card at the tiny MMDiT;
+ 13. runs the modules ported last, before the LoRA phase frees T5:
+     teacher training (`teacher_phase`: features extracted by 11's models
+     for three fixture-made images, `config_name=train_teacher` for one
+     epoch at ViT-L, its checkpoint and export through
+     `convert.load_teacher` and `SODTeacherPredictor`; a 896 x 1152 step
+     with every K3 and K8 call against its plain version, planted o and
+     dk x 1.01 caught; 8 steps on the 1024^2 sample, the loss falling,
+     23 launches of each of K1-K5 and K8 a step, step ms, peak GiB, the
+     idle share); int8 residency (`int8_phase`: the full-depth MMDiT from
+     `init_mmdit(int8_weights=True)`, resident GiB, a plain and a concept
+     step with K7 57 / 76, and `quantize_mmdit` of 11's model against its
+     bf16 step, velocity within 5e-2); the converters (`converters_phase`:
+     11's MMDiT cut to 2 + 4 blocks and the VAE as diffusers
+     `.safetensors`, T5-XXL and CLIP-L at 2 layers as `save_pretrained`
+     directories, through both CLIs, loaded and run bit-equal to their
+     sources); and, after the tools, the filter chain (`filtering_phase`:
+     `run_filtering` on the seeded ViT-B at 840^2, batch 8, 11 launches
+     of K1-K5 a chunk, and the tiny checkpoint's verdicts on the card
+     equal to the CPU's).
 
 With `--turns DIR`, DIR holds the parent commit's
 `s3od_torch/csrc/{attn_epilogue.cu, flash_attention_bwd.cu, mask_tail.cu,
@@ -3997,12 +4016,14 @@ DEMO_ROOT = REPO / "build" / "chip_smoke_demo"
 # The demo's recipe that trains from scratch (the JAX package's recorded
 # one, benchmarks/RESULTS.md's 160px runs: at the script's defaults,
 # focal_iou from scratch saturates to empty masks on both packages), with
-# the script's own regular augmentation and the letterbox cache, cut to 8
-# of its 40 epochs. The smoke holds the gate of `train_demo_e2e.py:214`
+# the script's own regular augmentation and the letterbox cache, cut to 4
+# of its 40 epochs (8 until PR 17's phases needed the time; the warmup is
+# 8 epochs either way, and val_dice passed 0.5 from the second epoch in
+# PR 16's and PR 17's runs). The smoke holds the gate of `train_demo_e2e.py:214`
 # (val_dice and holdout IoU > 0.5) and records the selection gap, which the
 # script adds with the ranking term (`:215-219`) and which closes only with
 # longer training (PERF.md §6).
-DEMO_ARGS = ["--model", "dinos", "--image-size", "160", "--epochs", "8",
+DEMO_ARGS = ["--model", "dinos", "--image-size", "160", "--epochs", "4",
              "--lr", "1e-4", "--head-lr-mult", "3", "--loss", "bce_iou_ssim",
              "--rank-weight", "1.0", "--cache"]
 
@@ -4358,7 +4379,7 @@ def demo_phase(results):
     scored; val_dice > 0.5 and holdout IoU > 0.5 must hold (the script's
     gate; the selection gap it adds with the ranking term is recorded).
     Cut from the script's defaults: ViT-S at 160^2 (not ViT-B at 224^2),
-    8 epochs (not 16), the recipe above, the letterbox cache."""
+    4 epochs (not 16), the recipe above, the letterbox cache."""
     import shutil
 
     from s3od_torch.training import demo_e2e
@@ -5119,6 +5140,824 @@ def parallel_factory_phase(results, pipe):
         f"{sharded['peak_gib']:.2f}")
 
 
+# ----------------------------------------------------------------------------
+# The last modules: teacher training, int8 residency, the converters and
+# the filter chain
+# ----------------------------------------------------------------------------
+
+TEACHER_ROOT = REPO / "build" / "chip_smoke_teacher"
+TEACHER_STEPS = 8
+# The teacher's step: ViT-L (24 blocks, taps 4, 11, 17, 23: 23 run, none
+# rematerialised), so each of K1-K5 and K8 runs once a block a step.
+TEACHER_BLOCKS = 23
+# The int8 MMDiT against the bf16 one it was quantized from: the JAX
+# test's bound on the velocity (`tests/test_quant.py:101`).
+INT8_VELOCITY_TOL = 5e-2
+
+
+def teacher_samples():
+    """Three image/mask pairs from the fixture pair, one per bucket: the
+    photo (480 x 640 -> 896 x 1152), the photo turned (-> 1152 x 896) and
+    its square centre (-> 1024^2). The names put the turned one in the
+    validation split (`dataset.val_split=0.34`, seed 42), so the CLI trains
+    on a non-square and the 1024^2 bucket."""
+    import numpy as np
+    from PIL import Image
+
+    image = np.array(Image.open(IMAGE).convert("RGB"))
+    mask = np.array(Image.open(MASK).convert("L"))
+    c0 = (image.shape[1] - image.shape[0]) // 2
+    sq = slice(c0, c0 + image.shape[0])
+    return [("p_land", image, mask),
+            ("q_tall", np.rot90(image), np.rot90(mask)),
+            ("r_square", image[:, sq], mask[:, sq])]
+
+
+def shadow_calls(kernel, plain, worst, n_out):
+    """`kernel`, and beside each of its calls `plain` on the same inputs:
+    the worst relative norm of each of the first `n_out` outputs over the
+    calls in `worst[i]`, the smallest norm of a reference output in
+    `worst["min_ref"]` (a zero cotangent would make the comparison
+    vacuous), and each call's (q shape, n_valid) in `worst["calls"]`."""
+    def call(*args):
+        got = kernel(*args)
+        ref = plain(*args)
+        for i in range(n_out):
+            worst[i] = max(worst.get(i, 0.0), rel_norm(got[i], ref[i]))
+            worst["min_ref"] = min(worst.get("min_ref", float("inf")),
+                                   float(ref[i].float().norm()))
+        worst.setdefault("calls", []).append(
+            (tuple(args[0].shape), int(args[-1])))
+        return got
+    return call
+
+
+def teacher_phase(results, pipe):
+    """Teacher training at `model/flux_teacher.yaml`'s width (ViT-L, 256
+    features, FLUX dim 768, concept maps), bf16, on features the port's
+    `feature_extraction.py` makes with the factory's models for three
+    fixture-made images: (a) the CLI `config_name=train_teacher` for one
+    epoch (two steps, the 1024^2 and a non-square bucket), its
+    checkpoint and export back through `convert.load_teacher` and
+    `SODTeacherPredictor` serving the export; (b) one step on the 896 x
+    1152 sample with every K3 and K8 call held against its plain version
+    (FLASH_NORM_TOL by relative norm), planted K3 o x 1.01 and K8 dk x
+    1.01 caught at that shape; (c) 8 steps on one fixed 1024^2 sample at
+    the recipe's learning rates (the loss must fall), launches a step,
+    step ms, peak GiB and the idle share."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from s3od_torch.configs import segmentation_config
+    from s3od_torch.convert import (load_teacher, save_native,
+                                    teacher_tree_from_state_dict)
+    from s3od_torch.datagen.feature_extraction import (FeatureStorage,
+                                                       FluxFeatureExtractor)
+    from s3od_torch.evaluation.teacher_predictor import SODTeacherPredictor
+    from s3od_torch.models.flux_teacher import FluxTeacherConfig, init_flux_teacher
+    from s3od_torch.ops import flash_attention as fa
+    from s3od_torch.training.checkpoint import restore_external
+    from s3od_torch.training.data import FluxFeatureDataset, collate_dicts
+    from s3od_torch.training.loss import LOSS_PRESETS, LossModule
+    from s3od_torch.training.optim import Optimizer
+    from s3od_torch.training.train import train, upload
+    from s3od_torch.training.train_step import teacher_forward, train_step
+
+    r = results["_teacher"] = {}
+    log("phase teacher: ViT-L FluxDPT (flux_dim 768, concept maps) bf16 on "
+        "features extracted by the factory's MMDiT + VAE")
+    subprocess.run(["rm", "-rf", str(TEACHER_ROOT)], check=True)
+    ds = TEACHER_ROOT / "DUTS-TR"
+    (ds / "images").mkdir(parents=True)
+    (ds / "masks").mkdir(parents=True)
+    storage = FeatureStorage(str(TEACHER_ROOT / "flux_features"))
+    extractor = FluxFeatureExtractor(pipe, pipe.vae)
+    t0 = time.perf_counter()
+    for stem, im, m in teacher_samples():
+        Image.fromarray(np.ascontiguousarray(im)).save(ds / "images" / f"{stem}.png")
+        Image.fromarray(np.ascontiguousarray(m)).save(ds / "masks" / f"{stem}.png")
+        feats, cmaps = extractor.extract(np.ascontiguousarray(im),
+                                         "a photograph", "object")
+        storage.save(f"DUTS-TR_{stem}", feats, cmaps)  # the prefix fallback
+    r["extract_s"] = time.perf_counter() - t0
+    log(f"  features for 3 images in {r['extract_s']:.2f} s "
+        f"(layer_0 {feats[0].shape}, maps {cmaps['category'].shape})")
+
+    # (a) the CLI
+    base = TEACHER_ROOT / "out"
+    args = ["config_name=train_teacher", "backend=1chip",
+            "dataset.paths=[DUTS-TR]", "dataset.val_split=0.34",
+            "dataset.test_datasets=[]", "backend.max_epochs=1",
+            "backend.num_threads=4", f"data_dir={TEACHER_ROOT}",
+            f"base_dir={base}",
+            f"flux_features_dir={TEACHER_ROOT / 'flux_features'}"]
+    t0 = time.perf_counter()
+    metrics = train(args)
+    r["cli_s"] = time.perf_counter() - t0
+    log(f"  CLI: one epoch in {r['cli_s']:.1f} s: loss "
+        f"{metrics['train_loss']:.4f} val_loss {metrics['val_loss']:.4f}")
+    check(all(np.isfinite(metrics[k]) for k in ("train_loss", "val_loss")),
+          "teacher CLI: finite losses")
+    run = only_run(base)
+    exported = load_teacher(str(run / "s3od_final.npz"))
+    check(exported.cfg.base.encoder.hidden_size == 1024
+          and exported.cfg.flux_dim == 768, "teacher export: ViT-L, 768")
+    sd = restore_external(str(run / "last"))[0]["model"]
+    keys_equal = set(sd) == set(exported.state_dict())
+    p, s = teacher_tree_from_state_dict(sd)
+    save_native(str(TEACHER_ROOT / "ckpt.npz"), p, s)
+    back = load_teacher(str(TEACHER_ROOT / "ckpt.npz"))
+    same = all(torch.equal(v, back.state_dict()[k])
+               for k, v in exported.state_dict().items()
+               if not k.endswith("num_batches_tracked"))
+    log(f"  checkpoint keys = export keys {keys_equal}; checkpoint through "
+        f"load_teacher equals the export {same}")
+    check(keys_equal and same, "teacher checkpoint and export disagree")
+    del exported, back, sd, p, s
+    photo = np.array(Image.open(IMAGE).convert("RGB"))
+    tpred = SODTeacherPredictor(str(run / "s3od_final.npz"), pipeline=pipe,
+                                vae=pipe.vae)
+    res = tpred.predict(photo, "a photograph", "object")
+    log(f"  SODTeacherPredictor on the trained export: mask "
+        f"{res.soft_mask.shape}, ious {np.round(res.all_ious, 4)}")
+    check(res.soft_mask.shape == photo.shape[:2]
+          and np.isfinite(res.soft_mask).all(), "teacher predictor: mask")
+    del tpred
+    torch.cuda.empty_cache()
+
+    # (b) the non-square bucket on fresh weights, every K3 and K8 call
+    # against its plain version; (c) the steps on one fixed 1024^2 sample
+    ds_all = FluxFeatureDataset(str(ds), 1024, "train", 0.0,
+                                flux_features_dir=str(TEACHER_ROOT / "flux_features"))
+    by_stem = {Path(f).stem: i for i, f in enumerate(ds_all.files)}
+    dev = torch.device("cuda")
+
+    def batch_of(stem):
+        return upload(collate_dicts([ds_all.load(by_stem[stem])]), dev)
+
+    tcfg = FluxTeacherConfig(base=segmentation_config("dinov3_large"))
+    model = init_flux_teacher(tcfg, torch.Generator().manual_seed(15)).cuda()
+    # the recipe's AdamW (optimizer/adamw.yaml: 1e-5, the head at 10x)
+    opt = Optimizer(model, 1e-5, head_lr_mult=10.0, steps_per_epoch=100)
+    loss_module = LossModule(LOSS_PRESETS["focal_iou"])
+    state = {"step": 0}
+
+    def step(batch):
+        out = train_step(model, opt, loss_module, batch, 0, state["step"],
+                         generator=torch.Generator().manual_seed(state["step"]),
+                         compute_dtype=torch.bfloat16, forward=teacher_forward)
+        state["step"] += 1
+        return out
+
+    land = batch_of("p_land")
+    check(tuple(land["images"].shape[1:3]) == (896, 1152),
+          f"non-square bucket {tuple(land['images'].shape)}")
+    k3_worst, k8_worst = {}, {}
+    with standing_in(fa, "flash_attention", shadow_calls(
+            fa.flash_attention, fa.flash_attention_plain, k3_worst, 1)), \
+            standing_in(fa, "flash_attention_bwd", shadow_calls(
+                fa.flash_attention_bwd, fa.flash_attention_bwd_plain,
+                k8_worst, 3)):
+        loss = float(step(land)["loss"])
+    shapes = sorted(set(k3_worst.pop("calls")))
+    k8_calls = k8_worst.pop("calls")
+    k8_min_ref = k8_worst.pop("min_ref")
+    k3_worst.pop("min_ref")
+    log(f"  896 x 1152 step (loss {loss:.4f}): K3 calls {len(shapes)} shape(s) "
+        f"{shapes} (q shape, n_valid), {len(k8_calls)} K8 calls; worst rel. "
+        f"norm K3 o {k3_worst[0]:.3e}, K8 dq {k8_worst[0]:.3e} dk "
+        f"{k8_worst[1]:.3e} dv {k8_worst[2]:.3e} (<= {FLASH_NORM_TOL}); the "
+        f"smallest K8 reference norm {k8_min_ref:.3e}")
+    r["non_square"] = {"k3_calls": shapes, "k3_o": k3_worst[0],
+                       "k8": [k8_worst[i] for i in range(3)],
+                       "k8_min_ref_norm": k8_min_ref}
+    check(shapes == [((16, 4096, 64), 4037)],
+          f"K3 at the 56 x 72 grid: {shapes}")
+    check(len(k8_calls) == TEACHER_BLOCKS and k8_min_ref > 0,
+          "K8 calls in the non-square step, with nonzero gradients")
+    check(k3_worst[0] <= FLASH_NORM_TOL and max(k8_worst.values())
+          <= FLASH_NORM_TOL, "teacher shapes: K3 / K8 against plain")
+
+    square = batch_of("r_square")
+    losses = []
+    for i in range(TEACHER_STEPS):
+        if i == 1:
+            reset_counts()
+        losses.append(float(step(square)["loss"]))
+        if i == 1:
+            counts, k8 = launch_counts(), k8_launches()
+            log(f"  launches in one step: {counts}, K8 {k8}")
+            r["launches_per_step"] = dict(counts, K8=k8)
+            for name, cnt in counts.items():
+                check(cnt == TEACHER_BLOCKS, f"teacher step: {name} launched "
+                      f"{cnt}, want {TEACHER_BLOCKS}")
+            check(k8 == TEACHER_BLOCKS, f"teacher step: K8 launched {k8}")
+    log("  losses over 8 steps: " + " ".join(f"{v:.4f}" for v in losses))
+    check(all(np.isfinite(losses)), "teacher losses finite")
+    check(losses[-1] < losses[0], "the teacher's loss falls on a fixed sample")
+    r["losses_8_steps"] = losses
+    r["step_ms"] = cuda_ms(lambda: step(square), iters=5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_gib = torch.cuda.memory_allocated() / 2**30
+    step(square)
+    torch.cuda.synchronize()
+    r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    r["resident_before_step_gib"] = base_gib
+    rows = kernel_breakdown(lambda: step(square), iters=1)
+    busy = sum(ms for _, ms, _ in rows)
+    r.update(busy_ms=busy, idle_share=1 - busy / r["step_ms"],
+             top=[(k[:60], ms, c) for k, ms, c in rows[:8]])
+    log(f"  step {r['step_ms']:.2f} ms (CUDA events, median of 5), peak "
+        f"{r['peak_gib']:.2f} GiB ({base_gib:.2f} GiB allocated before the "
+        f"step: the factory's MMDiT, T5, CLIP and VAE, the teacher and its "
+        f"AdamW state), device busy {busy:.2f} ms, idle "
+        f"{100 * r['idle_share']:.1f}%")
+    for key, ms, count in rows[:8]:
+        log(f"    {ms:8.3f} ms x{count:3d}  {key[:100]}")
+
+    # the planted faults at the same shape
+    q, k, v = (torch.randn(16, 4096, 64, device=dev, dtype=torch.bfloat16)
+               * s_ for s_ in (0.125, 1.0, 1.0))
+    got = fa.flash_attention(q, k, v, 4037)
+    ref = fa.flash_attention_plain(q, k, v, 4037)
+    compare("K3_flash_attention", got, ref, results, lse=1,
+            norm_tol=FLASH_NORM_TOL)
+    planted_o("K3_flash_attention", got, ref)
+    g = torch.randn_like(q)
+    g[:, 4037:] = 0
+    grads = fa.flash_attention_bwd(q, k, v, *got, g, 4037)
+    grads_ref = fa.flash_attention_bwd_plain(q, k, v, *got, g, 4037)
+    compare("K8_flash_attention_bwd", grads, grads_ref, results,
+            norm_tol=FLASH_NORM_TOL)
+    try:
+        compare("K8 (planted dk x 1.01)", [grads[0], grads[1] * 1.01, grads[2]],
+                grads_ref, {}, norm_tol=FLASH_NORM_TOL)
+        caught = False
+    except RuntimeError as err:
+        log(f"  planted dk x 1.01 caught: {err}")
+        caught = True
+    check(caught, "K8 at the teacher's shape: the planted dk x 1.01 went "
+          "unnoticed")
+    del model, opt, square, land
+    subprocess.run(["rm", "-rf", str(TEACHER_ROOT)], check=True)
+    torch.cuda.empty_cache()
+
+
+def int8_phase(results, pipe):
+    """Int8 weight residency on the full-depth FLUX.1-dev MMDiT: (a)
+    `init_mmdit(int8_weights=True)`: resident GiB, one plain and one
+    concept step at 1024^2 (K7 57 and 76), ms and peak beside the bf16
+    model's; (b) `quantize_mmdit` of the factory's bf16 model: its
+    concept step's velocity against the bf16 step's (INT8_VELOCITY_TOL)."""
+    import types
+
+    import torch
+
+    from s3od_torch.models.mmdit import QuantLinear, init_mmdit, quantize_mmdit
+
+    r = results["_int8"] = {}
+    log("phase int8: the FLUX.1-dev MMDiT with int8-resident linears, 1024^2")
+    cfg = pipe.cfg
+    per_step = cfg.num_dual_blocks + cfg.num_single_blocks
+    inp = step_inputs(pipe, 1024, 1024)
+    bf16 = factory_step_run(pipe, inp)
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    m8 = init_mmdit(cfg, torch.Generator(device="cuda").manual_seed(21),
+                    dtype=torch.bfloat16, int8_weights=True)
+    torch.cuda.synchronize()
+    resident = (torch.cuda.memory_allocated() - before) / 2**30
+    n_q = sum(isinstance(m, QuantLinear) for m in m8.modules())
+    resident_bf16 = sum(t.numel() * t.element_size() for t in
+                        pipe.model.parameters()) / 2**30
+    int8 = factory_step_run(types.SimpleNamespace(model=m8), inp)
+    log(f"  init_mmdit(int8_weights=True): {n_q} int8 linears, resident "
+        f"{resident:.2f} GiB (bf16 model {resident_bf16:.2f} GiB); steps: "
+        f"plain {int8['plain']['ms']:.2f} ms (bf16 {bf16['plain']['ms']:.2f}), "
+        f"concept {int8['concept']['ms']:.2f} ms (bf16 "
+        f"{bf16['concept']['ms']:.2f}); K7 {int8['plain']['launches']} / "
+        f"{int8['concept']['launches']}; peak {int8['peak_gib']:.2f} GiB "
+        f"(bf16 run {bf16['peak_gib']:.2f}, both with the factory's models "
+        f"resident)")
+    check(int8["plain"]["launches"] == per_step
+          and int8["concept"]["launches"] == per_step + cfg.num_dual_blocks,
+          f"int8 step: K7 launches {int8['plain']['launches']} / "
+          f"{int8['concept']['launches']}")
+    check(torch.isfinite(int8["concept"]["velocity"]).all(), "int8: finite")
+    r.update(int8_linears=n_q, resident_gib=resident,
+             resident_bf16_gib=resident_bf16,
+             step_ms={k: int8[k]["ms"] for k in ("plain", "concept")},
+             step_ms_bf16={k: bf16[k]["ms"] for k in ("plain", "concept")},
+             peak_gib=int8["peak_gib"], peak_gib_bf16=bf16["peak_gib"],
+             k7=(int8["plain"]["launches"], int8["concept"]["launches"]))
+    del m8, int8
+    torch.cuda.empty_cache()
+    mq = quantize_mmdit(pipe.model)
+    quant = factory_step_run(types.SimpleNamespace(model=mq), inp)
+    err = rel_norm(quant["concept"]["velocity"], bf16["concept"]["velocity"])
+    err_p = rel_norm(quant["plain"]["velocity"], bf16["plain"]["velocity"])
+    log(f"  quantize_mmdit(factory model): velocity rel. norm vs bf16: "
+        f"concept {err:.3e}, plain {err_p:.3e} (<= {INT8_VELOCITY_TOL}); "
+        f"steps {quant['plain']['ms']:.2f} / {quant['concept']['ms']:.2f} ms")
+    r.update(velocity_rel_norm={"plain": err_p, "concept": err},
+             quantized_step_ms={k: quant[k]["ms"] for k in ("plain", "concept")})
+    check(max(err, err_p) <= INT8_VELOCITY_TOL, "int8 velocity vs bf16")
+    del mq, quant, bf16
+    torch.cuda.empty_cache()
+
+
+CONVERT_ROOT = REPO / "build" / "chip_smoke_convert"
+
+
+def module_tree(module):
+    """A module's tensors as its JAX-path tree without copies: `weight`
+    (out, in) becomes `kernel` as the transposed view (the layout of
+    `convert.state_dict_to_tree`, kept on the module's device and dtype)."""
+    tree: dict = {}
+    for name, t in module.state_dict().items():
+        parts = name.split(".")
+        if parts[-1] == "weight" and t.dim() == 2:
+            parts[-1], t = "kernel", t.t()
+        node = tree
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = t
+    lists = lambda n: ([lists(n[str(i)]) for i in range(len(n))]
+                       if isinstance(n, dict) and n and all(
+                           k.isdigit() for k in n)
+                       else {k: lists(v) for k, v in n.items()}
+                       if isinstance(n, dict) else n)
+    return lists(tree)
+
+
+def diffusers_transformer_sd(tree):
+    """An MMDiT tree (`module_tree`, torch leaves) -> the diffusers
+    `FluxTransformer2DModel` state dict on the host:
+    `convert_flux_transformer` read backwards (q, k, v split out of the
+    fused qkv, `norm_out` back to [scale, shift])."""
+    import torch
+
+    sd = {}
+
+    def lin(name, p):
+        sd[f"{name}.weight"] = p["kernel"].T
+        if "bias" in p:
+            sd[f"{name}.bias"] = p["bias"]
+
+    def qkv(names, p):
+        d = p["kernel"].shape[1] // 3
+        for i, name in enumerate(names):
+            lin(name, {"kernel": p["kernel"][:, i * d:(i + 1) * d],
+                       "bias": p["bias"][i * d:(i + 1) * d]})
+
+    def norms(pre, p, q, k):
+        sd[f"{pre}.{q}.weight"], sd[f"{pre}.{k}.weight"] = p["q"], p["k"]
+
+    tte = "time_text_embed"
+    lin("x_embedder", tree["img_in"])
+    lin("context_embedder", tree["txt_in"])
+    for src, dst in (("time_in", "timestep_embedder"),
+                     ("guidance_in", "guidance_embedder"),
+                     ("vector_in", "text_embedder")):
+        lin(f"{tte}.{dst}.linear_1", tree[src]["fc1"])
+        lin(f"{tte}.{dst}.linear_2", tree[src]["fc2"])
+    for i, b in enumerate(tree["dual_blocks"]):
+        a = f"transformer_blocks.{i}"
+        lin(f"{a}.norm1.linear", b["img_mod"])
+        lin(f"{a}.norm1_context.linear", b["txt_mod"])
+        qkv([f"{a}.attn.to_{x}" for x in "qkv"], b["img_attn"]["qkv"])
+        qkv([f"{a}.attn.add_{x}_proj" for x in "qkv"], b["txt_attn"]["qkv"])
+        lin(f"{a}.attn.to_out.0", b["img_attn"]["proj"])
+        lin(f"{a}.attn.to_add_out", b["txt_attn"]["proj"])
+        norms(f"{a}.attn", b["img_attn"]["qk_norm"], "norm_q", "norm_k")
+        norms(f"{a}.attn", b["txt_attn"]["qk_norm"], "norm_added_q",
+              "norm_added_k")
+        lin(f"{a}.ff.net.0.proj", b["img_mlp"]["fc1"])
+        lin(f"{a}.ff.net.2", b["img_mlp"]["fc2"])
+        lin(f"{a}.ff_context.net.0.proj", b["txt_mlp"]["fc1"])
+        lin(f"{a}.ff_context.net.2", b["txt_mlp"]["fc2"])
+    for i, b in enumerate(tree["single_blocks"]):
+        a = f"single_transformer_blocks.{i}"
+        lin(f"{a}.norm.linear", b["mod"])
+        qkv([f"{a}.attn.to_{x}" for x in "qkv"], b["qkv"])
+        norms(f"{a}.attn", b["qk_norm"], "norm_q", "norm_k")
+        lin(f"{a}.proj_mlp", b["mlp_in"])
+        lin(f"{a}.proj_out", b["proj_out"])
+    fm = tree["final_mod"]
+    d = fm["kernel"].shape[1] // 2
+    lin("norm_out.linear", {
+        "kernel": torch.cat([fm["kernel"][:, d:], fm["kernel"][:, :d]], 1),
+        "bias": torch.cat([fm["bias"][d:], fm["bias"][:d]])})
+    lin("proj_out", tree["proj_out"])
+    return {k: v.contiguous().cpu() for k, v in sd.items()}
+
+
+def diffusers_vae_sd(enc, dec, dtype):
+    """The VAE's (enc, dec) trees -> the diffusers `AutoencoderKL` state
+    dict in `dtype`: `convert_diffusers_vae` read backwards."""
+    import numpy as np
+    import torch
+
+    sd = {}
+
+    def conv(name, p):
+        sd[f"{name}.weight"] = p["kernel"].transpose(3, 2, 0, 1)
+        if "bias" in p:
+            sd[f"{name}.bias"] = p["bias"]
+
+    def gn(name, p):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = p["weight"], p["bias"]
+
+    def lin(name, p):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = p["kernel"].T, p["bias"]
+
+    def res(name, p):
+        gn(f"{name}.norm1", p["norm1"])
+        conv(f"{name}.conv1", p["conv1"])
+        gn(f"{name}.norm2", p["norm2"])
+        conv(f"{name}.conv2", p["conv2"])
+        if "shortcut" in p:
+            conv(f"{name}.conv_shortcut", p["shortcut"])
+
+    def mid(side, p):
+        res(f"{side}.mid_block.resnets.0", p["res1"])
+        res(f"{side}.mid_block.resnets.1", p["res2"])
+        a = f"{side}.mid_block.attentions.0"
+        gn(f"{a}.group_norm", p["attn"]["norm"])
+        for x in "qkv":
+            lin(f"{a}.to_{x}", p["attn"][x])
+        lin(f"{a}.to_out.0", p["attn"]["proj"])
+
+    for side, tree, blocks, key in (("encoder", enc, "down_blocks", "down"),
+                                    ("decoder", dec, "up_blocks", "up")):
+        conv(f"{side}.conv_in", tree["conv_in"])
+        mid(side, tree["mid"])
+        for i, stage in enumerate(tree[key]):
+            for j, p in enumerate(stage["resnets"]):
+                res(f"{side}.{blocks}.{i}.resnets.{j}", p)
+            for sample, sub in (("downsample", "downsamplers"),
+                                ("upsample", "upsamplers")):
+                if sample in stage:
+                    conv(f"{side}.{blocks}.{i}.{sub}.0.conv", stage[sample])
+        gn(f"{side}.conv_norm_out", tree["norm_out"])
+        conv(f"{side}.conv_out", tree["conv_out"])
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dtype)
+            for k, v in sd.items()}
+
+
+def hf_text_dirs(root: Path, t5, clip):
+    """Seeded T5 and CLIP text encoders written as `save_pretrained`
+    directories (config.json + model.safetensors in the encoders' dtype):
+    the transformers key layout `convert_t5_encoder` / `convert_clip_text`
+    read."""
+    import json as json_
+
+    from safetensors.torch import save_file
+
+    from s3od_torch.convert import state_dict_to_tree
+
+    t = state_dict_to_tree(t5.state_dict())
+    sd = {"shared.weight": t["embedding"],
+          "encoder.final_layer_norm.weight": t["final_layer_norm"]}
+    for i, layer in enumerate(t["layers"]):
+        pre, a, f = f"encoder.block.{i}.layer", layer["attention"], layer["ff"]
+        sd[f"{pre}.0.layer_norm.weight"] = a["layer_norm"]
+        for x in "qkvo":
+            sd[f"{pre}.0.SelfAttention.{x}.weight"] = a[x]["kernel"].T
+        if i == 0:
+            sd[f"{pre}.0.SelfAttention.relative_attention_bias.weight"] = \
+                a["relative_attention_bias"]
+        sd[f"{pre}.1.layer_norm.weight"] = f["layer_norm"]
+        for x in ("wi_0", "wi_1", "wo"):
+            sd[f"{pre}.1.DenseReluDense.{x}.weight"] = f[x]["kernel"].T
+    c = t5.cfg
+    t5_cfg = {"model_type": "t5", "architectures": ["T5EncoderModel"],
+              "vocab_size": c.vocab_size, "d_model": c.d_model,
+              "d_kv": c.d_kv, "d_ff": c.d_ff, "num_layers": c.num_layers,
+              "num_heads": c.num_heads,
+              "relative_attention_num_buckets":
+                  c.relative_attention_num_buckets,
+              "relative_attention_max_distance":
+                  c.relative_attention_max_distance,
+              "layer_norm_epsilon": c.layer_norm_epsilon,
+              "feed_forward_proj": "gated-gelu", "dropout_rate": 0.0,
+              "tie_word_embeddings": False}
+    t = state_dict_to_tree(clip.state_dict())
+    tm = "text_model"
+    csd = {f"{tm}.embeddings.token_embedding.weight": t["token_embedding"],
+           f"{tm}.embeddings.position_embedding.weight": t["position_embedding"],
+           f"{tm}.final_layer_norm.weight": t["final_layer_norm"]["weight"],
+           f"{tm}.final_layer_norm.bias": t["final_layer_norm"]["bias"]}
+    for i, layer in enumerate(t["layers"]):
+        pre = f"{tm}.encoder.layers.{i}"
+        for src, dst in (("ln1", "layer_norm1"), ("ln2", "layer_norm2")):
+            csd[f"{pre}.{dst}.weight"] = layer[src]["weight"]
+            csd[f"{pre}.{dst}.bias"] = layer[src]["bias"]
+        for src, dst in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"),
+                         ("out", "out_proj")):
+            csd[f"{pre}.self_attn.{dst}.weight"] = layer["attn"][src]["kernel"].T
+            csd[f"{pre}.self_attn.{dst}.bias"] = layer["attn"][src]["bias"]
+        for x in ("fc1", "fc2"):
+            csd[f"{pre}.mlp.{x}.weight"] = layer["mlp"][x]["kernel"].T
+            csd[f"{pre}.mlp.{x}.bias"] = layer["mlp"][x]["bias"]
+    c = clip.cfg
+    clip_cfg = {"model_type": "clip_text_model",
+                "architectures": ["CLIPTextModel"],
+                "vocab_size": c.vocab_size, "hidden_size": c.hidden_size,
+                "intermediate_size": c.intermediate_size,
+                "num_hidden_layers": c.num_layers,
+                "num_attention_heads": c.num_heads,
+                "max_position_embeddings": c.max_position_embeddings,
+                "layer_norm_eps": c.layer_norm_eps, "hidden_act": "quick_gelu",
+                "eos_token_id": c.vocab_size - 1,
+                "bos_token_id": c.vocab_size - 2, "attention_dropout": 0.0}
+    import numpy as np
+    import torch
+
+    for name, sd_, cfg_, mod in (("t5", sd, t5_cfg, t5),
+                                 ("clip", csd, clip_cfg, clip)):
+        d = root / name
+        d.mkdir(parents=True)
+        (d / "config.json").write_text(json_.dumps(cfg_))
+        dt = next(mod.parameters()).dtype
+        save_file({k: torch.from_numpy(np.ascontiguousarray(v)).to(dt)
+                   for k, v in sd_.items()}, str(d / "model.safetensors"))
+    return root / "t5", root / "clip"
+
+
+def converters_phase(results, pipe):
+    """The converters on seeded weights in the source layouts, each output
+    loaded back and run on the card against its source, bit for bit:
+    (a) the MMDiT at full width cut to 2 dual + 4 single blocks (the full
+    depth is 47.6 GB in fp32 on the host) and the FLUX VAE at full size,
+    written as diffusers `.safetensors` (bf16), through
+    `python -m s3od_torch.datagen.convert_flux`; (b) T5-XXL and CLIP-L at
+    full width and 2 layers as `save_pretrained` directories through
+    `python -m s3od_torch.datagen.convert_text_encoders --verify` (against
+    transformers, when the host has it). The two CLIs run side by side."""
+    import dataclasses
+    import os
+
+    import torch
+    from safetensors.torch import save_file
+
+    from s3od_torch.convert import (load_clip_text, load_mmdit, load_t5,
+                                    load_vae_modules, state_dict_to_tree)
+    from s3od_torch.models.mmdit import MMDiT
+    from s3od_torch.models.text_encoders import (CLIPTextConfig, T5Config,
+                                                 init_clip_text, init_t5)
+
+    r = results["_converters"] = {}
+    log("phase converters: diffusers FLUX (2 + 4 blocks, full width) + VAE, "
+        "T5-XXL and CLIP-L (2 layers, full width) -> .npz -> the card")
+    subprocess.run(["rm", "-rf", str(CONVERT_ROOT)], check=True)
+    CONVERT_ROOT.mkdir(parents=True)
+    t0 = time.perf_counter()
+    cut = dataclasses.replace(pipe.cfg, num_dual_blocks=2, num_single_blocks=4,
+                              feature_taps=(0, 1, 2, 3))
+    m16 = MMDiT(cut, device="meta", dtype=torch.bfloat16).to_empty(device="cuda")
+    src = pipe.model.state_dict()
+    with torch.no_grad():
+        for name, p in m16.state_dict().items():
+            p.copy_(src[name])
+    save_file(diffusers_transformer_sd(module_tree(m16)),
+              str(CONVERT_ROOT / "transformer.safetensors"))
+    vae = pipe.vae
+    vdt = next(vae.dec.parameters()).dtype
+    save_file(diffusers_vae_sd(state_dict_to_tree(vae.enc.state_dict()),
+                               state_dict_to_tree(vae.dec.state_dict()), vdt),
+              str(CONVERT_ROOT / "vae.safetensors"))
+    r["write_flux_s"] = time.perf_counter() - t0
+    gen = lambda s: torch.Generator(device="cuda").manual_seed(s)
+    # bf16 weights (as the checkpoints ship), run in float32
+    t5 = init_t5(dataclasses.replace(T5Config(), num_layers=2), gen(31),
+                 dtype=torch.bfloat16)
+    clip = init_clip_text(dataclasses.replace(CLIPTextConfig(), num_layers=2),
+                          gen(32), dtype=torch.bfloat16)
+    t5_dir, clip_dir = hf_text_dirs(CONVERT_ROOT / "hf", t5, clip)
+    r["write_s"] = time.perf_counter() - t0
+    out = CONVERT_ROOT / "npz"
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    procs = [subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in (
+        [sys.executable, "-m", "s3od_torch.datagen.convert_flux",
+         "--transformer", str(CONVERT_ROOT / "transformer.safetensors"),
+         "--vae", str(CONVERT_ROOT / "vae.safetensors"),
+         "--out_transformer", str(out / "flux_mmdit.npz"),
+         "--out_vae", str(out / "flux_vae.npz")],
+        [sys.executable, "-m", "s3od_torch.datagen.convert_text_encoders",
+         "--t5", str(t5_dir), "--clip", str(clip_dir), "--out-dir", str(out),
+         "--verify"])]
+    out.mkdir()
+    texts = []
+    for p in procs:
+        text, _ = p.communicate(timeout=300)
+        texts.append(text)
+        log("  " + text.strip().replace("\n", "\n  ")[-1500:])
+        check(p.returncode == 0, f"converter CLI exit {p.returncode}")
+    r["convert_s"] = time.perf_counter() - t0
+    r["bytes"] = {str(f.relative_to(CONVERT_ROOT)): f.stat().st_size
+                  for f in sorted(CONVERT_ROOT.rglob("*")) if f.is_file()}
+    r["verify"] = [line for t in texts for line in t.splitlines()
+                   if "verify" in line]
+
+    t0 = time.perf_counter()
+    inp = dict(step_inputs(pipe, 1024, 1024), concept_layers=None)
+    conv = load_mmdit(str(out / "flux_mmdit.npz"), cut, device="cuda",
+                      dtype=torch.bfloat16)
+    r["load_mmdit_s"] = time.perf_counter() - t0
+    with torch.inference_mode():
+        a, b = m16(**inp), conv(**inp)
+    same_mmdit = (torch.equal(a["output"], b["output"])
+                  and all(torch.equal(x, y) for x, y in zip(a["features"],
+                                                             b["features"]))
+                  and torch.equal(a["concept_maps"], b["concept_maps"]))
+    del m16, conv, a, b
+    enc, dec, _ = load_vae_modules(str(out / "flux_vae.npz"))
+    enc, dec = (m.to("cuda", vdt) for m in (enc, dec))
+    g = gen(33)  # the inputs in the VAE's compute dtype, as `VAE` runs it
+    lat = torch.randn(1, 64, 64, 16, generator=g, device="cuda").to(vae.dtype)
+    img = (torch.rand(1, 512, 512, 3, generator=g, device="cuda") * 2
+           - 1).to(vae.dtype)
+    with torch.inference_mode():
+        same_vae = (torch.equal(dec(lat), vae.dec(lat))
+                    and torch.equal(enc(img), vae.enc(img)))
+    del enc, dec
+    ids = torch.randint(0, 32000, (1, 64), generator=g, device="cuda")
+    cids = torch.randint(0, 49407, (1, 77), generator=g, device="cuda")
+    cids[0, 20] = 49407
+    # in bf16, as `TorchTextEncoders` casts and runs them
+    bf = torch.bfloat16
+    t5c, clipc = (load_t5(str(out / "t5_encoder.npz")).to("cuda", bf),
+                  load_clip_text(str(out / "clip_text.npz")).to("cuda", bf))
+    with torch.inference_mode():
+        same_t5 = torch.equal(t5c(ids, compute_dtype=bf),
+                              t5(ids, compute_dtype=bf))
+        same_clip = all(torch.equal(x, y) for x, y in zip(
+            clipc(cids, compute_dtype=bf), clip(cids, compute_dtype=bf)))
+    r["check_s"] = time.perf_counter() - t0
+    r["bit_equal"] = {"mmdit_2_4": same_mmdit, "vae": same_vae,
+                      "t5_2_layers": same_t5, "clip_2_layers": same_clip}
+    log(f"  written in {r['write_s']:.1f} s (the MMDiT and VAE "
+        f"{r['write_flux_s']:.1f}), converted in {r['convert_s']:.1f} s (two "
+        f"CLIs side by side), checked in {r['check_s']:.1f} s (load_mmdit "
+        f"{r['load_mmdit_s']:.1f}); bytes {r['bytes']}")
+    log(f"  converted vs source, bit-equal: {r['bit_equal']}")
+    check(all(r["bit_equal"].values()), f"converters: {r['bit_equal']}")
+    del t5, clip, t5c, clipc
+    subprocess.run(["rm", "-rf", str(CONVERT_ROOT)], check=True)
+    torch.cuda.empty_cache()
+
+
+FILTER_ROOT = REPO / "build" / "chip_smoke_filter"
+FILTER_SAMPLES = 16  # a class
+
+
+def write_filter_set(root: Path):
+    """Two classes of FILTER_SAMPLES image/mask pairs from the fixture pair
+    (flips and cyclic shifts; every fourth mask inverted, every fifth
+    fragmented into squares): what `generate_train_images` writes,
+    organised by class."""
+    import numpy as np
+    from PIL import Image
+
+    image = np.array(Image.open(IMAGE).convert("RGB"))
+    mask = np.array(Image.open(MASK).convert("L"))
+    h, w = mask.shape
+    frag = np.zeros_like(mask)
+    for y in range(8, h - 8, 40):
+        for x in range(8, w - 8, 40):
+            frag[y: y + 12, x: x + 12] = 255
+    for c, cls in enumerate(("tabby_cat", "golden_retriever")):
+        (root / cls / "images").mkdir(parents=True)
+        (root / cls / "masks").mkdir(parents=True)
+        for i in range(FILTER_SAMPLES):
+            im, m = image, mask
+            if (i + c) % 2:
+                im, m = im[:, ::-1], m[:, ::-1]
+            shift = ((i * 7) % 16, (i * 11) % 16)  # small: the tiny
+            # checkpoint still finds the object
+            im, m = np.roll(im, shift, (0, 1)), np.roll(m, shift, (0, 1))
+            if i % 4 == 3:
+                m = 255 - m
+            if i % 5 == 4:
+                m = frag
+            Image.fromarray(np.ascontiguousarray(im)).save(
+                root / cls / "images" / f"{i:04d}.jpg", quality=95)
+            Image.fromarray(np.ascontiguousarray(m)).save(
+                root / cls / "masks" / f"{i:04d}.png")
+
+
+def filtering_phase(results):
+    """`run_filtering` over a class-organised set from fixture variants:
+    (a) the chain flip_consistency -> semantic_quality -> mask_artifacts on
+    the seeded ViT-B at 840^2, batch 8 (a forward of 16 images): the K1-K5
+    launches per chunk, and the filter's samples/s warm beside its device
+    forward; (b) the same chain on the tiny
+    fixture checkpoint (128 canvas, bf16 kernels, D = 32) against a CPU
+    run in float32: the same verdicts, sample by sample."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from s3od_torch.convert import convert_state_dict, save_native
+    from s3od_torch.datagen import filtering, run_filtering
+    from s3od_torch.datagen.filters import HorizontalFlipConsistencyFilter
+
+    r = results["_filtering"] = {}
+    log("phase filtering: run_filtering flip_consistency -> semantic_quality "
+        "-> mask_artifacts (the VLM filters on their heuristics)")
+    subprocess.run(["rm", "-rf", str(FILTER_ROOT)], check=True)
+    write_filter_set(FILTER_ROOT / "set")
+    vit_b = FILTER_ROOT / "vit_b.npz"
+    params, state, _ = convert_state_dict(
+        {k: v.cpu() for k, v in vit_b_model(4).state_dict().items()})
+    save_native(str(vit_b), params, state)
+    n = 2 * FILTER_SAMPLES
+
+    def run(tag, model, size, device, batch=8):
+        cfg = {"input_dir": str(FILTER_ROOT / "set"),
+               "output_dir": str(FILTER_ROOT / tag / "out"),
+               "failed_dir": str(FILTER_ROOT / tag / "failed"),
+               "filters": [{"type": "flip_consistency", "model_path": str(model),
+                            "image_size": size, "batch_size": batch,
+                            "device": device},
+                           {"type": "semantic_quality",
+                            "model_id": str(FILTER_ROOT / "no_vlm"),
+                            "device": device},
+                           {"type": "mask_artifacts",
+                            "model_id": str(FILTER_ROOT / "no_vlm"),
+                            "device": device}]}
+        path = FILTER_ROOT / f"{tag}.yaml"
+        path.write_text(yaml.safe_dump(cfg))
+        seen = []
+        real = filtering.BaseFilter.record
+
+        def record(self, res, _seen=seen):
+            _seen.extend((self.name, x.passed, x.reason) for x in res)
+            return real(self, res)
+
+        filtering.BaseFilter.record = record
+        try:
+            t0 = time.perf_counter()
+            stats = run_filtering.main(["--config", str(path)])
+            wall = time.perf_counter() - t0
+        finally:
+            filtering.BaseFilter.record = real
+        return stats, seen, wall
+
+    # (a) the seeded ViT-B at 840^2 through the CLI (its predictor loads
+    # inside the run), then the filter alone, loaded and warm: host clock
+    # per chunk beside the device forward of its 16 canvases
+    reset_counts()
+    stats, _, wall = run("vit_b", vit_b, 840, "cuda")
+    counts = launch_counts()
+    chunks = -(-n // 8)
+    for name, cnt in counts.items():
+        check(cnt == 11 * chunks, f"filter: {name} launched {cnt}, want "
+              f"{11 * chunks} (11 a forward)")
+    samples = filtering.DatasetLoader(str(FILTER_ROOT / "set")).load_samples()
+    flt = HorizontalFlipConsistencyFilter(str(vit_b), image_size=840)
+    flt.filter_batch(samples[:8])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(0, n, 8):
+        flt.filter_batch(samples[i: i + 8])
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    pred = flt.predictor
+    canv = np.stack([pred._letterbox(s.load_image())[0] for s in samples[:16]])
+    fwd_ms = cuda_ms(lambda: pred.predictor.forward_canvases(canv), iters=5)
+    log(f"  ViT-B 840^2, batch 8: run_filtering {n} samples in {wall:.2f} s "
+        f"(the predictor's load included), {chunks} forwards of 16 images, "
+        f"launches {counts}; stats {stats}; the filter warm: "
+        f"{n / warm:.2f} samples/s ({1e3 * warm / chunks:.1f} ms a chunk), "
+        f"of which the 16-image forward and read-back {fwd_ms:.2f} ms")
+    r.update(samples=n, cli_s=wall, samples_per_s_warm=n / warm,
+             chunk_ms=1e3 * warm / chunks, forward_16_ms=fwd_ms,
+             launches_per_chunk={k: v / chunks for k, v in counts.items()},
+             vit_b_stats=stats)
+    del flt, pred
+
+    # (b) the tiny checkpoint, card against CPU
+    tiny = REPO / "tests" / "fixture" / "tiny_s3od.npz"
+    s_card, v_card, _ = run("tiny_card", tiny, 128, "cuda")
+    s_cpu, v_cpu, _ = run("tiny_cpu", tiny, 128, "cpu")
+    same = v_card == v_cpu and s_card == s_cpu
+    log(f"  tiny checkpoint, 128 canvas: card (bf16) {s_card}; CPU (float32) "
+        f"verdicts equal: {same}")
+    r.update(tiny_card=s_card, tiny_cpu=s_cpu, verdicts_equal=same)
+    check(same, "filter verdicts: card against CPU")
+    check(s_card["kept"] > 0 and s_card["rejected"], "the chain kept some "
+          "samples and rejected some")
+    subprocess.run(["rm", "-rf", str(FILTER_ROOT)], check=True)
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -5168,6 +6007,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     timed(aot_phase, results)
     timed(tools_phase, results)
+    timed(filtering_phase, results)
     torch.cuda.empty_cache()
     timed(train_entry_phase, results)
     timed(train_step_phase, results)
@@ -5183,6 +6023,9 @@ def main(argv=None) -> int:
     timed(experiments_phase, results)
     torch.cuda.empty_cache()
     pipe = timed(factory_phase, results)
+    timed(teacher_phase, results, pipe)
+    timed(int8_phase, results, pipe)
+    timed(converters_phase, results, pipe)
     timed(lora_phase, results, pipe)
     timed(parallel_factory_phase, results, pipe)
     del pipe
@@ -5211,6 +6054,10 @@ def main(argv=None) -> int:
                     "augment": results["_augment"],
                     "demo": results["_demo"],
                     "factory": results["_factory"],
+                    "teacher": results["_teacher"],
+                    "int8": results["_int8"],
+                    "converters": results["_converters"],
+                    "filtering": results["_filtering"],
                     "lora": results["_lora"],
                     "parallel": results["_parallel"],
                     "experiments": results["_experiments"],

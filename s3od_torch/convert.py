@@ -543,38 +543,67 @@ def load_checkpoint(path) -> Tuple[Dict[str, torch.Tensor], SegmentationConfig]:
 # for a conv. Configurations may ride beside the weights in the `.npz`'s
 # state, as {"config": {field: value}}.
 
-_QUEUE_INT8 = ("int8 weight residency (`kernel_q` trees, s3od_tpu/ops/"
-               "quant.py) is not ported: ROADMAP Queue 1, item 10")
+# Int8 residency (`ops/quant.py`): a node's `kernel_q` (din, dout) int8 and
+# `kernel_scale` (dout,) fp32 are a `QuantLinear`'s `weight_q` (dout, din)
+# and `weight_scale`, kept in their dtypes.
+_QUANT_TO_SD = {"kernel_q": "weight_q", "kernel_scale": "weight_scale"}
+_SD_TO_QUANT = {v: k for k, v in _QUANT_TO_SD.items()}
 
 
 def tree_to_state_dict(tree) -> Dict[str, torch.Tensor]:
-    """A JAX param tree (numpy leaves) -> a state dict of float32 tensors."""
+    """A JAX param tree (numpy leaves) -> a state dict of float32 tensors
+    (int8 for a quantized kernel)."""
     sd = {}
     for key, arr in _flatten(tree).items():
         if key.endswith("#none"):
             continue
         parts = key.split("/")
-        if parts[-1] in ("kernel_q", "kernel_scale"):
-            raise NotImplementedError(_QUEUE_INT8)
-        arr = np.array(arr, dtype=np.float32)  # a writable copy
-        if parts[-1] == "kernel":
-            parts[-1] = "weight"
-            arr = arr.T if arr.ndim == 2 else arr.transpose(3, 2, 0, 1)
-        sd[".".join(parts)] = torch.from_numpy(np.ascontiguousarray(arr))
+        leaf = parts[-1]
+        parts[-1] = _QUANT_TO_SD.get(leaf, "weight" if leaf == "kernel"
+                                     else leaf)
+        arr = np.asarray(arr, np.int8 if leaf == "kernel_q" else np.float32)
+        if leaf in ("kernel", "kernel_q"):
+            # one writable copy in the torch layout
+            arr = np.ascontiguousarray(
+                arr.T if arr.ndim == 2 else arr.transpose(3, 2, 0, 1))
+        else:
+            arr = np.array(arr)  # a writable copy
+        sd[".".join(parts)] = torch.from_numpy(arr)
     return sd
 
 
 def state_dict_to_tree(sd: Dict[str, torch.Tensor]):
-    """Inverse of `tree_to_state_dict`: numpy float32 leaves."""
+    """Inverse of `tree_to_state_dict`: numpy float32 leaves (int8 for a
+    quantized kernel)."""
     flat = {}
     for name, t in sd.items():
-        arr = t.detach().float().cpu().numpy()
         parts = name.split(".")
-        if parts[-1] == "weight" and arr.ndim >= 2:
+        if parts[-1] == "weight_q":
+            arr = t.detach().cpu().numpy().T
+        else:
+            arr = t.detach().float().cpu().numpy()
+        if parts[-1] in _SD_TO_QUANT:
+            parts[-1] = _SD_TO_QUANT[parts[-1]]
+        elif parts[-1] == "weight" and arr.ndim >= 2:
             parts[-1] = "kernel"
             arr = arr.T if arr.ndim == 2 else arr.transpose(2, 3, 1, 0)
         flat["/".join(parts)] = np.ascontiguousarray(arr)
     return _unflatten(flat)
+
+
+def quantized_paths(tree, prefix: str = "") -> list:
+    """Module paths ('dual_blocks.0.img_attn.qkv', ...) of a tree's nodes
+    that hold `kernel_q`."""
+    out = []
+    if isinstance(tree, dict):
+        if "kernel_q" in tree:
+            out.append(prefix[:-1])
+        for k, v in tree.items():
+            out += quantized_paths(v, f"{prefix}{k}.")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out += quantized_paths(v, f"{prefix}{i}.")
+    return out
 
 
 def load_tree_(module: torch.nn.Module, tree) -> torch.nn.Module:
@@ -611,13 +640,16 @@ def save_factory_npz(path: str, module: torch.nn.Module, cfg) -> None:
 
 def load_mmdit(path: str, cfg=None, device=None, dtype=torch.float32):
     """MMDiT from a converted `.npz` (the JAX `init_mmdit_params` /
-    `convert_flux.py` tree), made in `dtype` on `device`."""
-    from s3od_torch.models.mmdit import MMDiT, MMDiTConfig
+    `convert_flux.py` tree), made in `dtype` on `device`. Nodes holding
+    `kernel_q` (a `quantize_tree_int8` tree) load as `QuantLinear`s and
+    stay int8 on the device."""
+    from s3od_torch.models.mmdit import MMDiT, MMDiTConfig, quantize_linears_
 
     tree, meta = load_native(path)
     cfg = cfg or config_from_meta(meta, MMDiTConfig())
-    model = MMDiT(cfg, device="meta", dtype=dtype).to_empty(
-        device=device or "cpu")
+    model = MMDiT(cfg, device="meta", dtype=dtype)
+    quantize_linears_(model, set(quantized_paths(tree)))
+    model = model.to_empty(device=device or "cpu")
     return load_tree_(model, tree).eval()
 
 

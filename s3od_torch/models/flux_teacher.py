@@ -1,6 +1,6 @@
 """FLUX-teacher segmentation model: DINOv3 + DPT with FLUX-feature fusion,
-in PyTorch (counterpart of `s3od_tpu/models/flux_teacher.py`, the eval
-forward and the init).
+in PyTorch (counterpart of `s3od_tpu/models/flux_teacher.py`: the
+forward, eval and training, and the init).
 
 Per pyramid level, [DINO scratch features | FLUX transformer features (4
 taps, 768-d, stride-16 tokens) | concept maps (category + background)]
@@ -10,8 +10,12 @@ refinenets and mask/IoU heads (`models/dpt.py`). The encoder is the
 port's DINOv3 (the K1-K5 kernel route in bf16, any patch grid). FLUX
 features and concept maps reach each level through the antialiased
 resize matrices of `ops/resize.py` (`resize_bilinear_matrix`), as the JAX
-package resizes them. BatchNorms use their running statistics (eval);
-teacher training is not ported (ROADMAP Queue 1).
+package resizes them. BatchNorms use their running statistics in eval;
+with `training=True` (`flux_fusion_forward(training=True)`) every
+BatchNorm, the fusion levels' and the refinenets', normalizes with the
+batch's statistics and updates its running ones (`models/dpt.batch_norm`:
+fp32, n = B x H x W for the unbiasing). The encoder is not checkpointed,
+as the JAX teacher step does not remat it.
 
 State-dict names: the base model's (`encoder.*`, `seg_head.*`, reference
 layout) plus `fusion.{level}.{vit,flux,concept}.{conv,bn}.*`,
@@ -51,8 +55,8 @@ class ProjBNReLU(nn.Module):
         self.conv = nn.Conv2d(cin, cout, k, padding=k // 2)
         self.bn = nn.BatchNorm2d(cout)
 
-    def forward(self, x):
-        return F.relu(batch_norm(self.bn, _conv(self.conv, x), False))
+    def forward(self, x, training: bool = False):
+        return F.relu(batch_norm(self.bn, _conv(self.conv, x), training))
 
 
 class FusionConvs(nn.Module):
@@ -63,9 +67,9 @@ class FusionConvs(nn.Module):
         self.conv2 = nn.Conv2d(f, f, 1)
         self.bn2 = nn.BatchNorm2d(f)
 
-    def forward(self, x):
-        x = F.relu(batch_norm(self.bn1, _conv(self.conv1, x), False))
-        return batch_norm(self.bn2, _conv(self.conv2, x), False)
+    def forward(self, x, training: bool = False):
+        x = F.relu(batch_norm(self.bn1, _conv(self.conv1, x), training))
+        return batch_norm(self.bn2, _conv(self.conv2, x), training)
 
 
 class FluxFusion(nn.Module):
@@ -88,21 +92,22 @@ class FluxFusion(nn.Module):
         if cfg.use_dino_features:
             self.final = nn.Conv2d(2 * f, f, 1)
 
-    def forward(self, vit_feat, flux_feat, concept):
+    def forward(self, vit_feat, flux_feat, concept, training: bool = False):
         cfg = self.cfg
         target = tuple(vit_feat.shape[-2:])
         parts = []
         if cfg.use_dino_features:
-            parts.append(self.vit(vit_feat))
+            parts.append(self.vit(vit_feat, training))
         if cfg.use_flux_features:
             parts.append(self.flux(resize_bilinear_matrix(
-                flux_feat, target, antialias=True)))
+                flux_feat, target, antialias=True), training))
         if cfg.use_concept_maps:
             parts.append(self.concept(resize_bilinear_matrix(
-                concept, target, antialias=True)))
+                concept, target, antialias=True), training))
         if not parts or (len(parts) == 1 and cfg.use_dino_features):
             return vit_feat
-        fused = parts[0] if len(parts) == 1 else self.fusion(torch.cat(parts, 1))
+        fused = (parts[0] if len(parts) == 1
+                 else self.fusion(torch.cat(parts, 1), training))
         if cfg.use_dino_features:
             return _conv(self.final, torch.cat([vit_feat, fused], 1))
         return fused
@@ -117,12 +122,13 @@ class FluxTeacher(nn.Module):
         self.fusion = nn.ModuleList(FluxFusion(cfg) for _ in range(4))
 
     def forward(self, images, transformer_features: List[torch.Tensor],
-                concept_maps: Dict[str, torch.Tensor]):
+                concept_maps: Dict[str, torch.Tensor], training: bool = False):
         """images (B, H, W, 3) normalized, in the compute dtype (bf16: the
         encoder's kernel route); transformer_features: 4 x (B, seq,
         flux_dim) at stride 16; concept_maps {'category', 'background'}
         (B, Hc, Wc). -> {'pred_masks': (B, n, H, W), 'pred_iou': (B, n)},
-        both fp32 logits."""
+        both fp32 logits. `training`: batch-statistics BatchNorms that
+        update their running statistics."""
         cfg, base = self.cfg, self.cfg.base
         dt = images.dtype
         p = base.encoder.patch_size
@@ -139,9 +145,9 @@ class FluxTeacher(nn.Module):
         if cfg.use_concept_maps:
             concept = torch.stack([concept_maps["category"],
                                    concept_maps["background"]], 1).to(dt)
-        fused = [fus(rn[i], flux[i], concept)
+        fused = [fus(rn[i], flux[i], concept, training)
                  for i, fus in enumerate(self.fusion)]
-        masks, iou = self.seg_head.decode(fused, (ph, pw), p)
+        masks, iou = self.seg_head.decode(fused, (ph, pw), p, training)
         return {"pred_masks": masks.float(), "pred_iou": iou.float()}
 
 

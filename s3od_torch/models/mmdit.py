@@ -18,6 +18,12 @@ fp32 on the weights' values (`_modulation`), the streams in the compute
 dtype, LayerNorm/RMSNorm and RoPE in fp32 with the result cast back.
 Every attention goes through `ops.attention.multi_head_attention`: K7 in
 bf16 at N >= 1024 (the MMDiT never asks for the static bound).
+
+Int8 weight residency (`ops/quant.py`): `init_mmdit(int8_weights=True)`
+or a tree holding `kernel_q` (`convert.load_mmdit`) makes every eligible
+linear a `QuantLinear` (int8 weight + fp32 per-row scale as buffers),
+which `_linear` dequantizes into the compute dtype at use, as the JAX
+`_linear` does; no bf16 copy of the model stays resident.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from s3od_torch.ops import quant
 from s3od_torch.ops.attention import multi_head_attention
 
 
@@ -66,9 +73,33 @@ def tiny_mmdit_config() -> MMDiTConfig:
 # ----------------------------------------------------------------------------
 
 
-def _linear(x, mod: nn.Linear):
+class QuantLinear(nn.Module):
+    """A linear whose weight is resident as int8 (`weight_q`, (dout, din))
+    with one fp32 scale per output row (`weight_scale`): the JAX
+    `{"kernel_q", "kernel_scale", "bias"}` node. Inference only: the
+    buffers take no gradient."""
+
+    def __init__(self, din: int, dout: int, device=None, dtype=None):
+        super().__init__()
+        self.in_features, self.out_features = din, dout
+        self.register_buffer("weight_q", torch.zeros(
+            dout, din, dtype=torch.int8, device=device))
+        self.register_buffer("weight_scale", torch.ones(
+            dout, dtype=torch.float32, device=device))
+        self.bias = nn.Parameter(torch.zeros(dout, device=device, dtype=dtype))
+
+
+def weight_of(mod: nn.Module, dtype: torch.dtype) -> torch.Tensor:
+    """A linear's (dout, din) weight in `dtype`; a `QuantLinear`'s
+    dequantized in the JAX order (`quant.dequant_weight`)."""
+    if isinstance(mod, QuantLinear):
+        return quant.dequant_weight(mod.weight_q, mod.weight_scale, dtype)
+    return mod.weight.to(dtype)
+
+
+def _linear(x, mod: nn.Module):
     """x @ W^T + b with the weights cast to x's dtype (JAX `_linear`)."""
-    return F.linear(x, mod.weight.to(x.dtype), mod.bias.to(x.dtype))
+    return F.linear(x, weight_of(mod, x.dtype), mod.bias.to(x.dtype))
 
 
 def _layer_norm(x, eps=1e-6):
@@ -126,7 +157,8 @@ def apply_rope(q, k, cos, sin):
 
 def _modulation(temb, mod: nn.Linear, n_chunks: int):
     """SiLU(temb) @ W in fp32 on the weights' values -> n_chunks vectors."""
-    m = F.linear(F.silu(temb.float()), mod.weight.float(), mod.bias.float())
+    m = F.linear(F.silu(temb.float()), weight_of(mod, torch.float32),
+                 mod.bias.float())
     return m.chunk(n_chunks, -1)
 
 
@@ -287,7 +319,8 @@ class MMDiT(nn.Module):
     @staticmethod
     def _embed(mlp: MLP, x):
         """fc2(SiLU(fc1(x))) in fp32 on the weights' values."""
-        f = lambda m, t: F.linear(t, m.weight.float(), m.bias.float())
+        f = lambda m, t: F.linear(t, weight_of(m, torch.float32),
+                                  m.bias.float())
         return f(mlp.fc2, F.silu(f(mlp.fc1, x.float())))
 
     def forward(self, *, latents, txt, pooled, timestep, img_ids, txt_ids,
@@ -379,15 +412,64 @@ def minmax_normalize(maps):
 # ----------------------------------------------------------------------------
 
 
+def quantize_linears_(model: nn.Module, names=None) -> nn.Module:
+    """Replace linears of `model` by `QuantLinear`s of the same shape, on
+    the same device (meta included): those named in `names` (module
+    paths), or every one `quant.eligible` admits. The new buffers are
+    uninitialised until loaded or drawn."""
+    targets = [(n, m) for n, m in model.named_modules()
+               if isinstance(m, nn.Linear)
+               and (n in names if names is not None
+                    else quant.eligible((m.in_features, m.out_features)))]
+    for name, lin in targets:
+        parent_name, _, leaf = name.rpartition(".")
+        parent = model.get_submodule(parent_name) if parent_name else model
+        setattr(parent, leaf, QuantLinear(
+            lin.in_features, lin.out_features, device=lin.weight.device,
+            dtype=lin.weight.dtype))
+    return model
+
+
+@torch.no_grad()
+def quantize_mmdit(model: MMDiT) -> MMDiT:
+    """The int8 residency form of a float MMDiT, beside it on its device:
+    every linear `quant.eligible` admits becomes a `QuantLinear` holding
+    the codes and scales of `quant.quantize_weight_int8` (the formula of
+    `quantize_kernel_int8`, run on the card), the rest copied. The source is
+    left as it was; the copy never holds a float weight of a quantized
+    linear."""
+    dev = next(model.parameters()).device
+    out = quantize_linears_(MMDiT(model.cfg, device="meta",
+                                  dtype=next(model.parameters()).dtype))
+    out = out.to_empty(device=dev)
+    src = dict(model.named_modules())
+    for name, mod in out.named_modules():
+        if isinstance(mod, QuantLinear):
+            q, scale = quant.quantize_weight_int8(src[name].weight)
+            mod.weight_q.copy_(q)
+            mod.weight_scale.copy_(scale)
+            mod.bias.copy_(src[name].bias)
+            del q, scale
+        elif not list(mod.children()):
+            for pname, prm in mod.named_parameters(recurse=False):
+                prm.copy_(getattr(src[name], pname))
+    return out.eval()
+
+
 @torch.no_grad()
 def init_mmdit(cfg: MMDiTConfig, generator: torch.Generator, device=None,
-               dtype=torch.float32) -> MMDiT:
+               dtype=torch.float32, int8_weights: bool = False) -> MMDiT:
     """Seeded random weights in the JAX init scheme (`init_mmdit_params`):
     every Linear weight ~ N(0, 0.02), biases zero, q/k norms one. Built on
     the meta device and materialised directly in `dtype` on `device`
     (the generator's device): the full FLUX tree is ~12B parameters, and
-    a host fp32 copy would be 48 GB."""
+    a host fp32 copy would be 48 GB. `int8_weights=True` draws every
+    eligible linear in the int8 form as the JAX init does (`mmdit.py:
+    443-456`): q uniform in [-127, 127], scale 0.02 / 127 per row, bias
+    zero, so the full-depth model never exists in bf16."""
     model = MMDiT(cfg, device="meta", dtype=dtype)
+    if int8_weights:
+        quantize_linears_(model)
     model = model.to_empty(device=device or generator.device)
     for name, prm in model.named_parameters():
         if name.endswith(".q") or name.endswith(".k"):
@@ -396,4 +478,9 @@ def init_mmdit(cfg: MMDiTConfig, generator: torch.Generator, device=None,
             prm.zero_()
         else:
             prm.normal_(0.0, 0.02, generator=generator)
+    for name, buf in model.named_buffers():
+        if name.endswith("weight_q"):
+            buf.random_(-127, 128, generator=generator)
+        elif name.endswith("weight_scale"):
+            buf.fill_(0.02 / 127.0)
     return model.eval()

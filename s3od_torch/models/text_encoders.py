@@ -302,3 +302,82 @@ def init_clip_text(cfg: CLIPTextConfig, generator: torch.Generator,
         else:
             prm.normal_(0.0, 0.02, generator=generator)
     return model.eval()
+
+
+# ----------------------------------------------------------------------------
+# Converters: transformers state dicts -> the trees
+# ----------------------------------------------------------------------------
+
+
+def _numpy_sd(state_dict) -> dict:
+    """Torch tensors (any float dtype) or numpy arrays -> numpy float32."""
+    return {k: np.asarray(v.detach().float().cpu().numpy()
+                          if isinstance(v, torch.Tensor) else v, np.float32)
+            for k, v in state_dict.items()}
+
+
+def convert_t5_encoder(state_dict, cfg: T5Config) -> dict:
+    """transformers `T5EncoderModel.state_dict()` -> the T5 tree (the JAX
+    `convert_t5_encoder`, `s3od_tpu/models/text_encoders.py:221`), numpy
+    float32 leaves; linear weights transpose from (out, in) to (in, out)."""
+    sd = _numpy_sd(state_dict)
+
+    def lin(name):
+        return {"kernel": sd[name].T}
+
+    layers = []
+    for i in range(cfg.num_layers):
+        pre = f"encoder.block.{i}.layer"
+        att = {
+            "layer_norm": sd[f"{pre}.0.layer_norm.weight"],
+            "q": lin(f"{pre}.0.SelfAttention.q.weight"),
+            "k": lin(f"{pre}.0.SelfAttention.k.weight"),
+            "v": lin(f"{pre}.0.SelfAttention.v.weight"),
+            "o": lin(f"{pre}.0.SelfAttention.o.weight"),
+        }
+        if i == 0:
+            att["relative_attention_bias"] = sd[
+                f"{pre}.0.SelfAttention.relative_attention_bias.weight"]
+        layers.append({
+            "attention": att,
+            "ff": {
+                "layer_norm": sd[f"{pre}.1.layer_norm.weight"],
+                "wi_0": lin(f"{pre}.1.DenseReluDense.wi_0.weight"),
+                "wi_1": lin(f"{pre}.1.DenseReluDense.wi_1.weight"),
+                "wo": lin(f"{pre}.1.DenseReluDense.wo.weight"),
+            },
+        })
+    return {"embedding": sd["shared.weight"], "layers": layers,
+            "final_layer_norm": sd["encoder.final_layer_norm.weight"]}
+
+
+def convert_clip_text(state_dict, cfg: CLIPTextConfig) -> dict:
+    """transformers `CLIPTextModel.state_dict()` -> the CLIP text tree (the
+    JAX `convert_clip_text`, `s3od_tpu/models/text_encoders.py:391`)."""
+    sd = _numpy_sd(state_dict)
+
+    def lin(name):
+        return {"kernel": sd[f"{name}.weight"].T, "bias": sd[f"{name}.bias"]}
+
+    def ln(name):
+        return {"weight": sd[f"{name}.weight"], "bias": sd[f"{name}.bias"]}
+
+    layers = []
+    for i in range(cfg.num_layers):
+        pre = f"text_model.encoder.layers.{i}"
+        layers.append({
+            "ln1": ln(f"{pre}.layer_norm1"),
+            "attn": {"q": lin(f"{pre}.self_attn.q_proj"),
+                     "k": lin(f"{pre}.self_attn.k_proj"),
+                     "v": lin(f"{pre}.self_attn.v_proj"),
+                     "out": lin(f"{pre}.self_attn.out_proj")},
+            "ln2": ln(f"{pre}.layer_norm2"),
+            "mlp": {"fc1": lin(f"{pre}.mlp.fc1"), "fc2": lin(f"{pre}.mlp.fc2")},
+        })
+    return {
+        "token_embedding": sd["text_model.embeddings.token_embedding.weight"],
+        "position_embedding":
+            sd["text_model.embeddings.position_embedding.weight"],
+        "layers": layers,
+        "final_layer_norm": ln("text_model.final_layer_norm"),
+    }

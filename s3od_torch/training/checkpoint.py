@@ -136,11 +136,17 @@ def export_inference(model, out_path: str,
                      state_dict: Optional[Dict[str, Any]] = None,
                      key_bias: Optional[torch.Tensor] = None) -> None:
     """Weights-only export for `BackgroundRemoval`: the model's state dict
-    in the JAX package's native `.npz` layout. The fused-qkv key-bias
-    segment must be zero (the reference layout has no key bias). A
-    sharded model passes what every rank gathered: `state_dict`
-    (`parallel.mesh.full_state_dict`) and `key_bias` (`key_bias_max`)."""
-    from s3od_torch.convert import convert_state_dict, save_native
+    in the JAX package's native `.npz` layout; a FLUX teacher's as
+    (params, BN state) with its fusion levels, which `convert.load_teacher`
+    and `SODTeacherPredictor` read. The fused-qkv key-bias segment must be
+    zero (the reference layout has no key bias). A sharded model passes
+    what every rank gathered: `state_dict` (`parallel.mesh.full_state_dict`)
+    and `key_bias` (`key_bias_max`)."""
+    from s3od_torch.convert import (
+        convert_state_dict,
+        save_native,
+        teacher_tree_from_state_dict,
+    )
     from s3od_torch.parallel.mesh import unwrap
 
     model = unwrap(model)
@@ -152,7 +158,10 @@ def export_inference(model, out_path: str,
                 f"layer {i}: fused-QKV key-bias segment is nonzero (max "
                 f"|b_k| = {k_max:.2e}); train with the key-bias freeze")
     sd = state_dict if state_dict is not None else model.state_dict()
-    params, state, _ = convert_state_dict(sd, model.cfg)
+    if hasattr(model, "fusion"):
+        params, state = teacher_tree_from_state_dict(sd)
+    else:
+        params, state, _ = convert_state_dict(sd, model.cfg)
     save_native(out_path, params, state)
 
 

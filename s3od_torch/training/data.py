@@ -19,7 +19,9 @@ so no OpenCV call sits on the augmentation path. A thread-pool prefetcher
 keeps a small queue of ready batches, and `device_prefetch` overlaps the
 upload (and the augmentation) with the running step.
 
-Not ported: the FLUX feature dataset (teacher training).
+Teacher training reads `FluxFeatureDataset`: bucket-resized images (no
+letterbox) with their per-image FLUX features, one sample a batch; the
+loader then collates dict samples leaf by leaf.
 """
 
 from __future__ import annotations
@@ -232,6 +234,87 @@ class MaskFolderDataset:
 
 
 
+class FluxFeatureDataset(MaskFolderDataset):
+    """Dataset variant for FLUX-teacher training: images bucket-resized
+    (`datagen/resizer.FluxResizer`, no letterbox), per-image `.npz`
+    features (layer_0..3 + category/background concept maps, fp16) matched
+    by stem with the dataset-prefix fallbacks; files without features are
+    dropped (`s3od_tpu/training/data.py:274-330`, reference
+    `model_training/dataset.py:147-250`). The trainer runs it at batch 1
+    (the buckets differ in shape)."""
+
+    DATASET_PREFIXES = ("DUTS-TR", "DIS-TR", "HRSOD-TR", "UHRSD-TR")
+
+    def __init__(self, root_dir: str, image_size: int, split: str = "train",
+                 val_split: float = 0.1, seed: int = 42,
+                 flux_features_dir: Optional[str] = None,
+                 feature_layers: Sequence[int] = (0, 1, 2, 3),
+                 debug_subset_fraction: Optional[float] = None):
+        super().__init__(root_dir, image_size, split, val_split, seed,
+                         debug_subset_fraction)
+        from s3od_torch.datagen.resizer import FluxResizer
+
+        self.resizer = FluxResizer()
+        self.feature_layers = list(feature_layers)
+        self.feature_mapping: Dict[str, Path] = {}
+        if flux_features_dir:
+            feats = Path(flux_features_dir) / "features"
+            available = ({p.stem: p for p in feats.glob("*.npz")}
+                         if feats.is_dir() else {})
+            for f in self.files:
+                stem = Path(f).stem
+                hit = available.get(stem)
+                if hit is None:
+                    for prefix in self.DATASET_PREFIXES:
+                        hit = available.get(f"{prefix}_{stem}")
+                        if hit is not None:
+                            break
+                if hit is not None:
+                    self.feature_mapping[f] = hit
+            before = len(self.files)
+            self.files = [f for f in self.files if f in self.feature_mapping]
+            logging.info(
+                "FluxFeatureDataset: %d -> %d files with features (%.1f%%)",
+                before, len(self.files),
+                100.0 * len(self.files) / max(before, 1))
+
+    def load(self, idx: int):
+        """-> {"images": uint8 (th, tw, 3) at the bucket, "masks": float32
+        (th, tw) in [0, 1], "transformer_features": [float32 (seq, dim)]
+        per layer, "concept_maps": {"category", "background"} float32}."""
+        from PIL import Image
+
+        f = self.files[idx]
+        img = np.array(Image.open(self.images_dir / f).convert("RGB"))
+        mask = np.array(Image.open(self._mask_path(f)).convert("L"))
+        img_r, (th, tw) = self.resizer.resize_image(img)
+        mask_r = self.resizer.resize_mask(mask, (th, tw))
+        out = {"images": img_r,
+               "masks": mask_r.astype(np.float32) / 255.0}
+        with np.load(self.feature_mapping[f]) as z:
+            out["transformer_features"] = [
+                z[f"layer_{i}"].astype(np.float32) for i in self.feature_layers]
+            out["concept_maps"] = {
+                "category": z["category"].astype(np.float32),
+                "background": z["background"].astype(np.float32)}
+        return out
+
+
+def collate_dicts(samples: Sequence[Dict]) -> Dict:
+    """Dict samples (`FluxFeatureDataset.load`) stacked leaf by leaf: the
+    JAX loader's dict collation (`data.py:474-485`)."""
+    first = samples[0]
+    return {
+        "images": np.stack([s["images"] for s in samples]),
+        "masks": np.stack([s["masks"] for s in samples]).astype(np.float32),
+        "transformer_features": [
+            np.stack([s["transformer_features"][i] for s in samples])
+            for i in range(len(first["transformer_features"]))],
+        "concept_maps": {k: np.stack([s["concept_maps"][k] for s in samples])
+                         for k in first["concept_maps"]},
+    }
+
+
 class ConcatMaskDataset:
     def __init__(self, datasets: Sequence[MaskFolderDataset]):
         self.datasets = list(datasets)
@@ -253,14 +336,24 @@ def build_dataset(
     val_split: float = 0.1,
     seed: int = 42,
     debug_subset_fraction: Optional[float] = None,
+    flux_features_dir: Optional[str] = None,
     cache: bool = False,
     cache_root: Optional[str] = None,
 ):
-    """One `MaskFolderDataset` per root, concatenated. ``cache=True`` serves
-    pre-decoded letterbox canvases from uint8 memmap shards
+    """One dataset per root, concatenated: `FluxFeatureDataset` when
+    `flux_features_dir` is given (teacher training; no cache on that
+    path, the bucket shapes vary), else `MaskFolderDataset`. ``cache=True``
+    serves pre-decoded letterbox canvases from uint8 memmap shards
     (`s3od_torch.training.cache`): decode once per (root, image_size)
     instead of per epoch; masks then flow uint8 end to end."""
-    if cache:
+    if flux_features_dir:
+        parts = [
+            FluxFeatureDataset(p, image_size, split, val_split, seed,
+                               flux_features_dir=flux_features_dir,
+                               debug_subset_fraction=debug_subset_fraction)
+            for p in dataset_paths
+        ]
+    elif cache:
         from s3od_torch.training.cache import CachedMaskFolderDataset
 
         parts = [
@@ -290,7 +383,8 @@ class PrefetchLoader:
     and/or `draw_host_geometry`'s keys), drawn from the JAX loader's
     per-batch `random.Random((seed * 1000 + epoch) * 100003 + b)` in its
     order: every crop gate and box, then every sample's rotation and
-    distortion.
+    distortion. A dataset of dict samples (`FluxFeatureDataset`) yields
+    `collate_dicts` batches, never augmented.
     """
 
     def __init__(
@@ -372,7 +466,10 @@ class PrefetchLoader:
 
         def load_batch(b):
             idxs = order[b * self.batch_size : (b + 1) * self.batch_size]
-            imgs, masks = zip(*(self.dataset.load(int(i)) for i in idxs))
+            samples = [self.dataset.load(int(i)) for i in idxs]
+            if isinstance(samples[0], dict):
+                return collate_dicts(samples)
+            imgs, masks = zip(*samples)
             masks_arr = np.stack(masks)
             if masks_arr.dtype != np.uint8:
                 masks_arr = masks_arr.astype(np.float32)

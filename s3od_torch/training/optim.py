@@ -1,9 +1,10 @@
 """Optimizer and LR schedule (counterpart of `s3od_tpu/training/optim.py`).
 
 Reference recipe: AdamW (weight decay 0.05, betas 0.9/0.999, eps 1e-8) over
-two groups — the encoder at the base lr, the segmentation head at
-`head_lr_mult` x — each under its own hold-then-cosine schedule evaluated
-per step, an optional linear warmup, and the key-bias freeze.
+two groups — the encoder at the base lr, the segmentation head (and the
+FLUX teacher's fusion levels) at `head_lr_mult` x — each under its own
+hold-then-cosine schedule evaluated per step, an optional linear warmup,
+and the key-bias freeze.
 
 What the JAX chain does, step by step, and how it is kept here:
 1. `freeze_qkv_key_bias` zeroes the key segment [C, 2C) of every fused
@@ -70,7 +71,9 @@ def hold_cosine_schedule(
 
 class Optimizer:
     """Two-group AdamW with per-group schedules and per-group clipping,
-    over a model with `encoder` and `seg_head` submodules.
+    over a model with an `encoder` submodule: the encoder at `lr`, the
+    rest (the segmentation head; the teacher's head and fusion levels) at
+    `lr * head_lr_mult`.
 
         opt = Optimizer(model, lr=1e-5, steps_per_epoch=100)
         loss.backward(); opt.step(step)     # step = updates so far
@@ -97,8 +100,11 @@ class Optimizer:
                      warmup_epochs=warmup_epochs)
         self.schedules = [hold_cosine_schedule(lr, **sched),
                           hold_cosine_schedule(lr * head_lr_mult, **sched)]
+        # The encoder, then every other parameter (the JAX "head" subtree:
+        # the DPT head, and the FLUX teacher's fusion levels too).
         groups = [list(model.encoder.parameters()),
-                  list(model.seg_head.parameters())]
+                  [p for n, p in model.named_parameters()
+                   if not n.startswith("encoder.")]]
         self.torch_optimizer = torch.optim.AdamW(
             [{"params": g} for g in groups], lr=lr, betas=(0.9, 0.999),
             eps=1e-8, weight_decay=weight_decay)

@@ -5,6 +5,8 @@
         backend=1chip data_dir=/data
     python -m s3od_torch.training.train ... backend=8gpu   # 8 local cards
     torchrun --nproc_per_node=8 -m s3od_torch.training.train ... backend=8gpu
+    python -m s3od_torch.training.train config_name=train_teacher \
+        flux_features_dir=/data/flux_features data_dir=/data
 
 The same config groups and overrides as the JAX package
 (`training/config/`). The loop: per epoch, the training steps
@@ -35,11 +37,18 @@ BatchNorms take the global micro-batch's statistics (`models/dpt.py`).
 Rank 0 alone logs, writes the checkpoints (the whole, unprefixed state
 dict) and the export; the epoch's sums are reduced over the ranks first.
 
+Teacher training (`config_name=train_teacher`, any model whose
+`use_flux_features` is set; JAX `train.py:217-347`): the FluxDPT teacher
+(`build_teacher_model`) on `FluxFeatureDataset`, the images at their FLUX
+bucket with the features `datagen/feature_extraction.py` wrote
+(`flux_features_dir`, required). Global batch 1 and no accumulation (the
+buckets differ in shape), normalization only (no augmentation), validation
+at batch 1, no image logging and no evaluation hook; `backend.devices > 1`
+warns and trains on one device, as the JAX trainer does.
+
 The run is on the CUDA card unless `backend.accelerator` is `cpu`; it
 never falls back: `backend.devices` above the visible cards, an `fsdp`
-that does not divide the world size, or a failed NCCL init raise. Not
-ported yet, raising `NotImplementedError` (ROADMAP, Queue 1): teacher
-training.
+that does not divide the world size, or a failed NCCL init raise.
 """
 
 from __future__ import annotations
@@ -73,18 +82,6 @@ def get_experiment_name(cfg) -> str:
         f"_{cfg.dataset.get('_name', 'data')}_{cfg.loss.get('_name', 'loss')}"
         f"_{stamp}"
     )
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to s3od_torch yet (ROADMAP, Queue 1, item "
-        f"{item})")
-
-
-def check_supported(cfg, config_name: str) -> None:
-    """Raise for the parts of the JAX entry point the port lacks."""
-    if config_name != "train" or cfg.model.get("use_flux_features"):
-        raise _not_ported("teacher training", 10)
 
 
 def on_cpu(cfg) -> bool:
@@ -147,6 +144,39 @@ def build_model(cfg, device: torch.device, seed: int):
     return model.to(device)
 
 
+def build_teacher_model(cfg, device: torch.device, seed: int):
+    """The FluxDPT teacher (`config/train_teacher.yaml`; JAX
+    `build_teacher_model`, `train.py:125-153`): seeded weights
+    (`init_flux_teacher`), the encoder from `pretrained_encoder` when one
+    is given."""
+    from s3od_torch.configs import segmentation_config
+    from s3od_torch.convert import load_hf_encoder_
+    from s3od_torch.models.flux_teacher import (
+        FluxTeacherConfig,
+        init_flux_teacher,
+    )
+
+    base = segmentation_config(
+        cfg.model.encoder_name,
+        num_outputs=cfg.model.num_outputs,
+        features=cfg.model.features,
+        use_bn=cfg.model.use_bn,
+        use_clstoken=cfg.model.use_clstoken,
+    )
+    tcfg = FluxTeacherConfig(
+        base=base,
+        flux_dim=int(cfg.model.get("flux_dim", 768)),
+        use_concept_maps=bool(cfg.model.get("use_concept_maps", True)),
+        use_flux_features=True,
+    )
+    model = init_flux_teacher(tcfg, torch.Generator().manual_seed(seed))
+    if cfg.get("pretrained_encoder"):
+        load_hf_encoder_(model.encoder, str(cfg.pretrained_encoder))
+        logger.info("teacher encoder initialized from %s",
+                    cfg.pretrained_encoder)
+    return model.to(device)
+
+
 def step_generator(seed: int, epoch: int, step: int) -> torch.Generator:
     """The RoPE-scale stream of one step, a function of (seed, epoch,
     step): a resumed run draws what a continuous run would."""
@@ -166,14 +196,21 @@ def augment_generator(seed: int, epoch: int, step: int) -> torch.Generator:
 def upload(batch, device: torch.device) -> Dict[str, torch.Tensor]:
     """A loader batch onto the device: uint8 images, masks as uint8
     0..255 (4x fewer bytes than float; cached datasets already are),
-    through pinned memory without waiting for the running step."""
+    through pinned memory without waiting for the running step; a teacher
+    batch's `transformer_features` and `concept_maps` as float32."""
     from s3od_torch.ops.warp import host_to
 
     masks = batch["masks"]
     if masks.dtype != np.uint8:
         masks = np.round(masks * 255.0).astype(np.uint8)
-    return {"images": host_to(torch.from_numpy(batch["images"]), device),
-            "masks": host_to(torch.from_numpy(masks), device)}
+    put = lambda a: host_to(torch.from_numpy(np.ascontiguousarray(a)), device)
+    out = {"images": put(batch["images"]), "masks": put(masks)}
+    if "transformer_features" in batch:
+        out["transformer_features"] = [
+            put(f) for f in batch["transformer_features"]]
+        out["concept_maps"] = {k: put(v)
+                               for k, v in batch["concept_maps"].items()}
+    return out
 
 
 def train_pre(batch, geometry, mode: str, generator: torch.Generator,
@@ -247,7 +284,12 @@ def train(argv: Optional[list] = None) -> Dict[str, float]:
     )
     from s3od_torch.training.loss import LossModule, compose_loss_config
     from s3od_torch.training.optim import Optimizer
-    from s3od_torch.training.train_step import eval_step, train_step
+    from s3od_torch.training.train_step import (
+        eval_step,
+        segmentation_forward,
+        teacher_forward,
+        train_step,
+    )
 
     argv = list(argv if argv is not None else sys.argv[1:])
     args = list(argv)
@@ -258,7 +300,14 @@ def train(argv: Optional[list] = None) -> Dict[str, float]:
             args.remove(a)
     cfg = load_config(args, config_name=config_name)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
-    check_supported(cfg, config_name)
+    is_teacher = bool(cfg.model.get("use_flux_features"))
+    if is_teacher:
+        # Bucket-shaped batch-1 samples shard over neither data nor
+        # parameters (JAX `train.py:218-234`).
+        if int(cfg.backend.devices) > 1:
+            logger.warning(
+                "teacher training runs data batch 1; extra devices idle")
+        cfg["backend"]["devices"] = cfg["backend"]["fsdp"] = 1
 
     # --- process group ---------------------------------------------------
     device_type = "cpu" if on_cpu(cfg) else "cuda"
@@ -279,6 +328,9 @@ def train(argv: Optional[list] = None) -> Dict[str, float]:
     if joined and devices not in (1, world):
         raise ValueError(f"backend.devices={devices} under a launcher of "
                          f"{world} processes")
+    if is_teacher and world > 1:
+        raise ValueError(f"teacher training runs on one process; the "
+                         f"launcher started {world}")
     if rank:
         logger.setLevel(logging.WARNING)
     device = device_of(cfg)
@@ -309,23 +361,35 @@ def train(argv: Optional[list] = None) -> Dict[str, float]:
     image_size = int(cfg.dataset.image_size)
     accum = int(cfg.backend.accumulate_grad_batches)
     per_rank = int(cfg.dataset.train_batch_size) * accum
+    flux_dir = (str(cfg.flux_features_dir) if cfg.get("flux_features_dir")
+                else None)
+    if is_teacher:
+        # Bucket-shaped samples and their features: batch 1, no
+        # accumulation (`model_training/dataset.py:352-360`).
+        accum = per_rank = 1
+        if not flux_dir:
+            raise ValueError("teacher training requires flux_features_dir")
     global_batch = per_rank * world
     # dataset.cache=true: pre-decoded uint8 letterbox memmap cache (decode
-    # once per dataset, not per epoch).
-    use_cache = bool(cfg.dataset.get("cache"))
+    # once per dataset, not per epoch); not on the feature path.
+    use_cache = bool(cfg.dataset.get("cache")) and not flux_dir
     train_ds = build_dataset(paths, image_size, "train",
                              float(cfg.dataset.val_split), seed,
-                             cfg.get("debug_subset_fraction"), cache=use_cache)
+                             cfg.get("debug_subset_fraction"),
+                             flux_features_dir=flux_dir, cache=use_cache)
     val_ds = build_dataset(paths, image_size, "val",
-                           float(cfg.dataset.val_split), seed, cache=use_cache)
+                           float(cfg.dataset.val_split), seed,
+                           flux_features_dir=flux_dir, cache=use_cache)
     threads = int(cfg.backend.num_threads)
     mode = cfg.dataset.transform_mode
-    augmenting = mode != "test"
+    # Teacher data gets normalization only (`dataset.py:176-178`).
+    augmenting = mode != "test" and not is_teacher
     train_loader = PrefetchLoader(
         train_ds, per_rank, shuffle=True, drop_last=True, seed=seed,
         num_threads=threads, random_resized_crop_p=0.5 if augmenting else 0.0,
         geometric_mode=mode if augmenting else None, process_shard=shard)
-    val_loader = PrefetchLoader(val_ds, int(cfg.dataset.val_batch_size),
+    val_batch = 1 if is_teacher else int(cfg.dataset.val_batch_size)
+    val_loader = PrefetchLoader(val_ds, val_batch,
                                 shuffle=False, drop_last=True, seed=seed,
                                 num_threads=threads, process_shard=shard)
     steps_per_epoch = max(1, len(train_loader))
@@ -338,7 +402,12 @@ def train(argv: Optional[list] = None) -> Dict[str, float]:
                      else torch.float32)
     if compute_dtype == torch.float32:
         set_exact_float32()
-    model = build_model(cfg, device, seed)
+    if is_teacher:
+        model = build_teacher_model(cfg, device, seed)
+        forward = teacher_forward
+    else:
+        model = build_model(cfg, device, seed)
+        forward = segmentation_forward
     start_epoch, step, tree = 0, 0, None
     if cfg.get("checkpoint_path"):
         tree, start_epoch = restore_external(str(cfg.checkpoint_path),
@@ -405,7 +474,8 @@ def train(argv: Optional[list] = None) -> Dict[str, float]:
     # the upload worker; the flag keeps JAX's per-micro-slice calls, which
     # bound the pipeline's temporaries by the micro-batch.
     split_aug = bool(cfg.backend.get("split_augment"))
-    image_logging = bool(cfg.train_stage.get("enable_image_logging"))
+    image_logging = (bool(cfg.train_stage.get("enable_image_logging"))
+                     and not is_teacher)
 
     def put_fn(i, batch, epoch):
         dev_batch = upload(batch, device)
@@ -437,7 +507,8 @@ def train(argv: Optional[list] = None) -> Dict[str, float]:
                              step, generator=step_generator(seed, epoch, i),
                              accum_steps=accum, compute_dtype=compute_dtype,
                              remat_policy=remat_policy,
-                             preprocessed=augmenting, bn_group=bn_group)
+                             preprocessed=augmenting, bn_group=bn_group,
+                             forward=forward)
             for k, v in out.items():
                 acc[k] = acc[k] + v if k in acc else v
             step += 1
@@ -458,7 +529,7 @@ def train(argv: Optional[list] = None) -> Dict[str, float]:
         n_val = 0
         for batch in val_loader.epoch(0):
             out = eval_step(model, loss_module, upload(batch, device), epoch,
-                            compute_dtype=compute_dtype)
+                            compute_dtype=compute_dtype, forward=forward)
             for k, v in out.items():
                 vsums[k] = vsums.get(k, 0.0) + float(v)
             if n_val == 0 and image_logging:
@@ -470,7 +541,7 @@ def train(argv: Optional[list] = None) -> Dict[str, float]:
                 "val loader yielded ZERO batches (%d val samples < "
                 "val_batch_size %d with drop_last) — val metrics read 0/nan "
                 "and checkpoint selection by val_dice is meaningless",
-                len(val_ds), int(cfg.dataset.val_batch_size))
+                len(val_ds), val_batch)
         vsums = all_reduce_sums(vsums, [k for k in vsums if k not in confusion],
                                 device)
         metrics.update({f"val_{k}": v / max(n_val, 1) for k, v in vsums.items()
@@ -511,7 +582,8 @@ def train(argv: Optional[list] = None) -> Dict[str, float]:
 
     model_sd = full_state_dict(model) if joined else model.state_dict()
     key_bias = key_bias_max(core)
-    if rank == 0 and cfg.get("evaluation", {}).get("enabled"):
+    if (rank == 0 and not is_teacher
+            and cfg.get("evaluation", {}).get("enabled")):
         from s3od_torch.convert import convert_state_dict
 
         results = evaluate_datasets(

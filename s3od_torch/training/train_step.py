@@ -15,6 +15,11 @@ Under data parallelism `model` is the DDP / FSDP2 module
 batch (rows r::W): the gradients are reduced in the backward of the last
 micro-batch only (`parallel.mesh.grad_sync`), and the returned sums are
 this rank's (the trainer reduces them over the ranks once an epoch).
+
+The FLUX teacher trains through the same steps with `forward=
+teacher_forward`, which feeds it the batch's `transformer_features` and
+`concept_maps` beside the images (JAX `make_train_step(forward_fn=)`,
+`s3od_tpu/training/train.py:286-298`).
 """
 
 from __future__ import annotations
@@ -56,12 +61,42 @@ def best_mask_metrics(outputs, targets) -> Dict[str, torch.Tensor]:
             "fn": (~pred & gt).sum().float()}
 
 
+def segmentation_forward(model, batch, compute_dtype, training: bool, *,
+                         rope_coord_scale=None, remat_policy=None,
+                         bn_group=None):
+    """The student model on a (micro-)batch's images."""
+    return model(batch["images"].to(compute_dtype), training=training,
+                 rope_coord_scale=rope_coord_scale,
+                 remat_policy=remat_policy, bn_group=bn_group)
+
+
+def teacher_forward(model, batch, compute_dtype, training: bool, **_):
+    """The FLUX teacher (`models/flux_teacher.FluxTeacher`) on a batch's
+    images, `transformer_features` and `concept_maps`; it casts them to the
+    compute dtype itself, as `flux_teacher_forward` does. The RoPE scale,
+    remat policy and BN group do not reach it (the JAX teacher forward
+    takes none of them)."""
+    return model(batch["images"].to(compute_dtype),
+                 batch["transformer_features"], batch["concept_maps"],
+                 training=training)
+
+
+def _rows(tree, a: int, b: int):
+    """Rows [a, b) of every tensor of a batch (lists and dicts too)."""
+    if isinstance(tree, dict):
+        return {k: _rows(v, a, b) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_rows(v, a, b) for v in tree]
+    return tree[a:b]
+
+
 def train_step(model, optimizer, loss_module, batch, epoch: int, step: int,
                *, generator: torch.Generator, accum_steps: int = 1,
                compute_dtype: torch.dtype = torch.float32,
                remat_policy: Optional[str] = None,
                preprocessed: bool = False,
-               bn_group=None) -> Dict[str, torch.Tensor]:
+               bn_group=None, forward=segmentation_forward
+               ) -> Dict[str, torch.Tensor]:
     """One optimizer step over `batch` (leading dim accum_steps x micro
     batch, on the model's device). `step` is the number of updates so far
     (the schedules' count); `generator` draws the RoPE scales when the
@@ -69,11 +104,13 @@ def train_step(model, optimizer, loss_module, batch, epoch: int, step: int,
     already augmented and normalized (float images and masks, the
     trainer's `train_pre`); else `preprocess` decodes it. `bn_group`:
     the process group over which the batch is sharded, for the
-    BatchNorms' global-batch statistics (None: this batch alone). Returns
+    BatchNorms' global-batch statistics (None: this batch alone).
+    `forward`: `segmentation_forward` or `teacher_forward`. Returns
     {"loss", *parts, "tp", "fp", "fn"} as 0-dim device tensors."""
     if not preprocessed:
         batch = preprocess(batch)
-    rescale = unwrap(model).cfg.encoder.pos_embed_rescale
+    cfg = unwrap(model).cfg
+    rescale = getattr(cfg, "base", cfg).encoder.pos_embed_rescale
     n = batch["images"].shape[0]
     if n % accum_steps:
         raise ValueError(f"batch {n} does not split into {accum_steps} "
@@ -82,7 +119,7 @@ def train_step(model, optimizer, loss_module, batch, epoch: int, step: int,
     optimizer.zero_grad()
     out: Dict[str, torch.Tensor] = {}
     for j in range(accum_steps):
-        mb = {k: v[j * micro: (j + 1) * micro] for k, v in batch.items()}
+        mb = _rows(batch, j * micro, (j + 1) * micro)
         scale = None
         if rescale:
             # A Python float (the fp32 draw, exactly): FSDP2 moves tensor
@@ -90,9 +127,9 @@ def train_step(model, optimizer, loss_module, batch, epoch: int, step: int,
             # the host.
             scale = float(sample_rope_coord_scale(generator, rescale))
         with grad_sync(model, j == accum_steps - 1):
-            outputs = model(mb["images"].to(compute_dtype), training=True,
-                            rope_coord_scale=scale, remat_policy=remat_policy,
-                            bn_group=bn_group)
+            outputs = forward(model, mb, compute_dtype, True,
+                              rope_coord_scale=scale,
+                              remat_policy=remat_policy, bn_group=bn_group)
             loss, parts = loss_module(outputs, mb, epoch)
             (loss / accum_steps).backward()
         terms = {"loss": loss.detach() / accum_steps,
@@ -106,11 +143,11 @@ def train_step(model, optimizer, loss_module, batch, epoch: int, step: int,
 
 @torch.no_grad()
 def eval_step(model, loss_module, batch, epoch: int, *,
-              compute_dtype: torch.dtype = torch.float32
-              ) -> Dict[str, torch.Tensor]:
+              compute_dtype: torch.dtype = torch.float32,
+              forward=segmentation_forward) -> Dict[str, torch.Tensor]:
     """Forward with running-statistics BN, loss and confusion sums."""
     batch = preprocess(batch)
-    outputs = model(batch["images"].to(compute_dtype), training=False)
+    outputs = forward(model, batch, compute_dtype, False)
     outputs = {k: v.float() for k, v in outputs.items()}
     loss, parts = loss_module(outputs, batch, epoch)
     return {"loss": loss, **parts, **best_mask_metrics(outputs, batch["masks"])}

@@ -284,10 +284,23 @@ def test_mmdit_rope_and_primitives_match_jax():
 
 
 def test_int8_trees_raise_naming_the_queue():
-    tree = {"img_in": {"kernel_q": np.zeros((4, 4), np.int8),
-                       "kernel_scale": np.ones(4, np.float32)}}
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        tree_to_state_dict(tree)
+    """Int8 trees are ported (`tests/test_torch_quant.py`): a `kernel_q` /
+    `kernel_scale` node becomes a `QuantLinear`'s int8 `weight_q` (dout,
+    din) and fp32 `weight_scale`, and comes back unchanged; nothing
+    raises."""
+    rng = np.random.default_rng(0)
+    tree = {"img_in": {"kernel_q": rng.integers(-127, 128, (4, 6),
+                                                dtype=np.int8),
+                       "kernel_scale": rng.random(6).astype(np.float32)}}
+    sd = tree_to_state_dict(tree)
+    assert sd["img_in.weight_q"].dtype == torch.int8
+    assert sd["img_in.weight_q"].shape == (6, 4)
+    assert sd["img_in.weight_scale"].dtype == torch.float32
+    back = state_dict_to_tree(sd)["img_in"]
+    np.testing.assert_array_equal(back["kernel_q"], tree["img_in"]["kernel_q"])
+    assert back["kernel_q"].dtype == np.int8
+    np.testing.assert_array_equal(back["kernel_scale"],
+                                  tree["img_in"]["kernel_scale"])
 
 
 # ----------------------------------------------------------------------------

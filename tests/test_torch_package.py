@@ -187,6 +187,48 @@ def test_factory_cpu_generation_leaves_jax_triton_transformers_out():
     assert out.stdout.split() == ["[False,", "False,", "False,", "False]"]
 
 
+def test_last_modules_leave_jax_triton_transformers_and_s3od_tpu_out():
+    """The modules ported last (int8 residency, the FLUX and text-encoder
+    converters, the filter chain and its CLIs, the metadata CLI, teacher
+    training's dataset and entry point), an int8 tiny MMDiT forward and a
+    heuristic filter verdict, run on the CPU, import neither jax, nor
+    triton, nor transformers, nor any module of s3od_tpu."""
+    code = (
+        "import sys, tempfile, numpy as np, torch\n"
+        "from pathlib import Path\n"
+        "from PIL import Image\n"
+        "import s3od_torch.datagen.convert_flux\n"
+        "import s3od_torch.datagen.convert_text_encoders\n"
+        "import s3od_torch.datagen.run_filtering\n"
+        "import s3od_torch.datagen.generate_metadata\n"
+        "import s3od_torch.training.train\n"
+        "from s3od_torch.training.data import FluxFeatureDataset\n"
+        "from s3od_torch.datagen.filtering import Sample\n"
+        "from s3od_torch.datagen.filters import GemmaMaskArtifactFilter\n"
+        "from s3od_torch.ops import quant\n"
+        "from s3od_torch.models import mmdit\n"
+        "quant.MIN_QUANT_DIM = 32\n"
+        "m = mmdit.init_mmdit(mmdit.tiny_mmdit_config(),"
+        " torch.Generator().manual_seed(0), int8_weights=True)\n"
+        "ids = torch.zeros(4, 3)\n"
+        "out = m(latents=torch.zeros(1, 4, 16), txt=torch.zeros(1, 4, 64),"
+        " pooled=torch.zeros(1, 32), timestep=torch.ones(1),"
+        " img_ids=ids, txt_ids=ids, compute_dtype=torch.float32)\n"
+        "assert torch.isfinite(out['output']).all()\n"
+        "d = Path(tempfile.mkdtemp())\n"
+        "Image.fromarray(np.full((8, 8), 255, np.uint8)).save(d / 'm.png')\n"
+        "r = GemmaMaskArtifactFilter(model_id='/nonexistent', device='cpu')"
+        ".filter(Sample(d / 'i.jpg', d / 'm.png', 'c', '0'))\n"
+        "assert r.passed and r.metadata['heuristic']\n"
+        "print([any(m.split('.')[0] == n for m in sys.modules)\n"
+        "       for n in ('jax', 'triton', 'transformers', 's3od_tpu')])\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["[False,", "False,", "False,", "False]"]
+
+
 def test_factory_entry_points_default_to_the_card():
     """Without a card, every factory entry point refuses its default
     device rather than falling back to the CPU."""
@@ -218,6 +260,11 @@ def test_no_source_imports_jax_or_jax_modules():
     files = list(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert PKG / "datagen" / "diffusion.py" in files
     assert PKG / "models" / "mmdit.py" in files
+    for name in ("ops/quant.py", "datagen/convert_flux.py",
+                 "datagen/convert_text_encoders.py", "datagen/filtering.py",
+                 "datagen/filters/vlm.py", "datagen/filters/consistency.py",
+                 "datagen/run_filtering.py", "datagen/generate_metadata.py"):
+        assert PKG / name in files
     hits = [str(f) for f in files if pattern.search(f.read_text())]
     assert not hits
     # transformers only inside a function (lazily), never at module level

@@ -766,17 +766,19 @@ def test_train_entrypoint_end_to_end_with_resume(tmp_path):
 
 @pytest.mark.parametrize("override", ["backend.devices=2", "backend.fsdp=2"])
 def test_train_entrypoint_raises_for_what_is_not_ported(tmp_path, override):
-    """Teacher training is not ported and raises naming the ROADMAP; data
-    parallelism is (`tests/test_torch_parallel.py`), and with these
-    overrides the entry point refuses only what it cannot honour: more
-    devices than the visible cards, an fsdp that does not divide the world
-    size (here 1)."""
+    """Teacher training runs on one device whatever the backend asks (as
+    the JAX trainer does) and refuses to start without its features
+    (`tests/test_torch_teacher_training.py` trains it); data parallelism
+    is ported (`tests/test_torch_parallel.py`), and with these overrides
+    the entry point refuses only what it cannot honour: more devices than
+    the visible cards, an fsdp that does not divide the world size (here
+    1)."""
     from s3od_torch.training.train import train
 
     base = ["model=tiny", "dataset.transform_mode=test",
             f"data_dir={tmp_path}", f"base_dir={tmp_path}", override]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train(base + ["backend=cpu", "config_name=train_teacher"])
+    with pytest.raises(ValueError, match="flux_features_dir"):
+        train(base[1:] + ["backend=cpu", "config_name=train_teacher"])
     if override == "backend.devices=2":
         if torch.cuda.device_count() >= 2:
             pytest.skip("two CUDA devices are present")
