@@ -16,8 +16,10 @@ compiles), `triton_cache()` points Triton's compile cache into the same
 build directory, and restores the caller's setting afterwards.
 
 The stream API launches from several threads at once, so the build runs
-under a lock, and every wrapper counts its launches with `count_launch`,
-under another.
+under a lock. Every wrapper runs its CUDA route, from its output
+allocations to `check`, inside `launch(wrapper)`: the profiler range
+`s3od.kernel.<wrapper>` while a profiler records, and on success one more
+of the wrapper's `.launches`, counted under another lock.
 
 The serving kernels (K1-K6, K9a, K9b, K10) are also registered as
 `torch.library` ops in the `s3od::` namespace, each with a fake
@@ -46,6 +48,8 @@ import threading
 from pathlib import Path
 
 import torch
+
+from s3od_torch.profiling import span
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 DEFAULT_BUILD_DIR = (Path(__file__).resolve().parent.parent / "build"
@@ -189,8 +193,13 @@ def _build_and_load() -> ctypes.CDLL:
     return lib
 
 
-def count_launch(wrapper) -> None:
-    """Add one to a kernel wrapper's launch count (thread-safe)."""
+@contextlib.contextmanager
+def launch(wrapper):
+    """The scope of one launch of a kernel wrapper's CUDA route: the span
+    `s3od.kernel.<wrapper.__name__>` over it, and one more of
+    `wrapper.launches` (thread-safe) when it exits without raising."""
+    with span(f"s3od.kernel.{wrapper.__name__}"):
+        yield
     with _COUNT_LOCK:
         wrapper.launches += 1
 

@@ -114,9 +114,9 @@ def exp2_flash(q, k, v, scale: float, block_q: int, block_k: int,
         raise ValueError(f"exp2_flash: n_valid {n_valid} outside (0, {n}]")
     fv.check_inputs("exp2_flash", q, k, v)
     n_pad = padded_len(n, block_q, block_k)
-    out = fv.launch(_scaled(q, scale), k, v, key_bias(n, n_valid, q.device),
-                    SOFTMAX, want_lse=True, extra_keys=n_pad - n)
-    _build.count_launch(exp2_flash)
+    with _build.launch(exp2_flash):
+        out = fv.launch(_scaled(q, scale), k, v, key_bias(n, n_valid, q.device),
+                        SOFTMAX, want_lse=True, extra_keys=n_pad - n)
     return out
 
 
@@ -163,13 +163,13 @@ def exp_loop(x, variant: str, programs: int = LOOP_PROGRAMS, reps: int = REPS):
                          f"programs {programs} (>= {OUT_BLOCKS})")
     x = x.contiguous()
     b = x.shape[0]
-    out = torch.empty((OUT_BLOCKS * b, b), device=x.device, dtype=torch.float32)
-    lib = _build.load_library()
-    code = lib.s3od_exp_loop(x.data_ptr(), out.data_ptr(), b * b, programs,
-                             reps, LOOP_VARIANTS.index(variant),
-                             _build.stream_ptr(x))
-    _build.check(code, "exp_loop")
-    _build.count_launch(exp_loop)
+    with _build.launch(exp_loop):
+        out = torch.empty((OUT_BLOCKS * b, b), device=x.device, dtype=torch.float32)
+        lib = _build.load_library()
+        code = lib.s3od_exp_loop(x.data_ptr(), out.data_ptr(), b * b, programs,
+                                 reps, LOOP_VARIANTS.index(variant),
+                                 _build.stream_ptr(x))
+        _build.check(code, "exp_loop")
     return out
 
 

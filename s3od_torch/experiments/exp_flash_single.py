@@ -73,9 +73,9 @@ def flash_single(q, k, v, bias, scale: float, variant: str):
         return flash_single_plain(q, k, v, bias, scale, variant)
     bias = bias.reshape(-1)
     fv.check_inputs("flash_single", q, k, v, bias)
-    out = fv.launch(_prepare(q, variant, scale), k, v, bias,
-                    softmax_for(variant, scale), want_lse=True)
-    _build.count_launch(flash_single)
+    with _build.launch(flash_single):
+        out = fv.launch(_prepare(q, variant, scale), k, v, bias,
+                        softmax_for(variant, scale), want_lse=True)
     return out
 
 

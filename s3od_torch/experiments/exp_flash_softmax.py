@@ -63,8 +63,8 @@ def flash_softmax(q, k, v, scale: float, variant: str):
     if q.device.type == "cpu":
         return flash_softmax_plain(q, k, v, scale, variant)
     fv.check_inputs("flash_softmax", q, k, v)
-    o, _ = fv.launch(q, k, v, None, softmax_for(variant, scale), want_lse=False)
-    _build.count_launch(flash_softmax)
+    with _build.launch(flash_softmax):
+        o, _ = fv.launch(q, k, v, None, softmax_for(variant, scale), want_lse=False)
     return o
 
 

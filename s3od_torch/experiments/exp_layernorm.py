@@ -107,13 +107,13 @@ def layer_norm_single_pass(x, w, b, eps: float = EPS):
             or b.dtype != torch.float32):
         raise ValueError("layer_norm_single_pass kernel: w, b must be fp32 (C,)")
     x2, w, b = (_build.aligned16(t) for t in (x.reshape(-1, c), w, b))
-    y = torch.empty_like(x2)
-    lib = _build.load_library()
-    code = lib.s3od_ln_single_pass(
-        x2.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), x2.shape[0], c,
-        float(eps), _build.stream_ptr(x2))
-    _build.check(code, "layer_norm_single_pass")
-    _build.count_launch(layer_norm_single_pass)
+    with _build.launch(layer_norm_single_pass):
+        y = torch.empty_like(x2)
+        lib = _build.load_library()
+        code = lib.s3od_ln_single_pass(
+            x2.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), x2.shape[0], c,
+            float(eps), _build.stream_ptr(x2))
+        _build.check(code, "layer_norm_single_pass")
     return y.view(x.shape)
 
 

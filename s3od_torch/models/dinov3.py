@@ -45,6 +45,7 @@ from s3od_torch.ops.layernorm import layer_norm_autograd, layer_norm_exact
 from s3od_torch.ops.mlp_fused import mlp_fused_autograd
 from s3od_torch.ops.qkv_project import qkv_project_rope_autograd, rotate_half
 from s3od_torch.ops.remat import context_fn as remat_context
+from s3od_torch.profiling import span
 
 ROUTES = ("kernel", "exact")
 
@@ -97,11 +98,13 @@ def rope_tables(nh, nw, head_dim, theta, n_prefix, n_run, device,
     """`_full_tables`, or tables built anew for a rescaled step. While
     `torch.export` traces, the tables are built in the graph and not
     cached: the cache would hand the trace's fake tensors to the next
-    eager call."""
+    eager call. Tables built anew (on the host, then uploaded) are the
+    span `s3od.encoder.rope_tables`."""
     if coord_scale is None and not torch.compiler.is_exporting():
         return _full_tables(nh, nw, head_dim, theta, n_prefix, n_run, device)
-    return _tables(nh, nw, head_dim, theta, n_prefix, n_run, device,
-                   coord_scale)
+    with span("s3od.encoder.rope_tables"):
+        return _tables(nh, nw, head_dim, theta, n_prefix, n_run, device,
+                       coord_scale)
 
 
 def _tables(nh, nw, head_dim, theta, n_prefix, n_run, device,

@@ -124,16 +124,16 @@ def _attn_epilogue(a, wo, bo, x, ls, lw, lb, eps: float):
             f"attn_epilogue kernel: unsupported a={tuple(a.shape)} "
             f"x={tuple(x.shape)}")
     a, wo, bo, x, ls, lw, lb = (_build.aligned16(t) for t in tensors)
-    xn = torch.empty_like(x)
-    hn = torch.empty_like(x)
-    lib = _build.load_library()
-    code = lib.s3od_attn_epilogue(
-        a.data_ptr(), wo.data_ptr(), bo.data_ptr(), x.data_ptr(),
-        ls.data_ptr(), lw.data_ptr(), lb.data_ptr(), xn.data_ptr(),
-        hn.data_ptr(), b, n, c, h, d, float(eps), _build.stream_ptr(x),
-    )
-    _build.check(code, "attn_epilogue")
-    _build.count_launch(attn_epilogue)
+    with _build.launch(attn_epilogue):
+        xn = torch.empty_like(x)
+        hn = torch.empty_like(x)
+        lib = _build.load_library()
+        code = lib.s3od_attn_epilogue(
+            a.data_ptr(), wo.data_ptr(), bo.data_ptr(), x.data_ptr(),
+            ls.data_ptr(), lw.data_ptr(), lb.data_ptr(), xn.data_ptr(),
+            hn.data_ptr(), b, n, c, h, d, float(eps), _build.stream_ptr(x),
+        )
+        _build.check(code, "attn_epilogue")
     return xn, hn
 
 

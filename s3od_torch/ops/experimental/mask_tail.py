@@ -209,15 +209,15 @@ def _mask_tail(x, w1, b1, w0, b0, k1, bk):
                          f"k1={tuple(k1.shape)}")
     w1, b1, w0, b0, k1, bk = (_build.aligned16(t.to(x.dtype).contiguous())
                               for t in (w1, b1, w0, b0, k1, bk))
-    out = _empty_like_layout(x, nout)
-    lib = _build.load_library()
-    code = lib.s3od_mask_tail(
-        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w0.data_ptr(),
-        b0.data_ptr(), k1.data_ptr(), bk.data_ptr(), out.data_ptr(),
-        bsz, h, w, cin, cmid, nout, *x.stride(), *out.stride(),
-        _build.stream_ptr(x))
-    _build.check(code, "mask_tail")
-    _build.count_launch(mask_tail)
+    with _build.launch(mask_tail):
+        out = _empty_like_layout(x, nout)
+        lib = _build.load_library()
+        code = lib.s3od_mask_tail(
+            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w0.data_ptr(),
+            b0.data_ptr(), k1.data_ptr(), bk.data_ptr(), out.data_ptr(),
+            bsz, h, w, cin, cmid, nout, *x.stride(), *out.stride(),
+            _build.stream_ptr(x))
+        _build.check(code, "mask_tail")
     return out
 
 

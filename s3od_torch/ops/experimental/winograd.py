@@ -493,17 +493,17 @@ def _winograd_conv(x, w, b):
     k = w.shape[-1]
     w = w.to(x.dtype)
     bias = b.to(x.dtype).contiguous()
-    ubuf = torch.empty(plan["u_shape"], dtype=x.dtype, device=x.device)
-    vbuf = torch.empty(plan["v_shape"], dtype=x.dtype, device=x.device)
-    out = _empty_like_layout(x, k)
-    lib = _build.load_library()
-    code = lib.s3od_winograd_conv(
-        x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        ubuf.data_ptr(), vbuf.data_ptr(), bsz, c, h, wd, k, plan["chunk_rows"],
-        plan["route"], *w.stride(), *x.stride(), *out.stride(),
-        _build.stream_ptr(x))
-    _build.check(code, "winograd_conv")
-    _build.count_launch(winograd_conv)
+    with _build.launch(winograd_conv):
+        ubuf = torch.empty(plan["u_shape"], dtype=x.dtype, device=x.device)
+        vbuf = torch.empty(plan["v_shape"], dtype=x.dtype, device=x.device)
+        out = _empty_like_layout(x, k)
+        lib = _build.load_library()
+        code = lib.s3od_winograd_conv(
+            x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            ubuf.data_ptr(), vbuf.data_ptr(), bsz, c, h, wd, k, plan["chunk_rows"],
+            plan["route"], *w.stride(), *x.stride(), *out.stride(),
+            _build.stream_ptr(x))
+        _build.check(code, "winograd_conv")
     return out
 
 
@@ -531,18 +531,18 @@ def _winograd_rcu(x, w1, b1, w2, b2):
     w1, w2 = w1.to(x.dtype), w2.to(x.dtype)
     b1, b2 = b1.to(x.dtype).contiguous(), b2.to(x.dtype).contiguous()
     plan = rcu_plan(bsz, h, wd, c)
-    ubuf = torch.empty(plan["u_shape"], dtype=x.dtype, device=x.device)
-    hbuf = torch.empty(plan["h_shape"], dtype=x.dtype, device=x.device)
-    vbuf = torch.empty(plan["v_shape"], dtype=x.dtype, device=x.device)
-    out = _empty_like_layout(x, c)
-    lib = _build.load_library()
-    code = lib.s3od_winograd_rcu(
-        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), ubuf.data_ptr(), hbuf.data_ptr(), vbuf.data_ptr(),
-        out.data_ptr(), bsz, c, h, wd, *w1.stride(), *w2.stride(),
-        *x.stride(), *out.stride(), _build.stream_ptr(x))
-    _build.check(code, "winograd_rcu")
-    _build.count_launch(winograd_rcu)
+    with _build.launch(winograd_rcu):
+        ubuf = torch.empty(plan["u_shape"], dtype=x.dtype, device=x.device)
+        hbuf = torch.empty(plan["h_shape"], dtype=x.dtype, device=x.device)
+        vbuf = torch.empty(plan["v_shape"], dtype=x.dtype, device=x.device)
+        out = _empty_like_layout(x, c)
+        lib = _build.load_library()
+        code = lib.s3od_winograd_rcu(
+            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            b2.data_ptr(), ubuf.data_ptr(), hbuf.data_ptr(), vbuf.data_ptr(),
+            out.data_ptr(), bsz, c, h, wd, *w1.stride(), *w2.stride(),
+            *x.stride(), *out.stride(), _build.stream_ptr(x))
+        _build.check(code, "winograd_rcu")
     return out
 
 

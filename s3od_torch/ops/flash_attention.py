@@ -139,15 +139,15 @@ def _flash_attention(q, k, v, n_valid: int):
             f"flash_attention kernel: unsupported N={n} D={d} "
             f"n_valid={n_valid}")
     q, k, v = (_build.aligned16(t) for t in (q, k, v))
-    o = torch.empty_like(q)
-    lse = torch.empty((bh, n), device=q.device, dtype=torch.float32)
-    lib = _build.load_library()
-    code = lib.s3od_flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), bh, n, d, n_valid, _build.stream_ptr(q),
-    )
-    _build.check(code, "flash_attention")
-    _build.count_launch(flash_attention)
+    with _build.launch(flash_attention):
+        o = torch.empty_like(q)
+        lse = torch.empty((bh, n), device=q.device, dtype=torch.float32)
+        lib = _build.load_library()
+        code = lib.s3od_flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), bh, n, d, n_valid, _build.stream_ptr(q),
+        )
+        _build.check(code, "flash_attention")
     return o, lse
 
 
@@ -238,19 +238,19 @@ def flash_attention_bwd(q, k, v, o, lse, g, n_valid: int):
             f"flash_attention_bwd kernel: unsupported N={n} D={d} "
             f"n_valid={n_valid}")
     q, k, v, o, g, lse = (_build.aligned16(t) for t in (q, k, v, o, g, lse))
-    delta = torch.empty((bh, n), device=q.device, dtype=torch.float32)
-    dq_acc = (torch.zeros((bh, n, d), device=q.device, dtype=torch.float32)
-              if d == 128 else None)
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    lib = _build.load_library()
-    code = lib.s3od_flash_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(),
-        None if dq_acc is None else dq_acc.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), bh, n, d, n_valid, _build.stream_ptr(q),
-    )
-    _build.check(code, "flash_attention_bwd")
-    _build.count_launch(flash_attention_bwd)
+    with _build.launch(flash_attention_bwd):
+        delta = torch.empty((bh, n), device=q.device, dtype=torch.float32)
+        dq_acc = (torch.zeros((bh, n, d), device=q.device, dtype=torch.float32)
+                  if d == 128 else None)
+        dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+        lib = _build.load_library()
+        code = lib.s3od_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(),
+            None if dq_acc is None else dq_acc.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), bh, n, d, n_valid, _build.stream_ptr(q),
+        )
+        _build.check(code, "flash_attention_bwd")
     return dq, dk, dv
 
 
@@ -425,15 +425,15 @@ def flash_attention_online(q, k, v, n_valid: int):
             f"flash_attention_online kernel: unsupported N={n} D={d} "
             f"n_valid={n_valid}")
     q, k, v = (_build.aligned16(t) for t in (q, k, v))
-    o = torch.empty_like(q)
-    lse = torch.empty((bh, n), device=q.device, dtype=torch.float32)
-    lib = _build.load_library()
-    code = lib.s3od_flash_attention_online_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), bh, n, d, n_valid, _build.stream_ptr(q),
-    )
-    _build.check(code, "flash_attention_online")
-    _build.count_launch(flash_attention_online)
+    with _build.launch(flash_attention_online):
+        o = torch.empty_like(q)
+        lse = torch.empty((bh, n), device=q.device, dtype=torch.float32)
+        lib = _build.load_library()
+        code = lib.s3od_flash_attention_online_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), bh, n, d, n_valid, _build.stream_ptr(q),
+        )
+        _build.check(code, "flash_attention_online")
     return o, lse
 
 

@@ -97,16 +97,16 @@ def _layer_norm(x, weight, bias, eps: float):
         raise ValueError("layer_norm kernel: weight/bias must be (C,)")
     x2 = x.contiguous().view(-1, c)
     rows = x2.shape[0]
-    y = torch.empty_like(x2)
-    mean = torch.empty((rows, 1), device=x.device, dtype=torch.float32)
-    rstd = torch.empty_like(mean)
-    triton, kernel = _triton_kernel()
-    with _build.triton_cache():
-        kernel[(rows,)](
-            x2, weight.contiguous(), bias.contiguous(), y, mean, rstd, c, eps,
-            BLOCK=triton.next_power_of_2(c), num_warps=4,
-        )
-    _build.count_launch(layer_norm)
+    with _build.launch(layer_norm):
+        y = torch.empty_like(x2)
+        mean = torch.empty((rows, 1), device=x.device, dtype=torch.float32)
+        rstd = torch.empty_like(mean)
+        triton, kernel = _triton_kernel()
+        with _build.triton_cache():
+            kernel[(rows,)](
+                x2, weight.contiguous(), bias.contiguous(), y, mean, rstd, c, eps,
+                BLOCK=triton.next_power_of_2(c), num_warps=4,
+            )
     lead = x.shape[:-1]
     return y.view(x.shape), mean.view(*lead, 1), rstd.view(*lead, 1)
 

@@ -150,17 +150,17 @@ def _mlp_fused(x_ln, wu, bu, wd, bd, res, ls):
             f"mlp_fused kernel: unsupported x={tuple(x_ln.shape)} "
             f"wu={tuple(wu.shape)} wd={tuple(wd.shape)}")
     x_ln, wu, bu, wd, bd, res, ls = (_build.aligned16(t) for t in tensors)
-    out = torch.empty_like(res)
-    h = torch.empty((*x_ln.shape[:-1], f), device=x_ln.device,
-                    dtype=torch.bfloat16)
-    lib = _build.load_library()
-    code = lib.s3od_mlp_fused(
-        x_ln.data_ptr(), wu.data_ptr(), bu.data_ptr(), wd.data_ptr(),
-        bd.data_ptr(), res.data_ptr(), ls.data_ptr(), out.data_ptr(),
-        h.data_ptr(), rows, c, f, _build.stream_ptr(x_ln),
-    )
-    _build.check(code, "mlp_fused")
-    _build.count_launch(mlp_fused)
+    with _build.launch(mlp_fused):
+        out = torch.empty_like(res)
+        h = torch.empty((*x_ln.shape[:-1], f), device=x_ln.device,
+                        dtype=torch.bfloat16)
+        lib = _build.load_library()
+        code = lib.s3od_mlp_fused(
+            x_ln.data_ptr(), wu.data_ptr(), bu.data_ptr(), wd.data_ptr(),
+            bd.data_ptr(), res.data_ptr(), ls.data_ptr(), out.data_ptr(),
+            h.data_ptr(), rows, c, f, _build.stream_ptr(x_ln),
+        )
+        _build.check(code, "mlp_fused")
     return out, h
 
 

@@ -142,16 +142,16 @@ def _qkv_project_rope(x, weight, bias, cos, sin, num_heads: int, scale: float):
         raise ValueError("qkv_project_rope kernel: fp32 (N, D) tables")
     x, weight, bias, cos, sin = (_build.aligned16(t)
                                  for t in (x, weight, bias, cos, sin))
-    q, k, v = (torch.empty((b, num_heads, n, d), device=x.device,
-                           dtype=x.dtype) for _ in range(3))
-    lib = _build.load_library()
-    code = lib.s3od_qkv_project_rope(
-        x.data_ptr(), weight.data_ptr(), bias.data_ptr(), cos.data_ptr(),
-        sin.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        b, n, c, num_heads, d, float(scale), _build.stream_ptr(x),
-    )
-    _build.check(code, "qkv_project_rope")
-    _build.count_launch(qkv_project_rope)
+    with _build.launch(qkv_project_rope):
+        q, k, v = (torch.empty((b, num_heads, n, d), device=x.device,
+                               dtype=x.dtype) for _ in range(3))
+        lib = _build.load_library()
+        code = lib.s3od_qkv_project_rope(
+            x.data_ptr(), weight.data_ptr(), bias.data_ptr(), cos.data_ptr(),
+            sin.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            b, n, c, num_heads, d, float(scale), _build.stream_ptr(x),
+        )
+        _build.check(code, "qkv_project_rope")
     return q, k, v
 
 

@@ -11,14 +11,23 @@ synchronises the stream), else on the host's clock.
 
 `capture_trace` runs a callable under `torch.profiler` and writes a
 Chrome trace; `summarize_trace` aggregates its device-kernel durations
-by kernel family and by kernel (on a trace without device work, the
-outermost host operators instead), and `print_summary` prints the
-tables, as the JAX package's helpers do for a `jax.profiler` trace.
+by kernel family, by kernel and by the port's spans (on a trace without
+device work, the outermost host operators instead), and `print_summary`
+prints the tables, as the JAX package's helpers do for a `jax.profiler`
+trace.
+
+`span(name)` marks a phase of the port (`s3od.train.forward`,
+`s3od.kernel.flash_attention_bwd`, ...) as a `record_function` range
+while a profiler records, so that it lands in the same trace as the
+device's kernels, on their clock; with no profiler running it opens
+nothing (one flag read).
 """
 
 from __future__ import annotations
 
+import bisect
 import collections
+import contextlib
 import gzip
 import json
 import os
@@ -27,6 +36,23 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Callable, Dict
+
+import torch
+from torch.autograd import profiler as _autograd_profiler
+
+SPAN_PREFIX = "s3od."
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager that opens the profiler range `name` while a
+    profiler records (`torch.autograd.profiler._is_profiler_enabled`;
+    where a torch lacks that flag, always), and does nothing otherwise or
+    while `torch.export` traces (a range would enter the graph)."""
+    if (not getattr(_autograd_profiler, "_is_profiler_enabled", True)
+            or torch.compiler.is_exporting()):
+        return _NO_SPAN
+    return _autograd_profiler.record_function(name)
 
 
 def slope_time(
@@ -45,8 +71,6 @@ def slope_time(
 
     def run(n):
         if cuda:
-            import torch
-
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             start.record()
         t0 = time.perf_counter()
@@ -73,8 +97,6 @@ def device_description(device) -> str:
     """The card's name and power limit as `nvidia-smi --query-gpu=name,
     power.limit --format=csv,noheader` gives them (its name alone where
     nvidia-smi cannot be run), or "cpu"."""
-    import torch
-
     dev = torch.device(device)
     if dev.type != "cuda":
         return "cpu"
@@ -92,7 +114,6 @@ def capture_trace(fn: Callable[[], object], trace_dir: str, iters: int = 3) -> s
     """Run `fn` `iters` times under `torch.profiler` (CPU, and CUDA when a
     card is present; the card is synchronised before the trace closes) and
     write a Chrome trace; returns its `.json.gz` path."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     cuda = torch.cuda.is_available()
@@ -137,7 +158,11 @@ def summarize_trace(trace_path: str, *, iters: int = 3, top_k: int = 15) -> Dict
     Device work (CUDA kernels, copies and sets) when the trace holds any;
     else the outermost host operators ("cpu_op"). Returns {"source":
     "device" | "host", "total_ms": per-iteration sum, "by_category":
-    [(family, ms, count per iteration)], "top_ops": [(ms, name)]}."""
+    [(family, ms, count per iteration)], "top_ops": [(ms, name)],
+    "by_span": [(span name, ms, count per iteration)]}: `by_span` is the
+    work launched inside each `span` of the port (device work by the
+    runtime or driver call that launched it, host operators by their own
+    start) on the same thread."""
     opener = gzip.open if str(trace_path).endswith(".gz") else open
     with opener(trace_path, "rt") as f:
         events = [e for e in json.load(f).get("traceEvents", [])
@@ -163,7 +188,49 @@ def summarize_trace(trace_path: str, *, iters: int = 3, top_k: int = 15) -> Dict
     top_ops = sorted(((v / iters / 1e3, n) for n, v in durs.items()),
                      key=lambda kv: -kv[0])[:top_k]
     return {"source": source, "total_ms": total, "by_category": by_category,
-            "top_ops": top_ops}
+            "top_ops": top_ops, "by_span": _by_span(events, picked, iters)}
+
+
+def _by_span(events, picked, iters: int):
+    """[(span name, ms, count per iteration)] of the `picked` events
+    launched inside the `SPAN_PREFIX` ranges of each name, on the same
+    thread (a range nested in one of its own name counts once)."""
+    launches = {e["args"]["correlation"]: e for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    origins = []
+    for e in picked:
+        at = e
+        if e.get("cat") in DEVICE_CATS:
+            at = launches.get(e.get("args", {}).get("correlation"))
+        if at is not None:
+            origins.append(((at.get("pid"), at.get("tid")), at["ts"], e.get("dur", 0)))
+    ranges = collections.defaultdict(lambda: collections.defaultdict(list))
+    for e in events:
+        if e.get("cat") == "user_annotation" and e["name"].startswith(SPAN_PREFIX):
+            ranges[e["name"]][(e.get("pid"), e.get("tid"))].append(
+                (e["ts"], e["ts"] + e.get("dur", 0)))
+    out = []
+    for name, by_thread in ranges.items():
+        merged = {}
+        for thread, spans in by_thread.items():
+            merged[thread] = []
+            for a, b in sorted(spans):
+                if merged[thread] and a <= merged[thread][-1][1]:
+                    merged[thread][-1][1] = max(merged[thread][-1][1], b)
+                else:
+                    merged[thread].append([a, b])
+        dur, count = 0.0, 0
+        for thread, t, d in origins:
+            spans = merged.get(thread)
+            if not spans:
+                continue
+            i = bisect.bisect_right(spans, [t, float("inf")]) - 1
+            if i >= 0 and t <= spans[i][1]:
+                dur += d
+                count += 1
+        out.append((name, dur / iters / 1e3, count // iters))
+    return sorted(out, key=lambda kv: -kv[1])
 
 
 def print_summary(summary: Dict) -> None:
@@ -174,3 +241,7 @@ def print_summary(summary: Dict) -> None:
     print("top ops:")
     for ms, name in summary["top_ops"]:
         print(f"  {ms:8.3f} ms  {name}")
+    if summary.get("by_span"):
+        print("by span:")
+        for name, ms, cnt in summary["by_span"]:
+            print(f"  {ms:8.3f} ms  x{cnt:4d}  {name}")

@@ -16,6 +16,11 @@ batch (rows r::W): the gradients are reduced in the backward of the last
 micro-batch only (`parallel.mesh.grad_sync`), and the returned sums are
 this rank's (the trainer reduces them over the ranks once an epoch).
 
+While a profiler records, the step and its phases are spans
+(`profiling.span`): `s3od.train.step`, inside it `s3od.train.preprocess`
+(once, where it runs), per micro-batch `s3od.train.forward`, `.loss`,
+`.backward` and `.metrics`, then `s3od.train.optimizer`.
+
 The FLUX teacher trains through the same steps with `forward=
 teacher_forward`, which feeds it the batch's `transformer_features` and
 `concept_maps` beside the images (JAX `make_train_step(forward_fn=)`,
@@ -30,6 +35,7 @@ import torch
 
 from s3od_torch.models.dinov3 import sample_rope_coord_scale
 from s3od_torch.parallel.mesh import grad_sync, unwrap
+from s3od_torch.profiling import span
 
 # ImageNet statistics (`s3od_tpu/ops/augment.py:normalize_imagenet`).
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -107,37 +113,45 @@ def train_step(model, optimizer, loss_module, batch, epoch: int, step: int,
     BatchNorms' global-batch statistics (None: this batch alone).
     `forward`: `segmentation_forward` or `teacher_forward`. Returns
     {"loss", *parts, "tp", "fp", "fn"} as 0-dim device tensors."""
-    if not preprocessed:
-        batch = preprocess(batch)
-    cfg = unwrap(model).cfg
-    rescale = getattr(cfg, "base", cfg).encoder.pos_embed_rescale
-    n = batch["images"].shape[0]
-    if n % accum_steps:
-        raise ValueError(f"batch {n} does not split into {accum_steps} "
-                         "micro-batches")
-    micro = n // accum_steps
-    optimizer.zero_grad()
-    out: Dict[str, torch.Tensor] = {}
-    for j in range(accum_steps):
-        mb = _rows(batch, j * micro, (j + 1) * micro)
-        scale = None
-        if rescale:
-            # A Python float (the fp32 draw, exactly): FSDP2 moves tensor
-            # arguments to the device, and the RoPE tables are built on
-            # the host.
-            scale = float(sample_rope_coord_scale(generator, rescale))
-        with grad_sync(model, j == accum_steps - 1):
-            outputs = forward(model, mb, compute_dtype, True,
-                              rope_coord_scale=scale,
-                              remat_policy=remat_policy, bn_group=bn_group)
-            loss, parts = loss_module(outputs, mb, epoch)
-            (loss / accum_steps).backward()
-        terms = {"loss": loss.detach() / accum_steps,
-                 **{k: v.detach() / accum_steps for k, v in parts.items()},
-                 **best_mask_metrics(outputs, mb["masks"])}
-        for k, v in terms.items():
-            out[k] = out[k] + v if k in out else v
-    optimizer.step(step)
+    with span("s3od.train.step"):
+        if not preprocessed:
+            with span("s3od.train.preprocess"):
+                batch = preprocess(batch)
+        cfg = unwrap(model).cfg
+        rescale = getattr(cfg, "base", cfg).encoder.pos_embed_rescale
+        n = batch["images"].shape[0]
+        if n % accum_steps:
+            raise ValueError(f"batch {n} does not split into {accum_steps} "
+                             "micro-batches")
+        micro = n // accum_steps
+        optimizer.zero_grad()
+        out: Dict[str, torch.Tensor] = {}
+        for j in range(accum_steps):
+            mb = _rows(batch, j * micro, (j + 1) * micro)
+            scale = None
+            if rescale:
+                # A Python float (the fp32 draw, exactly): FSDP2 moves tensor
+                # arguments to the device, and the RoPE tables are built on
+                # the host.
+                scale = float(sample_rope_coord_scale(generator, rescale))
+            with grad_sync(model, j == accum_steps - 1):
+                with span("s3od.train.forward"):
+                    outputs = forward(model, mb, compute_dtype, True,
+                                      rope_coord_scale=scale,
+                                      remat_policy=remat_policy,
+                                      bn_group=bn_group)
+                with span("s3od.train.loss"):
+                    loss, parts = loss_module(outputs, mb, epoch)
+                with span("s3od.train.backward"):
+                    (loss / accum_steps).backward()
+            with span("s3od.train.metrics"):
+                terms = {"loss": loss.detach() / accum_steps,
+                         **{k: v.detach() / accum_steps for k, v in parts.items()},
+                         **best_mask_metrics(outputs, mb["masks"])}
+                for k, v in terms.items():
+                    out[k] = out[k] + v if k in out else v
+        with span("s3od.train.optimizer"):
+            optimizer.step(step)
     return out
 
 

@@ -157,7 +157,8 @@ def test_launch_counts_are_exact_across_threads():
 
     def bump():
         for _ in range(5000):
-            _build.count_launch(wrapper)
+            with _build.launch(wrapper):
+                pass
 
     threads = [threading.Thread(target=bump) for _ in range(16)]
     interval = sys.getswitchinterval()

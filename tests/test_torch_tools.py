@@ -323,10 +323,18 @@ def test_efficiency_report_and_parameter_count(dtype, tmp_path):
 
 
 def test_summarize_trace_on_a_cpu_trace(tmp_path, capsys):
-    from s3od_torch.profiling import capture_trace, print_summary, summarize_trace
+    from s3od_torch.profiling import (capture_trace, print_summary, span,
+                                      summarize_trace)
 
     a = torch.randn(96, 96)
-    path = capture_trace(lambda: torch.relu(a @ a), str(tmp_path), iters=3)
+
+    def fn():
+        with span("s3od.test.outer"):
+            b = a @ a
+            with span("s3od.test.inner"):
+                return torch.relu(b)
+
+    path = capture_trace(fn, str(tmp_path), iters=3)
     assert path.endswith(".json.gz") and Path(path).exists()
     summary = summarize_trace(path, iters=3, top_k=5)
     assert summary["source"] == "host"
@@ -335,5 +343,46 @@ def test_summarize_trace_on_a_cpu_trace(tmp_path, capsys):
     assert cats.get("matmul") == 1 and cats.get("relu") == 1
     assert "mm" not in cats
     assert summary["total_ms"] > 0 and len(summary["top_ops"]) <= 5
+    # by span: the operators started inside each span, per iteration
+    spans = {name: (ms, cnt) for name, ms, cnt in summary["by_span"]}
+    assert spans.keys() == {"s3od.test.outer", "s3od.test.inner"}
+    assert spans["s3od.test.outer"][1] == 2 and spans["s3od.test.inner"][1] == 1
+    assert 0 < spans["s3od.test.inner"][0] <= spans["s3od.test.outer"][0]
     print_summary(summary)
-    assert "host total:" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "host total:" in out and "by span:" in out
+    assert "s3od.test.inner" in out
+
+
+def test_summarize_trace_by_span_reads_device_work_by_its_launch(tmp_path):
+    """Device work is put down to the span around the runtime or driver
+    call that launched it (joined by correlation id), on that call's
+    thread: not to a span of another thread open at the same time, nor to
+    the span open while the kernel itself ran."""
+    from s3od_torch.profiling import summarize_trace
+
+    def x(name, cat, ts, dur, tid, **args):
+        return {"ph": "X", "name": name, "cat": cat, "ts": ts, "dur": dur,
+                "pid": 1, "tid": tid, "args": args}
+
+    events = [
+        x("s3od.kernel.flash_attention_bwd", "user_annotation", 0, 10, 2),
+        x("cudaLaunchKernel", "cuda_runtime", 2, 1, 2, correlation=7),
+        x("cuLaunchKernelEx", "cuda_driver", 5, 1, 2, correlation=8),
+        x("s3od.train.forward", "user_annotation", 0, 100, 1),
+        x("cudaMemsetAsync", "cuda_runtime", 20, 1, 1, correlation=9),
+        x("s3od.train.optimizer", "user_annotation", 200, 50, 1),
+        x("bwd_dkv_kernel", "kernel", 210, 300, 0, correlation=7),
+        x("bwd_dq_kernel", "kernel", 510, 200, 0, correlation=8),
+        x("Memset (Device)", "gpu_memset", 30, 4, 0, correlation=9),
+        x("orphan_kernel", "kernel", 220, 40, 0, correlation=99),
+    ]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    summary = summarize_trace(str(path), iters=1)
+    assert summary["source"] == "device"
+    spans = {name: (ms, cnt) for name, ms, cnt in summary["by_span"]}
+    assert spans["s3od.kernel.flash_attention_bwd"] == (pytest.approx(0.5), 2)
+    assert spans["s3od.train.forward"] == (pytest.approx(0.004), 1)
+    assert spans["s3od.train.optimizer"] == (0.0, 0)
+    assert [n for n, _, _ in summary["by_span"]][0] == "s3od.kernel.flash_attention_bwd"
