@@ -30,7 +30,11 @@ all started together) and the Triton kernel, then:
      CUDA events around single calls, median of 25, which include the
      host launch; K3 and K6, and K8 below, also by CUDA events around
      back-to-back calls, the time they report, with SDPA by the same
-     clocks); it logs which kernel serves D = 32;
+     clocks); it logs which kernel serves D = 32; then the Triton pass of
+     each of K2's, K4's and K5's backwards (`rope_bwd`, `ln_bwd`,
+     `gelu_bwd`) at the training step's ViT-B 1024^2 b4 shapes against its
+     plain version, by max error and relative norm, a planted output x 1.01
+     caught, timed by the profiler beside the plain version and the bound;
   2. drives the 1024^2 path — `BackgroundRemoval.remove_background` and
      `remove_background_batch` (16 images) — at full ViT-B width with
      seeded random weights in bf16, checks that every kernel (K1-K5)
@@ -99,7 +103,9 @@ all started together) and the Triton kernel, then:
      step), resumes for one more epoch, serves the exported `.npz`, and
      fine-tunes the tiny checkpoint (D = 32) keeping IoU >= 0.9;
   8. times `train_step` (median ms, img/s, peak memory, device time by
-     kernel) and checks that the loss falls over 8 steps on one batch;
+     kernel), checks 11 x 2 launches of K1-K5, 11 of K8 and 11 of each
+     backward pass in one step, and that the loss falls over 8 steps on
+     one batch;
   9. holds the bf16 kernel route's gradients against fp32 exact mode and
      against K8's plain version, and shows that a planted K8 fault
      (dk x 1.01) fails the second check; then one 2048^2 train step;
@@ -231,6 +237,12 @@ KERNELS = {
                          "s3od_tpu/ops/attn_epilogue.py:69"),
     "K5_mlp_fused": ("cuda", "s3od_torch/csrc/mlp_fused.cu",
                      "s3od_tpu/ops/mlp_fused.py:119"),
+    "K2_vjp_rope_bwd": ("triton", "s3od_torch/ops/qkv_project.py",
+                        "s3od_tpu/ops/qkv_project.py:163"),
+    "K4_vjp_ln_bwd": ("triton", "s3od_torch/ops/attn_epilogue.py",
+                      "s3od_tpu/ops/attn_epilogue.py:116"),
+    "K5_vjp_gelu_bwd": ("triton", "s3od_torch/ops/mlp_fused.py",
+                        "s3od_tpu/ops/mlp_fused.py:162"),
     "K6_flash_attention_stream": ("cuda", "s3od_torch/csrc/flash_attention.cu",
                                   "s3od_tpu/ops/flash_attention.py:105"),
     "K8_flash_attention_bwd": ("cuda", "s3od_torch/csrc/flash_attention_bwd.cu",
@@ -659,6 +671,10 @@ def kernel_phases(results):
     # launch against its plain half, a planted hidden fault
     f = 4 * c
     k5_phase(results, randn, n, c, f)
+
+    # the Triton passes of K2's, K4's and K5's backwards at the training
+    # step's shapes, each against its plain version
+    vjp_pass_phase(results, randn, n, c, h, d, dev)
 
     # K1, K2, K5 at the 2048^2 path's shapes (K4's are in `k4_phase`):
     # 16448 rows, RoPE on the 128 x 128 patch grid
@@ -1171,6 +1187,104 @@ def k5_phase(results, randn, n, c, f):
         del x, res, out, h, h_ref, down_ref
         torch.cuda.empty_cache()
     r["timed"] = timed
+
+
+# ||pass - plain|| / ||plain|| of each bf16 output of the backward passes
+# (dy, dxn, du, h): the two round the same fp32 values to bf16 and differ
+# only where erf's, exp's or rsqrt's last fp32 bits do, so few elements
+# move by one bf16 step (4.7e-6 to 1.1e-5 in two runs at ViT-B 1024^2 b4
+# on an H100 80GB HBM3 at 700 W); half the planted x 1.01 (1.0e-2).
+# VJP_SUM_TOL: the fp32 column sums, which differ in summation order alone
+# (1.5e-7 to 1.9e-7 there); a thousandth of the planted x 1.01.
+VJP_NORM_TOL = 5e-3
+VJP_SUM_TOL = 1e-5
+VJP_PASSES = ("K2_vjp_rope_bwd", "K4_vjp_ln_bwd", "K5_vjp_gelu_bwd")
+
+
+def vjp_passes():
+    """The Triton pass of each written-out backward (K2, K4, K5), one
+    launch a backward."""
+    from s3od_torch.ops import attn_epilogue, mlp_fused, qkv_project
+
+    return dict(zip(VJP_PASSES, (qkv_project.rope_bwd, attn_epilogue.ln_bwd,
+                                 mlp_fused.gelu_bwd)))
+
+
+def vjp_pass_phase(results, randn, n, c, h, d, dev):
+    """The Triton passes of K2's, K4's and K5's backwards against their
+    plain versions at the training step's shapes (ViT-B 1024^2 b4: 16640
+    rows, C = 768, F = 3072, 12 heads of 64, the step's RoPE tables), on
+    inputs made as the backward makes them (K5's u and dh by the same
+    fp32-accumulating products): each bf16 output by max error and
+    relative norm (VJP_NORM_TOL), each fp32 column sum by relative norm
+    (VJP_SUM_TOL), one launch counted a call, an output x 1.01 caught.
+    Timed by the profiler beside the plain version, with the bound (bytes:
+    each input read once, each output and the per-program sums written
+    once, the sums read once more)."""
+    import torch
+
+    from s3od_torch.models.dinov3 import _full_tables
+    from s3od_torch.ops import attn_epilogue as ae
+    from s3od_torch.ops import mlp_fused as mf
+    from s3od_torch.ops import qkv_project as qp
+    from s3od_torch.ops.autograd import mm_f32, scale_rows
+
+    b, f = 4, 4 * c
+    rows = b * n
+    cos, sin = _full_tables(64, 64, d, 100.0, 5, n, dev)
+    wu, bu = randn(f, c, scale=c**-0.5), randn(f, scale=0.1)
+    wd, ls = randn(c, f, scale=f**-0.5), randn(c, scale=0.3, shift=1.0)
+    x_ln, g = randn(rows, c), randn(rows, c, scale=1e-3)
+    cases = {
+        "K2_vjp_rope_bwd": (
+            qp.rope_bwd, qp.rope_bwd_plain,
+            (*(randn(b, h, n, d, scale=1e-3) for _ in range(3)), cos, sin,
+             d**-0.5),
+            # gq, gk, gv read; dy written; tables read; sums twice
+            2 * 3 * rows * c + 2 * 3 * rows * c + 2 * 4 * n * d
+            + 2 * 4 * b * -(-n // qp.BWD_TOKENS) * 3 * c,
+            4.0 * 2 * rows * c),
+        "K4_vjp_ln_bwd": (
+            ae.ln_bwd, ae.ln_bwd_plain,
+            (randn(b, n, c, scale=2.0, shift=0.5), randn(b, n, c, scale=1e-3),
+             randn(b, n, c, scale=1e-3), randn(c, scale=0.3, shift=1.0), 1e-6),
+            # x', gx, gh read; dxn written; sums twice
+            2 * 3 * rows * c + 2 * rows * c
+            + 2 * 4 * -(-rows // ae.BWD_ROWS) * 3 * c,
+            16.0 * rows * c),
+        "K5_vjp_gelu_bwd": (
+            mf.gelu_bwd, mf.gelu_bwd_plain,
+            (mm_f32(x_ln, wu.t()), mm_f32(g, scale_rows(ls, wd)), bu),
+            # u, dh read (fp32); du, h written (bf16); sums twice
+            8 * rows * f + 4 * rows * f
+            + 2 * 4 * -(-rows // mf.BWD_ROWS) * f,
+            20.0 * rows * f),
+    }
+    del x_ln, g
+    for name, (kern, plain, args, nbytes, fp32_ops) in cases.items():
+        log(f"phase {name} ({kern.__name__} at ViT-B 1024^2 b4: {rows} rows, "
+            f"C {c}, F {f})")
+        before = kern.launches
+        got = kern(*args)
+        check(kern.launches == before + 1, f"{name} counts one launch a call")
+        ref = plain(*args)
+        nb = len(got) - 1  # the last output is the fp32 column sums
+        check(all(t.dtype == torch.bfloat16 for t in got[:nb])
+              and got[-1].dtype == torch.float32, f"{name} output dtypes")
+        compare(name, got[:nb], ref[:nb], results, norm_tol=VJP_NORM_TOL)
+        compare(name, got[nb:], ref[nb:], results, norm_tol=VJP_SUM_TOL)
+        planted_out(name, got[:nb], ref[:nb], 0, VJP_NORM_TOL)
+        planted_out(name, got[nb:], ref[nb:], 0, VJP_SUM_TOL)
+        time_pair(name, lambda: kern(*args), lambda: plain(*args), results)
+        r = results[name]
+        r["library_ms"] = None  # no one PyTorch call computes the pass
+        set_bound(results, name, 0.0, nbytes, fp32_ops=fp32_ops)
+        log(f"  {name}: {r['ms']:.4f} ms (profiler), plain {r['plain_ms']:.4f}; "
+            f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+            f"({nbytes / 1e6:.1f} MB; {100 * r['bound_ms'] / r['ms']:.0f}%)")
+        del got, ref
+    del cases
+    torch.cuda.empty_cache()
 
 
 def k8_phase(results, randn, n, n_valid, n2, n2_valid):
@@ -2566,7 +2680,7 @@ def k8_launches() -> int:
 def reset_counts():
     from s3od_torch.ops.flash_attention import flash_attention_bwd
 
-    for fn in wrappers().values():
+    for fn in [*wrappers().values(), *vjp_passes().values()]:
         fn.launches = 0
     flash_attention_bwd.launches = 0
 
@@ -3564,7 +3678,11 @@ def decoder_train_step(results, wrappers):
 # GRAD_TOL: ||g - g_ref|| / ||g_ref|| per parameter group and of the
 # training loss, bf16 kernel route against fp32 exact mode; 1.5x the
 # largest value measured by this script on an H100 80GB HBM3 at 700 W in
-# five runs: loss 1.444e-5, encoder 4.128e-2, head 7.87e-3.
+# five runs: loss 1.444e-5, encoder 4.128e-2, head 7.87e-3. With K2's, K4's
+# and K5's backwards written out in bf16 products (fp32 accumulation) in
+# place of fp32 vjps of their plain versions, two runs read loss 1.540e-5
+# and 1.636e-5, encoder 4.296e-2 and 4.223e-2, head 8.010e-3 and 7.931e-3
+# (same card); the bounds stand.
 # K8_GRAD_TOL: a loss on the encoder taps, K8 against its plain version
 # as the backward of the same forward; "qkv_k_norm" is |norm ratio - 1| of
 # the gradient's key rows of the fused qkv weight (the product with K8's
@@ -3750,7 +3868,8 @@ def fixture_batch(n: int, size: int):
 
 def train_step_phase(results):
     """`train_step` at ViT-B, 1024^2, batch 4, bf16 on one repeated batch:
-    launches per step, median step time, img/s, peak memory, device time
+    launches per step (the backward passes of K2, K4 and K5 too), median
+    step time, img/s, peak memory, device time
     by kernel (forward kernels, K8, the rest), and learning (8 steps)."""
     import torch
 
@@ -3780,11 +3899,16 @@ def train_step_phase(results):
         losses.append(float(step()["loss"]))
         if i == 1:
             counts, k8 = launch_counts(), k8_launches()
-            log(f"  launches in one step: {counts}, K8 {k8}")
+            passes = {name: fn.launches for name, fn in vjp_passes().items()}
+            log(f"  launches in one step: {counts}, K8 {k8}, backward "
+                f"passes {passes}")
             for name, cnt in counts.items():
                 check(cnt == 2 * blocks, f"step: {name} launched {cnt}, "
                       f"want {2 * blocks} (forward + remat recompute)")
             check(k8 == blocks, f"step: K8 launched {k8}, want {blocks}")
+            for name, cnt in passes.items():
+                check(cnt == blocks, f"step: {name} launched {cnt}, want {blocks}")
+                results[name]["launches"] = cnt
     log("  losses over 8 steps: " + " ".join(f"{v:.4f}" for v in losses))
     check(all(v == v and abs(v) < 1e6 for v in losses), "losses finite")
     check(losses[-1] < losses[0], "the loss falls on a repeated batch")
@@ -3801,7 +3925,8 @@ def train_step_phase(results):
     groups = {"K4": ("attn_epilogue",),
               "K1-K3, K5 forward": ("_ln_fwd", "qkv_", "flash_fwd", "flash_ws_fwd",
                                     "mlp_gemm", "mlp_fused"),
-              "K8 backward": ("flash_bwd", "bwd_dkv", "bwd_dq", "bwd_delta")}
+              "K8 backward": ("flash_bwd", "bwd_dkv", "bwd_dq", "bwd_delta"),
+              "K2, K4, K5 backward passes": ("_rope_bwd", "_ln_bwd", "_gelu_bwd")}
     split = {g: 0.0 for g in groups}
     split["everything else"] = 0.0
     for key, ms, _ in rows:

@@ -16,8 +16,9 @@ A block runs one of two routes:
   the JAX package's exact mode (`dinov3.py:174-204, 268-273`).
 
 Training runs the same routes under autograd: every kernel is wrapped in
-a `torch.autograd.Function` (K3/K6 with the K8 backward kernel, K1, K2,
-K4 and K5 with the vjp of their plain versions), parameters are cast to
+a `torch.autograd.Function` (K3/K6 with the K8 backward kernel, K2, K4
+and K5 with their vjps written out in bf16 products, K1 with the vjp of
+its plain version; `ops/autograd.py`), parameters are cast to
 the compute dtype at use by a differentiable `.to()` (fp32 master weights,
 as JAX's `.astype(x.dtype)`), each block is checkpointed
 (`torch.utils.checkpoint`, the JAX `remat`, with its policies in

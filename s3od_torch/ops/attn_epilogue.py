@@ -19,12 +19,15 @@ FLOP formula of its product, 2 B N C^2.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from s3od_torch import _build
-from s3od_torch.ops.autograd import plain_vjp
+from s3od_torch.ops.autograd import mm_f32, scale_rows
 from s3od_torch.ops.layernorm import layer_norm_plain
+from s3od_torch.profiling import span
 
 # The D = 64 kernel's launch (`csrc/attn_epilogue.cu`), mirrored so that
 # the CPU tests can check it at the shapes the repo's configs give it.
@@ -161,20 +164,165 @@ def _attn_epilogue_flops(a_shape, wo_shape, bo_shape, x_shape, *args,
     return 2 * b * n * c * wo_shape[0]
 
 
+# The backward's elementwise pass (`ln_bwd`): rows a program.
+BWD_ROWS = 16
+
+
+def ln_bwd_plain(xn, gx, gh, lw, eps: float):
+    """Plain version of `ln_bwd`. xn (..., C): the op's first output x';
+    gx, gh: the cotangents of x' and of LayerNorm(x'); lw (C,). With
+    LayerNorm's statistics recomputed from x' as the forward takes them
+    (fp32 mean and E[x^2], the variance clamped at 0), returns
+    dxn = gx + LayerNorm's input cotangent in fp32, rounded once to xn's
+    dtype, as (rows, C), and (3, C) fp32 column sums: Σ gh·ŷ (dlw), Σ gh
+    (dlb) and Σ dxn (before its rounding)."""
+    c = xn.shape[-1]
+    x = xn.reshape(-1, c).float()
+    gh2 = gh.reshape(-1, c).float()
+    m1 = x.mean(-1, keepdim=True)
+    var = (x * x).mean(-1, keepdim=True) - m1 * m1
+    rstd = torch.rsqrt(var.clamp_min(0.0) + eps)
+    y = (x - m1) * rstd
+    dy = gh2 * lw.float()
+    dvar = (dy * y).mean(-1, keepdim=True) * (var >= 0)
+    d = gx.reshape(-1, c).float() + rstd * (dy - dy.mean(-1, keepdim=True)
+                                            - y * dvar)
+    return d.to(xn.dtype), torch.stack([(gh2 * y).sum(0), gh2.sum(0), d.sum(0)])
+
+
+@functools.lru_cache(maxsize=1)
+def _triton_ln_bwd():
+    import triton
+    import triton.language as tl
+
+    @triton.jit
+    def _ln_bwd(XN, GX, GH, LW, DXN, PART, R, C, eps, ROWS: tl.constexpr,
+                BLOCK: tl.constexpr):
+        pid = tl.program_id(0)
+        cols = tl.arange(0, BLOCK)
+        cm = cols < C
+        lw = tl.load(LW + cols, mask=cm, other=0.0).to(tl.float32)
+        sum_gy = tl.zeros([BLOCK], tl.float32)
+        sum_g = tl.zeros([BLOCK], tl.float32)
+        sum_d = tl.zeros([BLOCK], tl.float32)
+        for i in range(ROWS):
+            row = pid * ROWS + i
+            m = cm & (row < R)
+            off = row.to(tl.int64) * C + cols
+            x = tl.load(XN + off, mask=m, other=0.0).to(tl.float32)
+            m1 = tl.sum(x, axis=0) / C
+            var = tl.sum(x * x, axis=0) / C - m1 * m1
+            rstd = 1.0 / tl.sqrt(tl.maximum(var, 0.0) + eps)
+            y = tl.where(m, (x - m1) * rstd, 0.0)
+            gh = tl.load(GH + off, mask=m, other=0.0).to(tl.float32)
+            dy = gh * lw
+            dvar = tl.where(var >= 0, tl.sum(dy * y, axis=0) / C, 0.0)
+            dx = rstd * (dy - tl.sum(dy, axis=0) / C - y * dvar)
+            d = tl.where(m, tl.load(GX + off, mask=m, other=0.0).to(tl.float32)
+                         + dx, 0.0)
+            tl.store(DXN + off, d.to(DXN.dtype.element_ty), mask=m)
+            sum_gy += gh * y
+            sum_g += gh
+            sum_d += d
+        base = PART + pid.to(tl.int64) * 3 * C + cols
+        tl.store(base, sum_gy, mask=cm)
+        tl.store(base + C, sum_g, mask=cm)
+        tl.store(base + 2 * C, sum_d, mask=cm)
+
+    return triton, _ln_bwd
+
+
+def ln_bwd(xn, gx, gh, lw, eps: float):
+    """K4's backward pass: LayerNorm's backward on x' with the cotangent
+    of x' added, and the column sums — `ln_bwd_plain` as one Triton
+    kernel on CUDA tensors (bf16, C up to 1024), the plain version on CPU
+    tensors. Memory-bound: three reads and one write of (rows, C) bf16
+    (at ViT-B 1024² b4, ~102 MB, ~0.03 ms at 3.35 TB/s). One program
+    walks BWD_ROWS rows, one row at a time across its C lanes, keeping
+    the column sums in registers; they go through a (programs, 3, C) fp32
+    buffer summed after, not atomics."""
+    if xn.device.type == "cpu":
+        return ln_bwd_plain(xn, gx, gh, lw, eps)
+    c = xn.shape[-1]
+    if (c > 1024 or gx.shape != xn.shape or gh.shape != xn.shape
+            or lw.shape != (c,)):
+        raise ValueError(f"ln_bwd kernel: unsupported x' {tuple(xn.shape)}")
+    xn, gx, gh, lw = (t.contiguous() for t in (xn, gx, gh, lw))
+    rows = xn.numel() // c
+    programs = -(-rows // BWD_ROWS)
+    with _build.launch(ln_bwd):
+        dxn = torch.empty((rows, c), device=xn.device, dtype=xn.dtype)
+        part = torch.empty((programs, 3, c), device=xn.device,
+                           dtype=torch.float32)
+        triton, kernel = _triton_ln_bwd()
+        with _build.triton_cache():
+            kernel[(programs,)](xn, gx, gh, lw, dxn, part, rows, c, float(eps),
+                                ROWS=BWD_ROWS, BLOCK=triton.next_power_of_2(c),
+                                num_warps=4)
+    return dxn, part.sum(0)
+
+
+ln_bwd.launches = 0
+
+
+def attn_epilogue_vjp(gx, gh, a, wo, bo, ls, lw, lb, xn, eps: float, needs):
+    """The vjp of `attn_epilogue_plain` at its inputs against gx and gh
+    (the cotangents of x' and LayerNorm(x')), one gradient per input
+    (a, wo, bo, x, ls, lw, lb) in its dtype, None where `needs` is False.
+    x' (the op's output) stands in for the residual input: LayerNorm's
+    statistics come from it, and the out-projection t = a Wo^T + bo is
+    not recomputed. dxn, Σ = `ln_bwd`; dx = dxn; dlw, dlb from Σ;
+    da = dxn (ls ⊙ Wo), back to the head-major layout; S = dxn^T a
+    (fp32); dWo = ls ⊙ S; dbo = ls ⊙ Σ dxn; dls = Σ_in Wo ⊙ S +
+    bo ⊙ Σ dxn, which is Σ_rows dxn ⊙ t. Each product takes operands in
+    the input dtype and accumulates in fp32 (`mm_f32`)."""
+    n_a, n_wo, n_bo, n_x, n_ls, n_lw, n_lb = needs
+    b, n, c = xn.shape
+    h = a.shape[0] // b
+    d = c // h
+    dxn, sums = ln_bwd(xn, gx, gh, lw, eps)
+    grads = [None] * 7
+    if n_a:
+        da = mm_f32(dxn, scale_rows(ls, wo)).view(b, n, h, d)
+        grads[0] = (torch.empty((b, h, n, d), device=a.device, dtype=a.dtype)
+                    .copy_(da.permute(0, 2, 1, 3)).view(a.shape))
+        del da
+    if n_wo or n_ls:
+        a2 = a.reshape(b, h, n, d).permute(0, 2, 1, 3).reshape(b * n, c)
+        s = mm_f32(dxn.t(), a2)
+        del a2
+    # a bf16 operand times an fp32 one is computed in fp32
+    if n_wo:
+        grads[1] = (s * ls.float()[:, None]).to(wo.dtype)
+    if n_bo:
+        grads[2] = (sums[2] * ls).to(bo.dtype)
+    if n_x:
+        grads[3] = dxn.view(xn.shape)
+    if n_ls:
+        grads[4] = ((wo * s).sum(1) + bo * sums[2]).to(ls.dtype)
+    if n_lw:
+        grads[5] = sums[0].to(lw.dtype)
+    if n_lb:
+        grads[6] = sums[1].to(lb.dtype)
+    return tuple(grads)
+
+
 class _AttnEpilogue(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, wo, bo, x, ls, lw, lb, eps):
-        ctx.save_for_backward(a, wo, bo, x, ls, lw, lb)
+        xn, hn = attn_epilogue(a, wo, bo, x, ls, lw, lb, eps)
+        ctx.save_for_backward(a, wo, bo, ls, lw, lb, xn)
         ctx.eps = eps
-        return attn_epilogue(a, wo, bo, x, ls, lw, lb, eps)
+        return xn, hn
 
     @staticmethod
     def backward(ctx, gx, gh):
-        fn = lambda *args: attn_epilogue_plain(*args, ctx.eps)
-        return (*plain_vjp(fn, ctx.saved_tensors, ctx.needs_input_grad[:7],
-                           (gx, gh)), None)
+        saved = ctx.saved_tensors  # before the span, as in `_MLPFused`
+        with span("s3od.vjp.attn_epilogue"):
+            return (*attn_epilogue_vjp(gx, gh, *saved, ctx.eps,
+                                       ctx.needs_input_grad[:7]), None)
 
 
-# Differentiable `attn_epilogue` -> (x', h): K4 forward, the plain
-# version's vjp backward (`_bwd_rule`).
+# Differentiable `attn_epilogue` -> (x', h): K4 forward, `attn_epilogue_vjp`
+# backward (the vjp of `_bwd_rule`'s reference, written out).
 attn_epilogue_autograd = _AttnEpilogue.apply

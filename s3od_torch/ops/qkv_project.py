@@ -22,11 +22,14 @@ FLOP formula of its product, 2 B N C 3C.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from s3od_torch import _build
-from s3od_torch.ops.autograd import plain_vjp
+from s3od_torch.ops.autograd import mm_f32
+from s3od_torch.profiling import span
 
 # The D = 64 kernel's launch (`csrc/qkv_project.cu`), mirrored so that the
 # CPU tests can check it at the shapes the repo's configs give it.
@@ -181,20 +184,141 @@ def _qkv_project_rope_flops(x_shape, w_shape, *args, out_shape=None, **kwargs):
     return 2 * b * n * c * w_shape[0]
 
 
+# The backward's elementwise pass (`rope_bwd`): tokens a program.
+BWD_TOKENS = 64
+
+
+def rope_bwd_plain(gq, gk, gv, cos, sin, scale: float):
+    """Plain version of `rope_bwd`. gq, gk, gv (B, H, N, D): the
+    cotangents of q, k, v; cos, sin (N, D) fp32. RoPE's transpose in
+    fp32: dt = g cos - rotate_half(g sin), the rounding before the
+    rotation passing the cotangent through, and q's pre-scale applied to
+    gq. Returns dy (B * N, 3C), the cotangent of the projection's output
+    in its (3, H, D) column order, rounded once to gq's dtype, and its
+    column sums in fp32."""
+    b, h, n, d = gq.shape
+    cos_f, sin_f = cos.float(), sin.float()
+
+    def unrope(g):
+        return g * cos_f - rotate_half(g * sin_f)
+
+    dy = torch.stack([unrope(gq.float() * scale), unrope(gk.float()),
+                      gv.float()])                      # (3, B, H, N, D)
+    dy = dy.permute(1, 3, 0, 2, 4).reshape(b * n, 3 * h * d)
+    return dy.to(gq.dtype), dy.sum(0)
+
+
+@functools.lru_cache(maxsize=1)
+def _triton_rope_bwd():
+    import triton
+    import triton.language as tl
+
+    @triton.jit
+    def _rope_bwd(GQ, GK, GV, COS, SIN, DY, PART, N, H, scale,
+                  BLOCK_N: tl.constexpr, D: tl.constexpr):
+        pid = tl.program_id(0)              # batch element x token block
+        which = tl.program_id(1) // H       # 0 q, 1 k, 2 v
+        hh = tl.program_id(1) % H
+        blocks = tl.cdiv(N, BLOCK_N)
+        b = pid // blocks
+        ns = (pid % blocks) * BLOCK_N + tl.arange(0, BLOCK_N)
+        j = tl.arange(0, D)
+        p = (j + D // 2) % D                # the partner rotate_half pairs
+        m = (ns < N)[:, None]
+        src = ((b * H + hh) * N + ns).to(tl.int64)[:, None] * D
+        tab = ns.to(tl.int64)[:, None] * D
+        if which == 2:
+            dt = tl.load(GV + src + j[None, :], mask=m, other=0.0).to(tl.float32)
+        else:
+            if which == 0:
+                g = tl.load(GQ + src + j[None, :], mask=m, other=0.0).to(tl.float32) * scale
+                gp = tl.load(GQ + src + p[None, :], mask=m, other=0.0).to(tl.float32) * scale
+            else:
+                g = tl.load(GK + src + j[None, :], mask=m, other=0.0).to(tl.float32)
+                gp = tl.load(GK + src + p[None, :], mask=m, other=0.0).to(tl.float32)
+            cs = tl.load(COS + tab + j[None, :], mask=m, other=0.0)
+            sp = tl.load(SIN + tab + p[None, :], mask=m, other=0.0)
+            sign = tl.where(j < D // 2, 1.0, -1.0)
+            dt = g * cs + sign[None, :] * gp * sp
+        col = (which * H + hh) * D + j
+        dst = ((b * N + ns).to(tl.int64) * (3 * H * D))[:, None] + col[None, :]
+        tl.store(DY + dst, dt.to(DY.dtype.element_ty), mask=m)
+        tl.store(PART + pid.to(tl.int64) * (3 * H * D) + col, tl.sum(dt, axis=0))
+
+    return triton, _rope_bwd
+
+
+def rope_bwd(gq, gk, gv, cos, sin, scale: float):
+    """K2's backward pass: RoPE's transpose of q's and k's cotangents, v's
+    copied, into the projection's (B * N, 3C) layout, and the column sums
+    — `rope_bwd_plain` as one Triton kernel on CUDA tensors (bf16
+    cotangents, fp32 tables, D a power of two), the plain version on CPU
+    tensors.
+    Memory-bound: each cotangent read once (with its partner half from
+    L1/L2) and dy written once (at ViT-B 1024² b4, 2 x 76.7 MB, ~0.05 ms
+    at 3.35 TB/s). One program is BWD_TOKENS tokens of one head of one of
+    q, k, v; the column sums go through a (programs along the tokens,
+    3C) fp32 buffer summed after, not atomics."""
+    if gq.device.type == "cpu":
+        return rope_bwd_plain(gq, gk, gv, cos, sin, scale)
+    b, h, n, d = gq.shape
+    if (gk.shape != gq.shape or gv.shape != gq.shape or d & (d - 1)
+            or cos.shape != (n, d) or sin.shape != (n, d)
+            or cos.dtype != torch.float32 or sin.dtype != torch.float32):
+        raise ValueError(f"rope_bwd kernel: unsupported g {tuple(gq.shape)}")
+    gq, gk, gv, cos, sin = (t.contiguous() for t in (gq, gk, gv, cos, sin))
+    blocks = b * -(-n // BWD_TOKENS)
+    with _build.launch(rope_bwd):
+        dy = torch.empty((b * n, 3 * h * d), device=gq.device, dtype=gq.dtype)
+        part = torch.empty((blocks, 3 * h * d), device=gq.device,
+                           dtype=torch.float32)
+        triton, kernel = _triton_rope_bwd()
+        with _build.triton_cache():
+            kernel[(blocks, 3 * h)](gq, gk, gv, cos, sin, dy, part, n, h,
+                                    float(scale), BLOCK_N=BWD_TOKENS, D=d,
+                                    num_warps=4)
+    return dy, part.sum(0)
+
+
+rope_bwd.launches = 0
+
+
+def qkv_project_rope_vjp(gq, gk, gv, x, weight, bias, cos, sin,
+                         scale: float, needs):
+    """The vjp of `qkv_project_rope_plain` with respect to x, weight and
+    bias (None where `needs` is False): the op is linear in the product
+    y = x W^T + b, so nothing is recomputed. dy, Σ dy = `rope_bwd`;
+    dx = dy W; dW = dy^T x; db = Σ dy. Each product takes operands in the
+    input dtype and accumulates in fp32 (`mm_f32`); each gradient is
+    rounded once."""
+    n_x, n_w, n_b = needs
+    dy, db = rope_bwd(gq, gk, gv, cos, sin, scale)
+    dx = mm_f32(dy, weight).to(x.dtype).view(x.shape) if n_x else None
+    dw = (mm_f32(dy.t(), x.reshape(-1, x.shape[-1])).to(weight.dtype)
+          if n_w else None)
+    return dx, dw, db.to(bias.dtype) if n_b else None
+
+
 class _QKVProjectRope(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weight, bias, cos, sin, num_heads, scale):
         ctx.save_for_backward(x, weight, bias, cos, sin)
-        ctx.num_heads, ctx.scale = num_heads, scale
+        ctx.scale = scale
         return qkv_project_rope(x, weight, bias, cos, sin, num_heads, scale)
 
     @staticmethod
     def backward(ctx, gq, gk, gv):
-        fn = lambda *a: qkv_project_rope_plain(*a, ctx.num_heads, ctx.scale)
-        return (*plain_vjp(fn, ctx.saved_tensors, ctx.needs_input_grad[:5],
-                           (gq, gk, gv)), None, None)
+        if any(ctx.needs_input_grad[3:5]):
+            raise NotImplementedError(
+                "qkv_project_rope: the RoPE tables take no gradient")
+        saved = ctx.saved_tensors  # before the span, as in `_MLPFused`
+        with span("s3od.vjp.qkv_project_rope"):
+            return (*qkv_project_rope_vjp(gq, gk, gv, *saved, ctx.scale,
+                                          ctx.needs_input_grad[:3]),
+                    None, None, None, None)
 
 
-# Differentiable `qkv_project_rope`: K2 forward, the plain version's vjp
-# backward (linear, `_bwd_rule`); the q pre-scale reaches dq.
+# Differentiable `qkv_project_rope`: K2 forward, `qkv_project_rope_vjp`
+# backward (the vjp of `_bwd_rule`'s linear reference, written out); the
+# q pre-scale reaches dq.
 qkv_project_rope_autograd = _QKVProjectRope.apply

@@ -1,6 +1,7 @@
 """The port's spans (`s3od_torch.profiling.span`): nothing opened without a
 profiler; under one, the training step's phases in order, the RoPE tables
-inside the forward; and `_build.launch`'s span and launch count.
+inside the forward, K2's, K4's and K5's vjp spans outside the remat
+replay; and `_build.launch`'s span and launch count.
 
 Spans are read back from the profiler's Chrome trace, as the benchmark
 reads them (`user_annotation` events)."""
@@ -144,3 +145,36 @@ def test_launch_scope_counts_and_opens_the_kernel_span(tmp_path):
     assert stand_in.launches == 2
     names = [s[0] for s in _spans(prof, tmp_path, "s3od.kernel.")]
     assert names == ["s3od.kernel.stand_in"] * 2
+
+
+def test_vjp_spans_hold_the_backwards_not_the_remat_replay(tmp_path):
+    """The encoder's kernel route (float32 on the CPU, per-block remat)
+    under a profiler: each block's K2, K4 and K5 backward opens its
+    `s3od.vjp.<op>` span once, and the block's replayed forward (run at
+    the first unpack of a saved tensor, in K5's backward) lies outside
+    every such span."""
+    model, _, _ = _tiny_trainer()
+    taps = model.cfg.tap_layers
+    blocks = max(taps)
+    images = torch.randn(2, 64, 64, 3, generator=torch.Generator().manual_seed(5))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        outs = model.encoder(images, taps, "kernel", remat=True)
+        sum(o.square().sum() for o in outs).backward()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X"]
+    vjps = [e for e in events if e["name"].startswith("s3od.vjp.")]
+    assert sorted({e["name"] for e in vjps}) == [
+        "s3od.vjp.attn_epilogue", "s3od.vjp.mlp_fused",
+        "s3od.vjp.qkv_project_rope"]
+    for name in {e["name"] for e in vjps}:
+        assert sum(e["name"] == name for e in vjps) == blocks, name
+    forwards = [e for e in events
+                if e["name"] in ("_LayerNorm", "_QKVProjectRope",
+                                 "_AttnEpilogue", "_MLPFused")]
+    # the forward once and its replay once a block
+    assert len(forwards) == 2 * 4 * blocks
+    for f in forwards:
+        for v in vjps:
+            assert not (v["ts"] <= f["ts"] < v["ts"] + v["dur"]), (f["name"], v["name"])

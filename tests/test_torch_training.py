@@ -4,7 +4,9 @@ seeded numpy inputs and converted weights:
 (a) K8's plain version against `_flash_backward` in interpret mode, both
     JAX routes (fused, and split when the scratch limit is forced to 0);
 (b) the autograd wrappers of K1, K2, K4 and K5 against `jax.vjp` of the
-    JAX ops in interpret mode;
+    JAX ops in interpret mode; K2's, K4's and K5's written-out backwards
+    in bf16 against the fp32 vjp of their plain versions, with frozen
+    weights, and without `plain_vjp`;
 (c) the tiny encoder's kernel-route gradients against JAX's fused route,
     with per-block remat on and off;
 (d) batch-statistics BatchNorm and its running statistics;
@@ -34,6 +36,7 @@ from s3od_torch.ops import flash_attention as fa
 from s3od_torch.ops import layernorm as ln
 from s3od_torch.ops import mlp_fused as mf
 from s3od_torch.ops import qkv_project as qp
+import _vjp_cases as vc  # tests/ is on sys.path under pytest
 
 
 def _t(a, dtype=torch.float32):
@@ -254,6 +257,78 @@ def test_mlp_fused_autograd_matches_jax_vjp():
     for got, ref, name in zip(gots, refs, names):
         got = got.numpy().T if name in ("dwu", "dwd") else got.numpy()
         assert _rel(got, ref) < 1e-4, name
+
+
+# ----------------------------------------------------------------------------
+# (b2) K2, K4, K5: the written-out vjps in bf16, frozen weights, no plain_vjp
+# ----------------------------------------------------------------------------
+
+@pytest.mark.parametrize("d", [64, 32])
+@pytest.mark.parametrize("op", vc.OPS)
+def test_vjp_bf16_within_bf16_rounding_of_fp32_plain_vjp(op, d):
+    """Each written-out backward, run in bf16, against `plain_vjp` of the
+    plain version in fp32 at the same inputs: every gradient in bf16 and
+    within `BF16_VJP_TOL` (`tests/_vjp_cases.py`, with its reason)."""
+    from s3od_torch.ops.autograd import plain_vjp
+
+    fn, plain, args, cots = vc.vjp_case(op, 2, 128, 2, d)
+    refs = plain_vjp(plain, [a.float() for a in args], [True] * len(args),
+                     [c.float() for c in cots])
+    vc.check_bf16(vc.grads(fn, args, cots), refs, args)
+
+
+@pytest.mark.parametrize("op", vc.OPS)
+def test_vjp_with_frozen_weights_returns_only_the_activation_gradients(
+        op, monkeypatch):
+    """With every weight, bias and scale frozen, the backward returns the
+    activations' gradients alone (None for the rest, which autograd then
+    leaves unset) and runs only the products they need: K2's dx, K4's da,
+    K5's recompute, dh and dx."""
+    from s3od_torch.ops import autograd as ops_autograd
+
+    fn, _, args, cots = vc.vjp_case(op, 2, 128, 2, 64, dtype=torch.float32)
+    activations = {"qkv_project_rope": (0,), "attn_epilogue": (0, 3),
+                   "mlp_fused": (0, 5)}[op]
+    products = {"qkv_project_rope": 1, "attn_epilogue": 1, "mlp_fused": 3}[op]
+    calls = []
+    real = ops_autograd.mm_f32
+
+    def counted(a, b):
+        calls.append((tuple(a.shape), tuple(b.shape)))
+        return real(a, b)
+
+    for module in (qp, ae, mf):
+        monkeypatch.setattr(module, "mm_f32", counted)
+    leaves = [a.clone().requires_grad_(i in activations)
+              for i, a in enumerate(args)]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    torch.autograd.backward(outs, cots)
+    for i, leaf in enumerate(leaves):
+        assert (leaf.grad is not None) == (i in activations), i
+    assert len(calls) == products, calls
+    # the same activation gradients as with every input trainable
+    full = vc.grads(fn, args, cots)
+    for i in activations:
+        assert torch.equal(leaves[i].grad, full[i]), i
+
+
+def test_vjps_never_call_plain_vjp(monkeypatch):
+    """K2's, K4's and K5's backwards run without `plain_vjp`, in fp32 and
+    in bf16."""
+    from s3od_torch.ops import autograd as ops_autograd
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("plain_vjp called")
+
+    monkeypatch.setattr(ops_autograd, "plain_vjp", refuse)
+    for module in (qp, ae, mf):
+        monkeypatch.setattr(module, "plain_vjp", refuse, raising=False)
+    for op in vc.OPS:
+        for dtype in (torch.float32, torch.bfloat16):
+            fn, _, args, cots = vc.vjp_case(op, 2, 128, 2, 64, dtype=dtype)
+            assert all(torch.isfinite(g).all()
+                       for g in vc.grads(fn, args, cots)), (op, dtype)
 
 
 # ----------------------------------------------------------------------------
