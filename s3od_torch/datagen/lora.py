@@ -19,6 +19,13 @@ passes, and K7 runs twice per block. The random draws (A at init, t and
 the noise of a step) come from the module-level functions `lora_normal`,
 `draw_timesteps` and `draw_noise`, which tests replace with the JAX
 package's draws.
+
+While a profiler records, the step opens the training step's spans
+(`profiling.span`): `s3od.train.step` > `s3od.train.forward` (the draws
+and the model), `s3od.train.loss`, `s3od.train.backward`, then
+`s3od.train.optimizer`; each block's merge is `s3od.lora.merge`, and
+`merge_block.merges` counts the merges (one a targeted block a forward:
+57 a FLUX.1-dev step, twice that under `remat`).
 """
 
 from __future__ import annotations
@@ -29,6 +36,8 @@ from typing import Dict, Iterator, List, Sequence, Tuple
 import torch
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
+
+from s3od_torch.profiling import span
 
 # Paths of the linear layers (relative to a block) that receive adapters.
 DUAL_TARGETS = [
@@ -142,12 +151,17 @@ def merge_block(block, adapters: dict, targets: Sequence[tuple],
     """{"<path>.weight": W + (scale A @ B)^T rounded to W's dtype} for one
     block's targeted linears: `lora.py:99` with the (out, in) layout."""
     out = {}
-    for path in targets:
-        w = _get(block, path).weight
-        ad = _get(adapters, path)
-        delta = cfg.scale * torch.matmul(ad["A"], ad["B"])
-        out[".".join(path) + ".weight"] = w + delta.to(w.dtype).t()
+    with span("s3od.lora.merge"):
+        for path in targets:
+            w = _get(block, path).weight
+            ad = _get(adapters, path)
+            delta = cfg.scale * torch.matmul(ad["A"], ad["B"])
+            out[".".join(path) + ".weight"] = w + delta.to(w.dtype).t()
+    merge_block.merges += 1
     return out
+
+
+merge_block.merges = 0
 
 
 def merge_lora(model, lora: dict, cfg: LoRAConfig) -> Dict[str, torch.Tensor]:
@@ -180,11 +194,12 @@ def lora_block_runner(model, lora: dict, cfg: LoRAConfig, remat: bool = False):
     return run
 
 
-def lora_loss(model, lora: dict, cfg: LoRAConfig, batch: dict,
-              generator: torch.Generator, *, compute_dtype=torch.bfloat16,
-              attn_impl: str = "auto", remat: bool = False):
-    """|| v_theta(x_t, t) - (noise - x0) ||^2 averaged, t ~ logit-normal,
-    x_t = (1 - t) x0 + t noise, guidance 1.0 (`lora.py:114-141`).
+def lora_velocity(model, lora: dict, cfg: LoRAConfig, batch: dict,
+                  generator: torch.Generator, *, compute_dtype=torch.bfloat16,
+                  attn_impl: str = "auto", remat: bool = False):
+    """(v_theta(x_t, t), noise - x0): the draws (t ~ logit-normal, then
+    the noise), x_t = (1 - t) x0 + t noise and the model's velocity at
+    guidance 1.0 (`lora.py:114-141`).
 
     batch: {'latents': packed (B, N, C), 'txt': (B, L, Dt), 'pooled':
     (B, Dp), 'img_ids': (N, 3), 'txt_ids': (L, 3)}, tensors on the model's
@@ -199,7 +214,17 @@ def lora_loss(model, lora: dict, cfg: LoRAConfig, batch: dict,
                 guidance=torch.full((b,), 1.0, device=x0.device),
                 compute_dtype=compute_dtype, attn_impl=attn_impl,
                 run_block=lora_block_runner(model, lora, cfg, remat))
-    return torch.mean((out["output"] - (noise - x0)) ** 2)
+    return out["output"], noise - x0
+
+
+def lora_loss(model, lora: dict, cfg: LoRAConfig, batch: dict,
+              generator: torch.Generator, *, compute_dtype=torch.bfloat16,
+              attn_impl: str = "auto", remat: bool = False):
+    """|| v_theta(x_t, t) - (noise - x0) ||^2 averaged (`lora_velocity`)."""
+    v, target = lora_velocity(model, lora, cfg, batch, generator,
+                              compute_dtype=compute_dtype,
+                              attn_impl=attn_impl, remat=remat)
+    return torch.mean((v - target) ** 2)
 
 
 def lora_optimizer(lora: dict, lr: float) -> torch.optim.AdamW:
@@ -221,12 +246,19 @@ def make_lora_train_step(model, lora_cfg: LoRAConfig, optimizer, *,
     model.requires_grad_(False)
 
     def step(lora, batch, generator):
-        loss = lora_loss(model, lora, lora_cfg, batch, generator,
-                         compute_dtype=compute_dtype, attn_impl=attn_impl,
-                         remat=remat)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        optimizer.step()
+        with span("s3od.train.step"):
+            with span("s3od.train.forward"):
+                v, target = lora_velocity(
+                    model, lora, lora_cfg, batch, generator,
+                    compute_dtype=compute_dtype, attn_impl=attn_impl,
+                    remat=remat)
+            with span("s3od.train.loss"):
+                loss = torch.mean((v - target) ** 2)
+            optimizer.zero_grad(set_to_none=True)
+            with span("s3od.train.backward"):
+                loss.backward()
+            with span("s3od.train.optimizer"):
+                optimizer.step()
         return loss.detach()
 
     return step

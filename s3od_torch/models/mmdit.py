@@ -19,6 +19,10 @@ dtype, LayerNorm/RMSNorm and RoPE in fp32 with the result cast back.
 Every attention goes through `ops.attention.multi_head_attention`: K7 in
 bf16 at N >= 1024 (the MMDiT never asks for the static bound).
 
+While a profiler records, each block of a forward is a span
+(`profiling.span`): `s3od.mmdit.dual_block` or `s3od.mmdit.single_block`
+(a recompute under checkpointing replays outside it).
+
 Int8 weight residency (`ops/quant.py`): `init_mmdit(int8_weights=True)`
 or a tree holding `kernel_q` (`convert.load_mmdit`) makes every eligible
 linear a `QuantLinear` (int8 weight + fp32 per-row scale as buffers),
@@ -38,6 +42,7 @@ import torch.nn.functional as F
 
 from s3od_torch.ops import quant
 from s3od_torch.ops.attention import multi_head_attention
+from s3od_torch.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -367,9 +372,10 @@ class MMDiT(nn.Module):
 
         maps: List[torch.Tensor] = []
         for bi, blk in enumerate(self.dual_blocks):
-            img, txt_h, concept_h, mv = run(blk, img, txt_h, concept_h,
-                                            temb, concept_temb, rope_ti,
-                                            rope_ci, attn_impl)
+            with span("s3od.mmdit.dual_block"):
+                img, txt_h, concept_h, mv = run(blk, img, txt_h, concept_h,
+                                                temb, concept_temb, rope_ti,
+                                                rope_ci, attn_impl)
             if mv is not None and (concept_layers is None
                                    or bi in concept_layers):
                 maps.append(concept_maps_from_vectors(*mv))
@@ -379,7 +385,8 @@ class MMDiT(nn.Module):
         n_txt = txt_h.shape[1]
         features: List[torch.Tensor] = []
         for i, blk in enumerate(self.single_blocks):
-            x = run(blk, x, temb, rope_ti, attn_impl)
+            with span("s3od.mmdit.single_block"):
+                x = run(blk, x, temb, rope_ti, attn_impl)
             if i in cfg.feature_taps:
                 features.append(x[:, n_txt:])
 
