@@ -243,6 +243,10 @@ KERNELS = {
                       "s3od_tpu/ops/attn_epilogue.py:116"),
     "K5_vjp_gelu_bwd": ("triton", "s3od_torch/ops/mlp_fused.py",
                         "s3od_tpu/ops/mlp_fused.py:162"),
+    "MMDiT_qk_norm_rope": ("triton", "s3od_torch/ops/qk_norm_rope.py",
+                           "s3od_tpu/models/mmdit.py:156"),
+    "MMDiT_qk_norm_rope_bwd": ("triton", "s3od_torch/ops/qk_norm_rope.py",
+                               "s3od_tpu/models/mmdit.py:156"),
     "K6_flash_attention_stream": ("cuda", "s3od_torch/csrc/flash_attention.cu",
                                   "s3od_tpu/ops/flash_attention.py:105"),
     "K8_flash_attention_bwd": ("cuda", "s3od_torch/csrc/flash_attention_bwd.cu",
@@ -1446,6 +1450,122 @@ def k7_phase(results):
         torch.cuda.empty_cache()
 
 
+QKNR = ("MMDiT_qk_norm_rope", "MMDiT_qk_norm_rope_bwd")
+# ||kernel - plain|| / ||plain|| of the MMDiT pass's q, k, v: both round
+# the same fp32 values to bf16 at the same points; they differ where the
+# rsqrt's last bits or a fused multiply-add cross a rounding boundary (one
+# bf16 ulp on a small share of the elements); a tenth of a planted x 1.01
+QKNR_FWD_TOL = 1e-3
+
+
+def qk_norm_rope_phase(results):
+    """The MMDiT's q/k RMSNorm + RoPE + q scale + head layout pass and its
+    backward against their plain versions at FLUX.1-dev's widths (24
+    heads of 128): a single block's one source of 4608 tokens and a dual
+    block's (512, 4096) pair. Forward: each output within one bf16 ulp of
+    its scale and by relative norm (QKNR_FWD_TOL); backward (K8-shaped
+    cotangents, padded rows zero): dqkv by relative norm (VJP_NORM_TOL),
+    the norm weights' gradients too where asked for; planted x 1.01
+    caught; one launch a call (the launches of the main path are counted
+    in `factory_phase` and `lora_phase`). Timed by the profiler beside the
+    plain version and the bound (bytes: the forward reads qkv and the tables
+    and writes q, k, v; the backward reads dq, dk, dv, the pre-norm q, k
+    and the tables and writes dqkv), the single block's shape kept."""
+    import math
+
+    import torch
+
+    from s3od_torch.ops import flash_attention as fa
+    from s3od_torch.ops import qk_norm_rope as qr
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    h, d = 24, 128
+    scale = d**-0.5
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale
+                + shift).to(torch.bfloat16)
+
+    for sizes in ((4608,), (512, 4096)):
+        n = sum(sizes)
+        n_pad = fa.flash_seq_len(n)
+        log(f"phase MMDiT qk_norm_rope (sources {sizes}, {h} x {d})")
+        sources = [(randn(1, m, 3 * h * d, scale=1.5),
+                    randn(d, scale=0.3, shift=1.0),
+                    randn(d, scale=0.3, shift=1.0)) for m in sizes]
+        theta = torch.rand(n, d // 2, generator=gen, device=dev) * 40
+        cos = torch.repeat_interleave(theta.cos(), 2, -1)
+        sin = torch.repeat_interleave(theta.sin(), 2, -1)
+        fwd = lambda: qr.qk_norm_rope(sources, cos, sin, scale, n_pad)
+        before = qr.qk_norm_rope.launches
+        got = fwd()
+        check(qr.qk_norm_rope.launches == before + 1,
+              "qk_norm_rope counts one launch a call")
+        ref = qr.qk_norm_rope_plain(sources, cos, sin, scale, n_pad)
+        for i, (g, r) in enumerate(zip(got, ref)):
+            err = float((g.float() - r.float()).abs().max())
+            ulp = 2.0 ** (math.floor(math.log2(float(r.abs().max()))) - 7)
+            log(f"  out{i}: max|d| {err:.3e}, one bf16 ulp of its scale {ulp:.3e}")
+            check(err <= ulp, f"qk_norm_rope out{i} max|d| {err} > {ulp}")
+            check(not g[:, n:].any(), f"qk_norm_rope out{i} padded rows zero")
+        compare(QKNR[0], got, ref, results, norm_tol=QKNR_FWD_TOL)
+        planted_out(QKNR[0], got, ref, 0, QKNR_FWD_TOL)
+        grads = [randn(h, n_pad, d, scale=1e-3) for _ in range(3)]
+        for g in grads:
+            g[:, n:] = 0
+        for wgrad in (False, True):
+            before = qr.qk_norm_rope_bwd.launches
+            dq, dw = qr.qk_norm_rope_bwd(grads, sources, cos, sin, scale, wgrad)
+            check(qr.qk_norm_rope_bwd.launches == before + 1,
+                  "qk_norm_rope_bwd counts one launch a call")
+            rq, rw = qr.qk_norm_rope_bwd_plain(grads, sources, cos, sin,
+                                               scale, wgrad)
+            compare(QKNR[1], dq, rq, results, norm_tol=VJP_NORM_TOL)
+            planted_out(QKNR[1], dq, rq, 0, VJP_NORM_TOL)
+            if wgrad:
+                flat, rflat = [t for p in dw for t in p], [t for p in rw for t in p]
+                compare(QKNR[1], flat, rflat, results, norm_tol=VJP_NORM_TOL)
+            else:
+                check(dw is None, "no weight gradient where none is asked for")
+        del got, ref, dq, rq
+        bwd = lambda: qr.qk_norm_rope_bwd(grads, sources, cos, sin, scale, False)
+        io = 2 * 3 * h * n * d          # qkv or dqkv, bf16
+        heads = 2 * 3 * h * n_pad * d   # q, k, v or dq, dk, dv, bf16
+        tables = 2 * 4 * n * d
+        for name, kern, plain, nbytes in (
+                (QKNR[0], fwd,
+                 lambda: qr.qk_norm_rope_plain(sources, cos, sin, scale, n_pad),
+                 io + heads + tables),
+                (QKNR[1], bwd,
+                 lambda: qr.qk_norm_rope_bwd_plain(grads, sources, cos, sin,
+                                                   scale, False),
+                 heads + io * 2 // 3 + tables + io)):
+            t = results[name]
+            bound, how = 1e3 * nbytes / HBM, "profiler"
+            if len(sizes) == 1:  # the single block's shape goes in the table
+                time_pair(name, kern, plain, results)
+                set_bound(results, name, 0.0, nbytes)
+                t["library_ms"] = None
+                ms = t["ms"]
+            else:
+                ms = device_ms(kern)
+            if ms < bound:
+                # under the bytes bound: the profiler lost events, as it
+                # has late in a full run (0.046 against 0.072 ms here)
+                log(f"  {name} at {sizes}: the profiler read {ms:.4f} ms, "
+                    "under the bound")
+                ms, how = held_ms(kern), "CUDA events, card held"
+                if len(sizes) == 1:
+                    t["ms"] = ms
+            t.setdefault("shapes", {})[str(sizes)] = ms
+            log(f"  {name} at {sizes}: {ms:.4f} ms ({how}); bound "
+                f"{bound:.4f} ms by bytes ({nbytes / 1e6:.1f} MB; "
+                f"{100 * bound / ms:.0f}%)")
+        del sources, grads
+        torch.cuda.empty_cache()
+
+
 # ----------------------------------------------------------------------------
 # The experiments of benchmarks/ (E1-E4), s3od_torch.experiments
 # ----------------------------------------------------------------------------
@@ -1887,6 +2007,7 @@ def factory_phase(results):
 
     from s3od_torch.datagen import generate_train_images as gti
     from s3od_torch.ops import flash_attention as fa
+    from s3od_torch.ops import qk_norm_rope as qr
 
     r = results["_factory"] = {}
     log("phase factory: FLUX.1-dev MMDiT (19 dual + 38 single blocks, 24 x "
@@ -1916,11 +2037,13 @@ def factory_phase(results):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k7 = fa.flash_attention_online.launches
+    qk = (qr.qk_norm_rope.launches, qr.qk_norm_rope_bwd.launches)
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"  process_class: {done} of 2 samples in {wall:.2f} s "
         f"({120.0 / wall:.3f} samples/min), peak {peak:.2f} GiB; K7 launches "
-        f"{k7} (want {2 * per_sample}), teacher kernels {counts}")
+        f"{k7} (want {2 * per_sample}), qk_norm_rope forward, backward {qk} "
+        f"(want ({2 * per_sample}, 0)), teacher kernels {counts}")
     check(done == 2, f"the orchestrator wrote {done} of 2 samples")
     for i in range(2):
         stem = f"{FACTORY_CLASS.replace(' ', '_')}_{i:04d}"
@@ -1931,6 +2054,8 @@ def factory_phase(results):
         log(f"  sample {i}: image {hw_i}, mask {hw_m} (W x H)")
         check(hw_i == hw_m, f"sample {i}: image {hw_i} vs mask {hw_m}")
     check(k7 == 2 * per_sample, f"K7 launched {k7}, want {2 * per_sample}")
+    check(qk == (2 * per_sample, 0), f"qk_norm_rope launched {qk}, want "
+          f"({2 * per_sample}, 0)")
     for name, cnt in counts.items():
         check(cnt == 2 * blocks_t, f"teacher: {name} launched {cnt}, "
               f"want {2 * blocks_t}")
@@ -1938,7 +2063,8 @@ def factory_phase(results):
     stage_s = dict(clock.sec)
     stage_s["save + host rest"] = wall - sum(stage_s.values())
     r.update(samples=done, process_class_s=wall, samples_per_min=120.0 / wall,
-             peak_gib=peak, k7_launches_2_samples=k7, stages_s=stage_s,
+             peak_gib=peak, k7_launches_2_samples=k7,
+             qk_norm_rope_launches_2_samples=qk, stages_s=stage_s,
              teacher_launches=counts)
     log("  stages (s, both samples): " + ", ".join(
         f"{k} {v:.3f}" for k, v in stage_s.items()))
@@ -1952,7 +2078,7 @@ def factory_phase(results):
 
     # one direct generate at 1024^2, outside any catch
     clock.reset()
-    fa.flash_attention_online.launches = 0
+    fa.flash_attention_online.launches = qr.qk_norm_rope.launches = 0
     t0 = time.perf_counter()
     image, feats, cmaps = pipe.generate("a photograph of a tabby cat",
                                         FACTORY_CLASS, 1024, 1024, 7)
@@ -1962,8 +2088,11 @@ def factory_phase(results):
     k7 = fa.flash_attention_online.launches
     log(f"  generate 1024^2: {gen_s:.2f} s; step device ms: plain "
         f"{plain_ms:.2f}, concept {conc_ms:.2f}; K7 per step "
-        f"{sorted(kinds)}, per sample {k7} (want {per_sample})")
+        f"{sorted(kinds)}, per sample {k7} (want {per_sample}); "
+        f"qk_norm_rope {qr.qk_norm_rope.launches}")
     check(k7 == per_sample, f"K7 launched {k7} per sample, want {per_sample}")
+    check(qr.qk_norm_rope.launches == per_sample,
+          f"qk_norm_rope launched {qr.qk_norm_rope.launches} per sample")
     check(kinds == {(False, per_step), (True, per_concept_step)},
           f"K7 launches per step {kinds}")
     check(image.shape == (1024, 1024, 3) and image.dtype == np.uint8,
@@ -2398,8 +2527,8 @@ def lora_phase(results, pipe):
     """The MMDiT's LoRA fine-tuning on the seeded FLUX.1-dev model of
     `factory_phase` (bf16), K7 forward and K8 backward at D = 128 on
     every attention: (a) full-width steps through `make_lora_train_step`
-    at the 1024^2 bucket (4096 + 512 = 4608 tokens; K7 and K8 exactly 57
-    launches a step; the loss at one fixed draw falls over 8 steps; step
+    at the 1024^2 bucket (4096 + 512 = 4608 tokens; K7, K8 and the two
+    `qk_norm_rope` passes exactly 57 launches a step each; the loss at one fixed draw falls over 8 steps; step
     ms, img/s, peak GiB without and with per-block recomputation, the
     idle share); (b) one step at the 832 x 1216 bucket (3952 + 512 = 4464
     tokens, padded to 4480); (c) every K8 call of a step at each bucket
@@ -2418,6 +2547,7 @@ def lora_phase(results, pipe):
     from s3od_torch.datagen import lora as L
     from s3od_torch.datagen.diffusion import ConceptAttentionPipeline
     from s3od_torch.ops import flash_attention as fa
+    from s3od_torch.ops import qk_norm_rope as qr
 
     log("phase LoRA: FLUX.1-dev MMDiT (seeded, bf16), rank 16, alpha 16, "
         f"AdamW lr {LORA_LR} (weight decay 1e-4), K7 + K8 at D = 128")
@@ -2458,13 +2588,15 @@ def lora_phase(results, pipe):
     torch.cuda.reset_peak_memory_stats()
     for _ in range(LORA_STEPS):
         fa.flash_attention_online.launches = fa.flash_attention_bwd.launches = 0
+        qr.qk_norm_rope.launches = qr.qk_norm_rope_bwd.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         losses.append(float(step(lora, b0, fixed())))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         counts.append((fa.flash_attention_online.launches,
-                       fa.flash_attention_bwd.launches))
+                       fa.flash_attention_bwd.launches,
+                       qr.qk_norm_rope.launches, qr.qk_norm_rope_bwd.launches))
     peak = torch.cuda.max_memory_allocated() / 2**30
     with torch.no_grad():
         final = float(L.lora_loss(model, lora, lcfg, b0, fixed()))
@@ -2472,11 +2604,13 @@ def lora_phase(results, pipe):
     log(f"  (a) 1024^2 steps: loss at the fixed draw {[round(x, 5) for x in losses]}"
         f" -> {final:.5f} after {LORA_STEPS}; step {step_ms:.1f} ms (median of "
         f"{LORA_STEPS - 1}; first {1e3 * times[0]:.1f}), {1e3 / step_ms:.3f} img/s, "
-        f"peak {peak:.2f} GiB; K7, K8 launches a step {sorted(set(counts))}")
-    check(all(c == (blocks, blocks) for c in counts),
-          f"K7/K8 launches a step {counts}, want {blocks} each")
+        f"peak {peak:.2f} GiB; K7, K8, qk_norm_rope, qk_norm_rope_bwd "
+        f"launches a step {sorted(set(counts))}")
+    check(all(c == (blocks,) * 4 for c in counts),
+          f"K7/K8/qk_norm_rope/_bwd launches a step {counts}, want {blocks} each")
     check(final < losses[0], f"the LoRA loss did not fall: {losses} -> {final}")
     results[K8D]["launches"] = counts[-1][1]
+    results[QKNR[0]]["launches"], results[QKNR[1]]["launches"] = counts[-1][2:]
     r.update(losses=losses, loss_after=final, step_ms=step_ms,
              first_step_ms=1e3 * times[0], img_per_s=1e3 / step_ms,
              peak_gib=peak, launches_per_step=counts[-1])
@@ -2501,16 +2635,21 @@ def lora_phase(results, pipe):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.flash_attention_online.launches = fa.flash_attention_bwd.launches = 0
+    qr.qk_norm_rope.launches = qr.qk_norm_rope_bwd.launches = 0
     t0 = time.perf_counter()
     remat(lora, b0, fixed())
     torch.cuda.synchronize()
     r.update(remat_step_ms=1e3 * (time.perf_counter() - t0),
              remat_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
              remat_launches=(fa.flash_attention_online.launches,
-                             fa.flash_attention_bwd.launches))
+                             fa.flash_attention_bwd.launches,
+                             qr.qk_norm_rope.launches,
+                             qr.qk_norm_rope_bwd.launches))
     log(f"  with remat: step {r['remat_step_ms']:.1f} ms, peak "
-        f"{r['remat_peak_gib']:.2f} GiB, K7, K8 launches {r['remat_launches']}")
-    check(r["remat_launches"] == (2 * blocks, blocks), "remat launches")
+        f"{r['remat_peak_gib']:.2f} GiB, K7, K8, qk_norm_rope, "
+        f"qk_norm_rope_bwd launches {r['remat_launches']}")
+    check(r["remat_launches"] == (2 * blocks, blocks, 2 * blocks, blocks),
+          f"remat launches {r['remat_launches']}")
 
     # (b), (c) a step at each bucket, every K8 call against its plain version
     real = fa.flash_attention_bwd
@@ -2569,24 +2708,27 @@ def lora_phase(results, pipe):
                                      vae=pipe.vae, lora=path, device=dev)
     name = "dual_blocks.1.img_attn.qkv.weight"
     moved = rel_norm(lpipe.merged[name], probe)
-    fa.flash_attention_online.launches = 0
+    fa.flash_attention_online.launches = qr.qk_norm_rope.launches = 0
     t0 = time.perf_counter()
     out = lpipe(prompt, height=1024, width=1024, seed=7, concepts=concepts,
                 prompt_embeds=emb, concept_embeds=cemb, concept_pooled=cpool)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     k7 = fa.flash_attention_online.launches
+    qk = qr.qk_norm_rope.launches
     want = (pipe.num_inference_steps - 3) * blocks + 3 * (blocks + model.cfg.num_dual_blocks)
     log(f"  (e) adapters written and merged by the pipeline (||W' - W|| / "
         f"||W|| {moved:.3e} on {name}); generate 1024^2 in {gen_s:.2f} s, "
-        f"K7 launches {k7} (want {want})")
+        f"K7 launches {k7}, qk_norm_rope launches {qk} (want {want} each)")
     check(moved > 0, "the merged weights equal the base")
     check(float(probe.float().square().sum()) == before, "the merge changed the base")
     check(k7 == want, f"LoRA generate: K7 launched {k7}, want {want}")
+    check(qk == want, f"LoRA generate: qk_norm_rope launched {qk}, want {want}")
     check(out.image.shape == (1024, 1024, 3) and out.image.dtype == np.uint8,
           "LoRA generate: image")
     check(all(np.isfinite(f).all() for f in out.features), "LoRA generate: taps")
-    r.update(merged_rel_change=moved, generate_s=gen_s, generate_k7=k7)
+    r.update(merged_rel_change=moved, generate_s=gen_s, generate_k7=k7,
+             generate_qk_norm_rope=qk)
     del lpipe, out
 
     # (d) gradient agreement on 2 dual + 4 single blocks
@@ -2679,10 +2821,11 @@ def k8_launches() -> int:
 
 def reset_counts():
     from s3od_torch.ops.flash_attention import flash_attention_bwd
+    from s3od_torch.ops.qk_norm_rope import qk_norm_rope, qk_norm_rope_bwd
 
-    for fn in [*wrappers().values(), *vjp_passes().values()]:
+    for fn in [*wrappers().values(), *vjp_passes().values(), qk_norm_rope,
+               qk_norm_rope_bwd, flash_attention_bwd]:
         fn.launches = 0
-    flash_attention_bwd.launches = 0
 
 
 def iou(a, b) -> float:
@@ -5182,10 +5325,12 @@ def parallel_phase(results):
 
 def factory_step_run(pipe, inputs, reps=3):
     """A plain and a concept MMDiT step at 1024^2: (velocity of each, K7
-    launches of each, median device ms of each, peak GiB)."""
+    launches of each, median device ms of each, peak GiB). Each K7 call
+    takes its inputs from one `qk_norm_rope` launch."""
     import torch
 
     from s3od_torch.ops import flash_attention as fa
+    from s3od_torch.ops import qk_norm_rope as qr
 
     out = {}
     torch.cuda.synchronize()
@@ -5194,9 +5339,12 @@ def factory_step_run(pipe, inputs, reps=3):
                                     pooled_concepts=None)),
                      ("concept", inputs)):
         with torch.no_grad():  # FSDP2's gathers need version counters
-            fa.flash_attention_online.launches = 0
+            fa.flash_attention_online.launches = qr.qk_norm_rope.launches = 0
             res = pipe.model(**kw)
             launches = fa.flash_attention_online.launches
+            check(qr.qk_norm_rope.launches == launches,
+                  f"{name} step: qk_norm_rope launched "
+                  f"{qr.qk_norm_rope.launches}, K7 {launches}")
             ms = cuda_ms(lambda: pipe.model(**kw), iters=reps)
         out[name] = {"velocity": res["output"].float().clone(),
                      "launches": launches, "ms": ms}
@@ -6145,6 +6293,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     timed(parallel_phase, results)
     timed(k7_phase, results)
+    timed(qk_norm_rope_phase, results)
     timed(experiments_phase, results)
     torch.cuda.empty_cache()
     pipe = timed(factory_phase, results)

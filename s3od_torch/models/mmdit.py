@@ -16,8 +16,14 @@ JAX; `convert.py` carries the trees across. Mixed precision as in JAX:
 the timestep/guidance/pooled embeddings and the AdaLN modulation run in
 fp32 on the weights' values (`_modulation`), the streams in the compute
 dtype, LayerNorm/RMSNorm and RoPE in fp32 with the result cast back.
-Every attention goes through `ops.attention.multi_head_attention`: K7 in
-bf16 at N >= 1024 (the MMDiT never asks for the static bound).
+Every attention runs through `_joint_attention`. Where K7 runs on the card
+(bf16, N >= 1024, CUDA tensors), the step from each stream's qkv linear
+output to K7's inputs (q/k RMSNorm, RoPE, q's scale, the head layout) is
+one Triton pass, `ops.qk_norm_rope` (its backward a second), and K7 takes
+its outputs through `ops.attention.flash_attention_heads`. Elsewhere (CPU,
+fp32, N < 1024) the eager chain runs: `qk_norm_heads`, `apply_rope`, then
+`ops.attention.multi_head_attention` (the MMDiT never asks for the static
+bound).
 
 While a profiler records, each block of a forward is a span
 (`profiling.span`): `s3od.mmdit.dual_block` or `s3od.mmdit.single_block`
@@ -41,7 +47,17 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from s3od_torch.ops import quant
-from s3od_torch.ops.attention import multi_head_attention
+from s3od_torch.ops.attention import (
+    flash_attention_heads,
+    multi_head_attention,
+    resolve_attn_impl,
+)
+from s3od_torch.ops.flash_attention import flash_seq_len
+from s3od_torch.ops.qk_norm_rope import (
+    apply_rope,
+    qk_norm_heads,
+    qk_norm_rope_autograd,
+)
 from s3od_torch.profiling import span
 
 
@@ -112,12 +128,6 @@ def _layer_norm(x, eps=1e-6):
     return F.layer_norm(x.float(), x.shape[-1:], eps=eps).to(x.dtype)
 
 
-def _rms_norm(x, weight, eps=1e-6):
-    xf = x.float()
-    y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
-    return (y * weight.float()).to(x.dtype)
-
-
 def timestep_embedding(t, dim: int, max_period: float = 10000.0):
     """Sinusoidal embedding, fp32; t scaled by 1000 (flow-matching style)."""
     half = dim // 2
@@ -141,23 +151,6 @@ def rope_from_ids(ids, axes_dims: Sequence[int], theta: float):
         cos.append(torch.repeat_interleave(torch.cos(angles), 2, dim=-1))
         sin.append(torch.repeat_interleave(torch.sin(angles), 2, dim=-1))
     return torch.cat(cos, -1), torch.cat(sin, -1)
-
-
-def _rotate_pairs(x):
-    """(-x1, x0, -x3, x2, ...) interleaved rotation."""
-    x2 = x.reshape(*x.shape[:-1], -1, 2)
-    return torch.stack([-x2[..., 1], x2[..., 0]], -1).reshape(x.shape)
-
-
-def apply_rope(q, k, cos, sin):
-    """q, k (B, N, H, D); cos/sin (N, D). fp32 rotation, cast back."""
-    c, s = cos[None, :, None, :], sin[None, :, None, :]
-
-    def rot(t):
-        tf = t.float()
-        return (tf * c + _rotate_pairs(tf) * s).to(t.dtype)
-
-    return rot(q), rot(k)
 
 
 def _modulation(temb, mod: nn.Linear, n_chunks: int):
@@ -202,26 +195,39 @@ class MLP(nn.Module):
         self.fc2 = nn.Linear(hidden, dout, **kw)
 
 
-def _qkv_heads(x, qkv: nn.Linear, qk_norm: QKNorm, heads: int, head_dim: int):
-    y = _linear(x, qkv).reshape(*x.shape[:-1], 3, heads, head_dim)
-    q, k, v = y.unbind(-3)
-    return _rms_norm(q, qk_norm.q), _rms_norm(k, qk_norm.k), v
+def _joint_attention(parts, rope, head_dim: int, attn_impl: str):
+    """Attention over the token-ordered concatenation of `parts`, each
+    (a stream's qkv linear output (B, N_s, 3 H D), its `QKNorm`), with the
+    (N, D) RoPE tables `rope` of the whole sequence -> (B, N, H, D). Where
+    `multi_head_attention` would take K7 (bf16, N >= 1024) on CUDA
+    tensors, `qk_norm_rope` hands K7 its inputs in one pass; elsewhere
+    the eager chain runs, each stream normalised, then concatenated,
+    rotated and attended."""
+    y0 = parts[0][0]
+    n = sum(y.shape[1] for y, _ in parts)
+    scale = head_dim**-0.5
+    if y0.is_cuda and resolve_attn_impl(n, y0.dtype, attn_impl) == "flash":
+        q, k, v = qk_norm_rope_autograd(
+            [(y, norm.q, norm.k) for y, norm in parts], *rope, scale,
+            flash_seq_len(n))
+        return flash_attention_heads(q, k, v, y0.shape[0], n)
+    heads = [qk_norm_heads(y, norm.q, norm.k, head_dim) for y, norm in parts]
+    q, k, v = (torch.cat(t, 1) if len(t) > 1 else t[0] for t in zip(*heads))
+    q, k = apply_rope(q, k, *rope)
+    return multi_head_attention(q, k, v, scale=scale, impl=attn_impl)
 
 
 class DualBlock(nn.Module):
     def __init__(self, cfg: MMDiTConfig, **kw):
         super().__init__()
         d, mlp = cfg.hidden_size, int(cfg.hidden_size * cfg.mlp_ratio)
-        self.heads, self.head_dim = cfg.num_heads, cfg.head_dim
+        self.head_dim = cfg.head_dim
         self.img_mod = nn.Linear(d, 6 * d, **kw)
         self.txt_mod = nn.Linear(d, 6 * d, **kw)
         self.img_attn = Attention(d, cfg.head_dim, **kw)
         self.txt_attn = Attention(d, cfg.head_dim, **kw)
         self.img_mlp = MLP(d, mlp, d, **kw)
         self.txt_mlp = MLP(d, mlp, d, **kw)
-
-    def _heads(self, x, attn: Attention):
-        return _qkv_heads(x, attn.qkv, attn.qk_norm, self.heads, self.head_dim)
 
     @staticmethod
     def _mlp(x, mlp: MLP):
@@ -237,13 +243,12 @@ class DualBlock(nn.Module):
             temb, self.img_mod, 6)
         shift_t, scale_t, gate_t, shift_mt, scale_mt, gate_mt = _modulation(
             temb, self.txt_mod, 6)
-        qi, ki, vi = self._heads(_mod(img, shift_i, scale_i), self.img_attn)
-        qt, kt, vt = self._heads(_mod(txt, shift_t, scale_t), self.txt_attn)
-
-        q, k = apply_rope(torch.cat([qt, qi], 1), torch.cat([kt, ki], 1),
-                          *rope_txt_img)
-        attn = multi_head_attention(q, k, torch.cat([vt, vi], 1),
-                                    scale=d**-0.5, impl=attn_impl)
+        img_part = (_linear(_mod(img, shift_i, scale_i), self.img_attn.qkv),
+                    self.img_attn.qk_norm)
+        txt_part = (_linear(_mod(txt, shift_t, scale_t), self.txt_attn.qkv),
+                    self.txt_attn.qk_norm)
+        attn = _joint_attention([txt_part, img_part], rope_txt_img, d,
+                                attn_impl)
         n_txt = txt.shape[1]
         attn_t = _linear(attn[:, :n_txt].flatten(2), self.txt_attn.proj)
         attn_i = _linear(attn[:, n_txt:].flatten(2), self.img_attn.proj)
@@ -252,11 +257,10 @@ class DualBlock(nn.Module):
         if concept is not None:
             eff = concept_temb if concept_temb is not None else temb
             sc, scc, gc, smc, sccm, gcm = _modulation(eff, self.txt_mod, 6)
-            qc, kc, vc = self._heads(_mod(concept, sc, scc), self.txt_attn)
-            q2, k2 = apply_rope(torch.cat([qc, qi], 1), torch.cat([kc, ki], 1),
-                                *rope_concept_img)
-            cattn = multi_head_attention(q2, k2, torch.cat([vc, vi], 1),
-                                         scale=d**-0.5, impl=attn_impl)
+            concept_part = (_linear(_mod(concept, sc, scc),
+                                    self.txt_attn.qkv), self.txt_attn.qk_norm)
+            cattn = _joint_attention([concept_part, img_part],
+                                     rope_concept_img, d, attn_impl)
             n_c = concept.shape[1]
             # the reference routes concepts through the image to_out
             attn_c = _linear(cattn[:, :n_c].flatten(2), self.img_attn.proj)
@@ -283,7 +287,7 @@ class SingleBlock(nn.Module):
     def __init__(self, cfg: MMDiTConfig, **kw):
         super().__init__()
         d, mlp = cfg.hidden_size, int(cfg.hidden_size * cfg.mlp_ratio)
-        self.heads, self.head_dim = cfg.num_heads, cfg.head_dim
+        self.head_dim = cfg.head_dim
         self.mod = nn.Linear(d, 3 * d, **kw)
         self.qkv = nn.Linear(d, 3 * d, **kw)
         self.qk_norm = QKNorm(cfg.head_dim, **kw)
@@ -293,11 +297,8 @@ class SingleBlock(nn.Module):
     def forward(self, x, temb, rope, attn_impl: str = "auto"):
         shift, scale, gate = _modulation(temb, self.mod, 3)
         x_n = _mod(x, shift, scale)
-        q, k, v = _qkv_heads(x_n, self.qkv, self.qk_norm, self.heads,
-                             self.head_dim)
-        q, k = apply_rope(q, k, *rope)
-        attn = multi_head_attention(q, k, v, scale=self.head_dim**-0.5,
-                                    impl=attn_impl).flatten(2)
+        attn = _joint_attention([(_linear(x_n, self.qkv), self.qk_norm)],
+                                rope, self.head_dim, attn_impl).flatten(2)
         mlp = F.gelu(_linear(x_n, self.mlp_in), approximate="tanh")
         out = _linear(torch.cat([attn, mlp], -1), self.proj_out)
         return x + gate[:, None].to(x.dtype) * out

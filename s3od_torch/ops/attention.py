@@ -5,7 +5,9 @@
 leaves it to XLA. `multi_head_attention` keeps the JAX package's rule for
 when the flash kernels run (bf16 and at least 1024 tokens): K7, the
 online-softmax kernel, or K3/K6 when the caller asks for the static
-softmax bound, each with K8 as its backward. On CPU tensors the kernel
+softmax bound, each with K8 as its backward. `flash_attention_heads` is
+K7's route for callers that hand over q, k, v already scaled, head-major
+and padded (the MMDiT's `ops/qk_norm_rope`). On CPU tensors the kernel
 wrappers take their plain versions; on CUDA tensors they launch or raise.
 """
 
@@ -103,3 +105,17 @@ def multi_head_attention(q, k, v, *, scale: Optional[float] = None,
               else flash_attention_online_autograd)
     o = kernel(to_bhnd(q), to_bhnd(k), to_bhnd(v), n_valid)
     return o[:, :n].reshape(b, h, n, d).transpose(1, 2)
+
+
+def flash_attention_heads(q, k, v, batch: int, n: int):
+    """K7 (K8 its backward) over q, k, v already in the flash route's
+    form, (B*H, n_pad, D) with q scaled and the rows past `n` zero (as
+    `ops/qk_norm_rope.qk_norm_rope` writes them) -> (B, N, H, D), what
+    `multi_head_attention` returns on its flash route: the padded keys
+    masked by `n_valid` = n, the padded query rows sliced off."""
+    bh, n_pad, d = q.shape
+    if n_pad != flash_seq_len(n):
+        raise ValueError(f"flash_attention_heads: {n} tokens padded to "
+                         f"{n_pad}, not {flash_seq_len(n)}")
+    o = flash_attention_online_autograd(q, k, v, n)
+    return o[:, :n].reshape(batch, bh // batch, n, d).transpose(1, 2)
