@@ -93,18 +93,21 @@ def multi_head_attention(q, k, v, *, scale: Optional[float] = None,
     if resolve_attn_impl(q.shape[1], q.dtype, impl) == "xla":
         return attention(q, k, v, scale, n_valid)
     b, n, h, d = q.shape
-    n_valid = n_valid or n
     q = q * scale_in_dtype(scale, q.dtype)
     n_pad = flash_seq_len(n)
-
-    def to_bhnd(t):
-        t = t.transpose(1, 2).reshape(b * h, n, d)
-        return F.pad(t, (0, 0, 0, n_pad - n)) if n_pad != n else t
-
     kernel = (flash_attention_autograd if static_softmax_bound
               else flash_attention_online_autograd)
-    o = kernel(to_bhnd(q), to_bhnd(k), to_bhnd(v), n_valid)
+    o = kernel(to_bhnd(q, n_pad), to_bhnd(k, n_pad), to_bhnd(v, n_pad),
+               n_valid or n)
     return o[:, :n].reshape(b, h, n, d).transpose(1, 2)
+
+
+def to_bhnd(t, n_pad: int):
+    """(B, N, H, D) -> (B*H, n_pad, D), the padded rows zero: the flash
+    kernels' input form."""
+    b, n, h, d = t.shape
+    t = t.transpose(1, 2).reshape(b * h, n, d)
+    return F.pad(t, (0, 0, 0, n_pad - n)) if n_pad != n else t
 
 
 def flash_attention_heads(q, k, v, batch: int, n: int):

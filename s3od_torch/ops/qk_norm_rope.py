@@ -46,10 +46,9 @@ import functools
 from typing import List, Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from s3od_torch import _build
-from s3od_torch.ops.attention import scale_in_dtype
+from s3od_torch.ops.attention import scale_in_dtype, to_bhnd
 
 # tokens of one program, and its warps (both passes)
 TOKENS, WARPS = 16, 8
@@ -92,13 +91,6 @@ def qk_norm_heads(qkv, q_weight, k_weight, head_dim: int):
     y = qkv.reshape(*qkv.shape[:-1], 3, -1, head_dim)
     q, k, v = y.unbind(-3)
     return rms_norm(q, q_weight), rms_norm(k, k_weight), v
-
-
-def to_bhnd(t, n_pad: int):
-    """(B, N, H, D) -> (B*H, n_pad, D), the padded rows zero."""
-    b, n, h, d = t.shape
-    t = t.transpose(1, 2).reshape(b * h, n, d)
-    return F.pad(t, (0, 0, 0, n_pad - n)) if n_pad != n else t
 
 
 def qk_norm_rope_plain(sources: Sequence[Source], cos, sin, scale: float,

@@ -1,7 +1,8 @@
 """s3od_torch.experiments (E1-E4): each plain version against the Pallas
 kernel of its script in `benchmarks/`, run in interpret mode on the CPU,
-the entry points with `--device cpu`, the wrappers' dispatch, and — on a
-CUDA card only — each kernel against its plain version.
+the entry points with `--device cpu` and the wrappers' dispatch. On the
+card each kernel is held to its plain version by
+`tests/test_torch_experiments_cuda.py`.
 
 The scripts are read, never edited. Their kernels are reached as they
 stand: `jax.experimental.pallas.pallas_call` is wrapped to force
@@ -22,7 +23,6 @@ absolute. E3b is fp32: `mul` exact, the infs at the same positions and
 the finite values within 1e-5 relative (the clip tails converge to one
 constant, so every output may differ; XLA's exp2 is exp(ln2 x), whose
 rounded product moves the result by up to |x| 2^-24, 2.4e-6 at |x| = 40).
-On the card each kernel is bit-equal to its plain version.
 """
 
 import importlib.util
@@ -496,116 +496,3 @@ def test_kernel_input_checks(case):
     with pytest.raises(ValueError):
         fv.check_inputs("test", *args)
     fv.check_inputs("test", q, q, q, torch.zeros(70))
-
-
-# ----------------------------------------------------------------------------
-# On the card: each kernel against its plain version in bf16
-# ----------------------------------------------------------------------------
-
-
-def _rel(got, ref):
-    return fv.errors(got, ref)["rel_vs_plain"]
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (kernels compile and run on the card only)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("n", [200, 4104])
-def test_flash_experiments_match_plain_on_cuda(cuda, n):
-    """E1, E4 and E3a at a ragged length (not a multiple of 64)."""
-    gen = torch.Generator(device=cuda).manual_seed(0)
-    q, k, v = (torch.randn(4, n, 64, generator=gen, device=cuda)
-               .to(torch.bfloat16) for _ in range(3))
-    bias = torch.zeros(n, device=cuda)
-    bias[-3:] = -1e30
-    for variant in e1.VARIANTS:
-        assert _rel(e1.flash_softmax(q, k, v, 0.125, variant),
-                    e1.flash_softmax_plain(q, k, v, 0.125, variant)) <= 1e-2
-    for variant in e4.VARIANTS:
-        o, lse = e4.flash_single(q, k, v, bias, 0.125, variant)
-        o_ref, lse_ref = e4.flash_single_plain(q, k, v, bias, 0.125, variant)
-        assert _rel(o, o_ref) <= 1e-2
-        assert float((lse - lse_ref).abs().max()) <= 1e-3
-    blocks = e3.pick_blocks(n, 64)
-    o, lse = e3.exp2_flash(q, k, v, 0.125, *blocks, n - 5)
-    o_ref, lse_ref = e3.exp2_flash_plain(q, k, v, 0.125, *blocks, n - 5)
-    assert _rel(o, o_ref) <= 1e-2
-    assert float((lse - lse_ref).abs().max()) <= 1e-3
-    torch.cuda.synchronize()
-
-
-def _plain_with_extra_keys(q, k, v, bias, sm, extra):
-    """attention_plain over the n keys and `extra` appended zero keys with
-    bias -1e30: the function the kernel computes with `extra_keys`."""
-    if extra:
-        pad = lambda t: torch.nn.functional.pad(t, (0, 0, 0, extra))
-        k, v = pad(k), pad(v)
-        bias = torch.cat([bias, torch.full((extra,), fv.NEG_INF, device=q.device)])
-    return fv.attention_plain(q, k, v, bias, sm)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("n", [385, 4104])
-def test_every_kernel_instance_matches_attention_plain_on_cuda(cuda, n):
-    """Each template instance (codes 0, 1, 2, 3, 6) against
-    `attention_plain` at a length of 1 mod 128 (the last key tile holds one
-    key) and at the scripts' 4104, with the scripts' arguments: no bias and
-    no lse (E1), a -1e30 bias on the last 3 keys and lse (E4), E3a's
-    base-2 bound with the masked tail and extra keys. o within 1e-2 of
-    max|plain| and 5e-3 by relative norm, lse within 1e-3."""
-    gen = torch.Generator(device=cuda).manual_seed(1)
-    q, k, v = (torch.randn(3, n, 64, generator=gen, device=cuda)
-               .to(torch.bfloat16) for _ in range(3))
-    bias = torch.zeros(n, device=cuda)
-    bias[-3:] = -1e30
-    cases = [(e1.softmax_for(var, 0.125), q, None, False, 0) for var in e1.VARIANTS]
-    cases += [(e4.softmax_for(var, 0.125), e4._prepare(q, var, 0.125), bias, True, 0)
-              for var in e4.VARIANTS]
-    cases += [(e3.SOFTMAX, e3._scaled(q, 0.125), e3.key_bias(n, n - 5, cuda), True, 40)]
-    codes = set()
-    for sm, qq, bb, want_lse, extra in cases:
-        o, lse = fv.launch(qq, k, v, bb, sm, want_lse=want_lse, extra_keys=extra)
-        o_ref, lse_ref = _plain_with_extra_keys(qq, k, v, bb, sm, extra)
-        assert _rel(o, o_ref) <= 1e-2, sm
-        nrm = float((o.float() - o_ref.float()).norm() / o_ref.float().norm())
-        assert nrm <= 5e-3, (sm, nrm)
-        if want_lse:
-            assert float((lse - lse_ref).abs().max()) <= 1e-3, sm
-        else:
-            assert lse is None
-        codes.add(sm.code)
-    assert codes == set(fv.KERNEL_CODES)
-    torch.cuda.synchronize()
-
-
-@pytest.mark.cuda
-def test_loop_and_layernorm_match_plain_on_cuda(cuda):
-    """E3b bit-equal at 1-4 steps (exp and exp2 finite) and at 16 (inf)."""
-    x = torch.rand(128, 128, device=cuda) * -40
-    for name in e3.LOOP_VARIANTS:
-        for reps in (1, 2, 3, 4, 16):
-            assert torch.equal(e3.exp_loop(x, name, 16, reps),
-                               e3.exp_loop_plain(x, name, reps)), (name, reps)
-    xl, w, b = e2.inputs(2, 456, 768, cuda)
-    assert _rel(e2.layer_norm_single_pass(xl, w, b),
-                e2.layer_norm_single_pass_plain(xl, w, b)) <= 1e-2
-    torch.cuda.synchronize()
-
-
-@pytest.mark.cuda
-def test_layernorm_kernel_matches_plain_on_cuda(cuda):
-    """E2's kernel at ragged row counts (37 rows: a stage part empty) and
-    at C = 64 (24 of 32 lanes idle), 1000 (not a multiple of 256) and 4096
-    (w and b re-read), by max error and relative norm."""
-    for rows, c in ((37, 768), (37, 64), (5, 1000), (3, 4096), (8 * 4104, 768)):
-        xl, w, b = e2.inputs(1, rows, c, cuda)
-        got = e2.layer_norm_single_pass(xl, w, b).float()
-        ref = e2.layer_norm_single_pass_plain(xl, w, b).float()
-        assert _rel(got, ref) <= 1e-2, (rows, c)
-        assert float((got - ref).norm() / ref.norm()) <= 5e-3, (rows, c)
-    torch.cuda.synchronize()

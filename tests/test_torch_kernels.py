@@ -1,10 +1,9 @@
 """s3od_torch kernels K1-K6: each plain PyTorch version against its JAX
 Pallas kernel in interpret mode (float32, CPU; K5 also in bf16), the
-wrappers' dispatch and shape gates, and — on a CUDA card only — each
-kernel, K7-K10 included, against its plain version in bf16 (K8's plain
-version against the JAX backward: tests/test_torch_training.py; K9a,
-K9b and K10's against the Pallas kernels:
-tests/test_torch_decoder_kernels.py).
+wrappers' dispatch and shape gates (K8's plain version against the JAX
+backward: tests/test_torch_training.py; K9a, K9b and K10's against the
+Pallas kernels: tests/test_torch_decoder_kernels.py). On the card each
+kernel is held to its plain version by tests/test_torch_kernels_cuda.py.
 
 Tolerances (float32): the same math in the same order up to the
 summation order of the products and reductions, so 1e-5 (2e-5 for the
@@ -744,300 +743,3 @@ def test_kernel_wrappers_raise_on_unsupported_device_inputs(case):
     }
     with pytest.raises(ValueError):
         calls[case]()
-
-
-# ----------------------------------------------------------------------------
-# On the card: each kernel against its plain version in bf16
-# ----------------------------------------------------------------------------
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (kernels compile and run on the card only)")
-    return torch.device("cuda")
-
-
-def _close(got, ref, rel=1e-2):
-    for g, r in zip(got, ref):
-        g, r = g.float(), r.float()
-        assert torch.isfinite(g).all()
-        assert float((g - r).abs().max()) <= rel * float(r.abs().max())
-
-
-def _cold_inputs(q, k):
-    """Queries of -0.15 and keys in [5, 5.5 + |k| / 2]: logits of about
-    -50 at D = 64 (-25 at D = 32, scaled to -50), every one below -40."""
-    d = q.shape[-1]
-    q_cold = torch.full_like(q, -0.15 * 64 / d)
-    return q_cold, (k.float().abs() * 0.5 + 5.0).to(k.dtype)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("d", [32, 64])
-def test_kernels_match_plain_on_cuda(cuda, d):
-    gen = torch.Generator(device=cuda).manual_seed(0)
-    bf = torch.bfloat16
-    b, n, h = 2, 192, 4
-    c = h * d
-    r = lambda *s, scale=1.0: (torch.randn(*s, generator=gen, device=cuda)
-                               * scale).to(bf)
-    x = r(b, n, c)
-    w, bvec = r(c, scale=0.5) + 1, r(c, scale=0.2)
-    _close(ln.layer_norm(x, w, bvec, 1e-5)[:1],
-           ln.layer_norm_plain(x, w, bvec, 1e-5)[:1])
-    wq, bq = r(3 * c, c, scale=0.05), r(3 * c, scale=0.1)
-    cos = torch.rand(n, d, generator=gen, device=cuda)
-    sin = torch.rand(n, d, generator=gen, device=cuda)
-    args = (x, wq, bq, cos, sin, h, d**-0.5)
-    _close(qp.qkv_project_rope(*args), qp.qkv_project_rope_plain(*args))
-    q, k, v = r(b * h, n, d, scale=0.1), r(b * h, n, d), r(b * h, n, d)
-    o, lse = fa.flash_attention(q, k, v, n - 7)
-    o_ref, lse_ref = fa.flash_attention_plain(q, k, v, n - 7)
-    _close([o], [o_ref])
-    assert float((lse - lse_ref).abs().max()) <= 1e-3
-    # cold rows: every logit below -40, so each key below N weighs e^-80,
-    # those past n_valid too, and the 64 keys past N (zeros in the last
-    # 128-key tile at D = 64) none
-    q_cold, k_pos = _cold_inputs(q, k)
-    o, lse = fa.flash_attention(q_cold, k_pos, v, n - 7)
-    o_ref, lse_ref = fa.flash_attention_plain(q_cold, k_pos, v, n - 7)
-    _close([o], [o_ref])
-    assert float((lse - lse_ref).abs().max()) <= 1e-3
-    args = (r(b * h, n, d), r(c, c, scale=0.05), r(c, scale=0.1), x,
-            r(c, scale=0.5) + 1, w, bvec, 1e-5)
-    _close(ae.attn_epilogue(*args), ae.attn_epilogue_plain(*args))
-    f = 4 * c
-    args = (x, r(f, c, scale=0.05), r(f, scale=0.1), r(c, f, scale=0.05),
-            r(c, scale=0.1), r(b, n, c), r(c, scale=0.5) + 1)
-    _close([mf.mlp_fused(*args)], [mf.mlp_fused_plain(*args)])
-    # K5 at ragged row counts (the last 128-row tile part empty), the
-    # widths of the tiny fixtures, ViT-B and ViT-L, and a b16-size batch;
-    # each launch against its plain half; one launch counted per call
-    shapes = [(100, 64, 256), (4160, 64, 128), (4160, 768, 3072),
-              (300, 1024, 4096)]
-    if d == 64:
-        shapes.append((16 * 4160, 768, 3072))
-    for rows, cc, ff in shapes:
-        x, res = r(1, rows, cc), r(1, rows, cc)
-        wts = (r(ff, cc, scale=0.02), r(ff, scale=0.1), r(cc, ff, scale=0.02),
-               r(cc, scale=0.1))
-        ls = r(cc, scale=0.5) + 1
-        before = mf.mlp_fused.launches
-        out, hid = mf.mlp_fused(x, *wts, res, ls, return_hidden=True)
-        assert mf.mlp_fused.launches == before + 1
-        _close([out], [mf.mlp_fused_plain(x, *wts, res, ls)])
-        _close([hid], [mf.mlp_up_plain(x, *wts[:2])])
-        _close([out], [mf.mlp_down_plain(hid, *wts[2:], res, ls)])
-    torch.cuda.synchronize()
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("d", [32, 64])
-def test_flash_attention_long_sequence_on_cuda(cuda, d):
-    """K6's shape: 16389 tokens padded to 16448 (257 key tiles)."""
-    gen = torch.Generator(device=cuda).manual_seed(1)
-    n, n_valid = fa.flash_seq_len(16389), 16389
-    q, k, v = ((torch.randn(2, n, d, generator=gen, device=cuda) * s)
-               .to(torch.bfloat16) for s in (0.5 * d**-0.5, 0.5, 1.0))
-    for qq, kk in ((q, k), _cold_inputs(q, k)):  # normal and cold rows
-        o, lse = fa.flash_attention(qq, kk, v, n_valid)
-        o_ref, lse_ref = fa.flash_attention_plain(qq, kk, v, n_valid)
-        _close([o], [o_ref])
-        assert float((lse - lse_ref).abs().max()) <= 1e-3
-    torch.cuda.synchronize()
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("d", [32, 64])
-def test_flash_attention_bwd_matches_plain_on_cuda(cuda, d):
-    """K8 against its plain version in bf16: n_valid < N, two query rows
-    with logits far beyond the +-40 window (finite, the clamp), and the
-    launch counted once per call."""
-    gen = torch.Generator(device=cuda).manual_seed(2)
-    bh, n, n_valid = 4, 320, 300
-    q, k, v, g = ((torch.randn(bh, n, d, generator=gen, device=cuda) * s)
-                  .to(torch.bfloat16) for s in (0.5 * d**-0.5, 0.5, 1.0, 1.0))
-    q[0, :2] *= 500
-    g[:, n_valid:] = 0
-    o, lse = fa.flash_attention(q, k, v, n_valid)
-    before = fa.flash_attention_bwd.launches
-    got = fa.flash_attention_bwd(q, k, v, o, lse, g, n_valid)
-    assert fa.flash_attention_bwd.launches == before + 1
-    _close(got, fa.flash_attention_bwd_plain(q, k, v, o, lse, g, n_valid))
-    # cold rows: lse = -40 + log N, so p = exp(min(s - lse, 0)) is small
-    # but not zero, and keys past n_valid still get p = 0
-    q_cold, k_pos = _cold_inputs(q, k)
-    o, lse = fa.flash_attention(q_cold, k_pos, v, n_valid)
-    _close(fa.flash_attention_bwd(q_cold, k_pos, v, o, lse, g, n_valid),
-           fa.flash_attention_bwd_plain(q_cold, k_pos, v, o, lse, g, n_valid))
-    torch.cuda.synchronize()
-
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
-def test_flash_attention_online_matches_plain_on_cuda(cuda, d):
-    """K7 against its plain version in bf16: n_valid < N, and rows whose
-    logits reach +-600 with the maximum rising along the keys (a kernel
-    that skipped the rescale, or clipped at +-40, fails); one launch
-    counted per call."""
-    gen = torch.Generator(device=cuda).manual_seed(3)
-    bh, n = 4, 320  # 5 x 64: the last 128-key tile and query block ragged
-    q, k, v = ((torch.randn(bh, n, d, generator=gen, device=cuda) * s)
-               .to(torch.bfloat16) for s in (d**-0.5, 1.0, 1.0))
-    u = torch.nn.functional.normalize(torch.randn(d, generator=gen, device=cuda), dim=0)
-    q[1] = (torch.linspace(0.5, 1.5, n, device=cuda)[:, None] * u).to(torch.bfloat16)
-    k[1] = (torch.linspace(-400, 400, n, device=cuda)[:, None] * u).to(torch.bfloat16)
-    # n_valid inside the last half-tile, at N, and inside the first tile
-    for n_valid in (290, 320, 100):
-        before = fa.flash_attention_online.launches
-        o, lse = fa.flash_attention_online(q, k, v, n_valid)
-        assert fa.flash_attention_online.launches == before + 1
-        o_ref, lse_ref = fa.flash_attention_online_plain(q, k, v, n_valid)
-        _close([o], [o_ref])
-        assert float((lse - lse_ref).abs().max()) <= 1e-3
-    torch.cuda.synchronize()
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("layout", ["nchw", "nhwc"])
-def test_decoder_kernels_match_plain_on_cuda(cuda, layout, monkeypatch):
-    """K9a, K9b and K10 against their plain versions in bf16, on NCHW
-    memory seen through an NHWC view (the decoder's call) and on NHWC
-    memory; shapes with ragged blocks (a partial tile-column block, rows
-    not a multiple of the block), batch 2, nonzero biases; one launch
-    counted per call, the output in the input's memory order. K9a on both
-    routes: fused at K = 128, the two launches at K = 384, in chunks of
-    part of an image (a V scratch of 5 tile rows) and of whole images."""
-    from s3od_torch.ops.experimental import mask_tail as tm
-    from s3od_torch.ops.experimental import winograd as tw
-
-    gen = torch.Generator(device=cuda).manual_seed(4)
-    bf = torch.bfloat16
-    r = lambda *s, scale=1.0: (torch.randn(*s, generator=gen, device=cuda)
-                               * scale).to(bf)
-
-    def act(b, h, w, c, scale=1.0):
-        if layout == "nchw":
-            return r(b, c, h, w, scale=scale).permute(0, 2, 3, 1)
-        return r(b, h, w, c, scale=scale)
-
-    x = act(2, 38, 136, 128)
-    for k, v_rows in ((128, 5), (384, 5), (384, 2 * 19)):
-        monkeypatch.setattr(tw, "V_SCRATCH_BYTES", 16 * v_rows * 68 * 128 * 2)
-        plan = tw.conv_plan(2, 38, 136, 128, k, tma=tw.tma_layout(x))
-        assert plan["route"] == (tw.FUSED if k == 128 else tw.TWO_LAUNCH)
-        w, bias = r(3, 3, 128, k, scale=0.05), r(k, scale=0.1)
-        before = tw.winograd_conv.launches
-        y = tw.winograd_conv(x, w, bias)
-        assert tw.winograd_conv.launches == before + 1
-        assert y.permute(0, 3, 1, 2).is_contiguous() == (layout == "nchw")
-        _close([y], [tw.winograd_conv_plain(x, w, bias)])
-    for c in (128, 256):
-        x = act(2, 34, 60, c)
-        w1, w2 = r(3, 3, c, c, scale=0.03), r(3, 3, c, c, scale=0.03)
-        b1, b2 = r(c, scale=0.3), r(c, scale=0.1)
-        _close([tw.winograd_rcu(x, w1, b1, w2, b2)],
-               [tw.winograd_rcu_plain(x, w1, b1, w2, b2)])
-    x = act(2, 30, 100, 64, scale=0.5)
-    args = (x, r(3, 3, 64, 64, scale=0.05), r(64, scale=0.1),
-            r(3, 3, 64, 96, scale=0.05), r(96, scale=0.1), r(96, 3, scale=0.1),
-            r(3, scale=0.1))
-    before = tm.mask_tail.launches
-    got = tm.mask_tail(*args)
-    assert tm.mask_tail.launches == before + 1
-    _close([got], [tm.mask_tail_plain(*args)])
-    torch.cuda.synchronize()
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("layout", ["nchw", "nhwc"])
-def test_winograd_rcu_matches_plain_on_cuda(cuda, layout):
-    """K9b (four device launches, one counted) against its plain version at
-    the 1024^2 path's refinenet1 shape (1, 256, 256, 256) and at batch 2
-    (2, 128, 128, 256), bf16, x in NCHW memory seen through an NHWC view
-    and in NHWC memory: the output in x's memory order, max|d| within
-    1e-2 of max|plain| and ||d|| / ||plain|| within 1.5e-4 (chip_smoke.py's
-    DEC_CALL_TOL)."""
-    from s3od_torch.ops.experimental import winograd as tw
-
-    gen = torch.Generator(device=cuda).manual_seed(6)
-    r = lambda *s, scale=1.0: (torch.randn(*s, generator=gen, device=cuda)
-                               * scale).to(torch.bfloat16)
-    for b, s, c in ((1, 256, 256), (2, 128, 256)):
-        x = (r(b, c, s, s).permute(0, 2, 3, 1) if layout == "nchw"
-             else r(b, s, s, c))
-        w1, w2 = r(3, 3, c, c, scale=0.03), r(3, 3, c, c, scale=0.03)
-        b1, b2 = r(c, scale=0.3), r(c, scale=0.1)
-        before = tw.winograd_rcu.launches
-        got = tw.winograd_rcu(x, w1, b1, w2, b2)
-        assert tw.winograd_rcu.launches == before + 1
-        assert got.permute(0, 3, 1, 2).is_contiguous() == (layout == "nchw")
-        ref = tw.winograd_rcu_plain(x, w1, b1, w2, b2)
-        _close([got], [ref])
-        nrm = float((got.float() - ref.float()).norm() / ref.float().norm())
-        assert nrm <= 1.5e-4, nrm
-    torch.cuda.synchronize()
-
-
-@pytest.mark.cuda
-def test_winograd_conv_dx_runs_the_kernel_on_cuda(cuda):
-    """K9a's autograd on the card: dx through K9a where the rule admits
-    the gradient's shape, against the plain version's dx — on the fused
-    route (a 128 -> 128 conv, dx 128 -> 128) and on the two launches (a
-    512 -> 256 conv, whose dx is 256 -> 512), with ||d|| / ||plain||
-    within chip_smoke.py's DEC_CALL_TOL (1.5e-4)."""
-    from s3od_torch.ops.experimental import winograd as tw
-
-    gen = torch.Generator(device=cuda).manual_seed(5)
-    r = lambda *s, scale=1.0: (torch.randn(*s, generator=gen, device=cuda)
-                               * scale).to(torch.bfloat16)
-    x = r(1, 128, 32, 32).permute(0, 2, 3, 1).requires_grad_()
-    w, b = r(3, 3, 128, 128, scale=0.05), r(128, scale=0.1)
-    g = r(1, 32, 32, 128)
-    assert tw.winograd_available(32, 32, 128, 128) is False
-    before = tw.winograd_conv.launches
-    y = tw.conv3x3_winograd(x, {"kernel": w, "bias": b})
-    (dx,) = torch.autograd.grad(y, x, g)
-    assert tw.winograd_conv.launches == before + 1  # 32 wide: dx by cuDNN
-    for c, k, route in ((128, 128, tw.FUSED), (512, 256, tw.TWO_LAUNCH)):
-        w, b = r(3, 3, c, k, scale=0.05), r(k, scale=0.1)
-        x2 = r(2, c, 16, 128).permute(0, 2, 3, 1).requires_grad_()
-        assert tw.winograd_available(16, 128, k, c)
-        assert tw.conv_plan(2, 16, 128, k, c)["route"] == route
-        before = tw.winograd_conv.launches
-        y2 = tw.conv3x3_winograd(x2, {"kernel": w, "bias": b})
-        g2 = r(*y2.shape)
-        (dx2,) = torch.autograd.grad(y2, x2, g2)
-        assert tw.winograd_conv.launches == before + 2  # forward and dx
-        w_t = w.flip(0, 1).transpose(2, 3)
-        ref = tw.winograd_conv_plain(g2, w_t, torch.zeros(c, device=cuda))
-        _close([dx2], [ref])
-        nrm = float((dx2.float() - ref.float()).norm() / ref.float().norm())
-        assert nrm <= 1.5e-4, nrm
-    torch.cuda.synchronize()
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("c,h", [(768, 12), (1024, 16), (384, 6), (64, 2)])
-def test_attn_epilogue_matches_plain_on_cuda(cuda, c, h):
-    """K4 at an odd tile count (N = 320: 5 row tiles), at b2, and on rows
-    of near-zero variance; x' and h by max error and relative norm."""
-    gen = torch.Generator(device=cuda).manual_seed(5)
-    bf = torch.bfloat16
-    r = lambda *s, scale=1.0, shift=0.0: (
-        torch.randn(*s, generator=gen, device=cuda) * scale + shift).to(bf)
-    d = c // h
-    for b, n, flat in ((1, 320, False), (2, 320, False), (1, 320, True)):
-        x = r(b, n, c, scale=1e-3, shift=3.0) if flat else r(b, n, c)
-        args = (r(b * h, n, d, scale=0.5), r(c, c, scale=1e-5 if flat else 0.02),
-                r(c, scale=0.1), x, r(c, scale=0.5, shift=1.0),
-                r(c, scale=0.5, shift=1.0), r(c, scale=0.2), 1e-5)
-        ref = ae.attn_epilogue_plain(*args)
-        got = ae.attn_epilogue(*args)
-        _close(got, ref)
-        for g, rr in zip(got, ref):
-            g, rr = g.float(), rr.float()
-            assert float((g - rr).norm() / rr.norm()) <= 5e-3, (b, flat)
-    torch.cuda.synchronize()

@@ -272,12 +272,50 @@ def test_no_source_imports_jax_or_jax_modules():
     assert not [str(f) for f in files if eager.search(f.read_text())]
 
 
+CARD_TESTS = sorted((REPO / "tests").glob("test_torch_*_cuda.py"))
+
+
 def test_chip_smoke_names_no_module_of_the_jax_package():
-    """The smoke script reaches configs through the port (s3od_torch.configs)
-    and imports nothing of jax or s3od_tpu itself."""
+    """The on-card command, the card's test files and their shared helper
+    import nothing of jax or s3od_tpu; the command runs the card's tests
+    through pytest, without conftest.py (which sets JAX up), and times
+    nothing."""
+    files = [REPO / "chip_smoke.py", REPO / "tests" / "_cuda.py", *CARD_TESTS]
+    assert len(CARD_TESTS) >= 8
+    for f in files:
+        assert not re.search(r"^\s*(import|from) (jax|s3od_tpu)\b",
+                             f.read_text(), re.M), f
     src = (REPO / "chip_smoke.py").read_text()
-    assert not re.search(r"^\s*(import|from) (jax|s3od_tpu)\b", src, re.M)
-    assert "from s3od_torch.configs import segmentation_config" in src
+    assert "pytest.main" in src and "--noconftest" in src
+    assert not re.search(r"perf_counter|profiler|Event\(|--turns", src)
+
+
+def test_card_tests_live_in_their_own_files():
+    """Every test marked for the card is in a `tests/test_torch_*_cuda.py`
+    file, every test there takes the shared `cuda` fixture (which skips
+    without a card) and carries the marker, and no other file of tests/
+    names the marker."""
+    import ast
+
+    for f in CARD_TESTS:
+        tree = ast.parse(f.read_text())
+        assert any(isinstance(n, ast.ImportFrom) and n.module == "_cuda"
+                   and "cuda" in [a.name for a in n.names] for n in tree.body), f
+        assert re.search(r"^pytestmark = pytest\.mark\.cuda$", f.read_text(), re.M), f
+        tests = [n for n in tree.body if isinstance(n, ast.FunctionDef)
+                 and n.name.startswith("test_")]
+        assert tests, f
+        for t in tests:
+            assert "cuda" in [a.arg for a in t.args.args], (f.name, t.name)
+
+    def marks_cuda(f):
+        return any(isinstance(n, ast.Attribute) and n.attr == "cuda"
+                   and isinstance(n.value, ast.Attribute) and n.value.attr == "mark"
+                   for n in ast.walk(ast.parse(f.read_text())))
+
+    others = [f.name for f in (REPO / "tests").rglob("*.py")
+              if f not in CARD_TESTS and marks_cuda(f)]
+    assert not others
 
 
 def test_build_dir_can_be_overridden(tmp_path, monkeypatch):

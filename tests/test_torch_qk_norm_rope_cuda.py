@@ -7,7 +7,7 @@ tokens padded to 4160 and a batch of two (512, 1536) pairs; planted 1%
 faults caught; and the launches of a
 LoRA step through a small MMDiT at D = 128. The file imports no JAX.
 
-    python -m pytest tests/test_torch_qk_norm_rope_cuda.py -m cuda
+    python3 chip_smoke.py -k qk_norm_rope
 """
 
 import math
@@ -17,6 +17,10 @@ import torch
 
 from s3od_torch.ops import flash_attention as fa
 from s3od_torch.ops import qk_norm_rope as qr
+
+from _cuda import cuda, rel_norm  # noqa: F401
+
+pytestmark = pytest.mark.cuda
 
 HEADS, HEAD_DIM = 24, 128
 # (batch, tokens of each source)
@@ -30,13 +34,6 @@ CASES = {"single-4608": (1, (4608,)), "joint-512-4096": (1, (512, 4096)),
 # of the planted x 1.01
 FWD_NORM_TOL = 1e-3
 BF16_VJP_TOL = 2.0**-7  # as `tests/_vjp_cases.py`
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the Triton passes run on the card only)")
-    return torch.device("cuda")
 
 
 def _case(batch, sizes, dev, seed=21):
@@ -61,20 +58,14 @@ def _ulp(t) -> float:
     return 2.0 ** (math.floor(math.log2(float(t.abs().max()))) - 7)
 
 
-def _rel(a, b) -> float:
-    a, b = a.double(), b.double()
-    return float((a - b).norm() / (b.norm() + 1e-30))
-
-
 def _forward_close(gots, refs) -> None:
     for got, ref in zip(gots, refs):
         assert got.dtype == torch.bfloat16 and got.shape == ref.shape
         assert got.is_contiguous() and torch.isfinite(got).all()
         assert float((got.float() - ref.float()).abs().max()) <= _ulp(ref)
-        assert _rel(got, ref) <= FWD_NORM_TOL, _rel(got, ref)
+        assert rel_norm(got, ref) <= FWD_NORM_TOL, rel_norm(got, ref)
 
 
-@pytest.mark.cuda
 @pytest.mark.parametrize("case", list(CASES))
 def test_forward_matches_plain_on_cuda(cuda, case):
     """q, k, v against the plain version (the eager chain) on the card,
@@ -95,7 +86,6 @@ def test_forward_matches_plain_on_cuda(cuda, case):
         _forward_close([(got[0].float() * 1.01).to(torch.bfloat16)], ref[:1])
 
 
-@pytest.mark.cuda
 @pytest.mark.parametrize("weight_grads", [True, False])
 @pytest.mark.parametrize("case", list(CASES))
 def test_backward_matches_fp32_autograd_on_cuda(cuda, case, weight_grads):
@@ -127,11 +117,10 @@ def test_backward_matches_fp32_autograd_on_cuda(cuda, case, weight_grads):
     for got, ref, leaf in zip(gots, refs, flat):
         assert got.dtype == leaf.dtype and got.shape == leaf.shape
         assert torch.isfinite(got).all()
-        assert _rel(got, ref) < BF16_VJP_TOL, _rel(got, ref)
-    assert _rel(gots[0] * 1.01, refs[0]) >= BF16_VJP_TOL
+        assert rel_norm(got, ref) < BF16_VJP_TOL, rel_norm(got, ref)
+    assert rel_norm(gots[0] * 1.01, refs[0]) >= BF16_VJP_TOL
 
 
-@pytest.mark.cuda
 def test_lora_step_launches_on_cuda(cuda):
     """A LoRA step through a small MMDiT at D = 128 and 1088 tokens (1024
     image + 64 text, K7's route): one forward and one backward launch per
