@@ -8,7 +8,10 @@ one of the JAX package's two gates is on, as there:
   runs K9b as one call (`dpt.py:76-95`).
 - `MASK_TAIL_FUSED` (below): the serving forward's mask-head tail runs
   K10 (`dpt.py:364-382`).
-Both are off by default, and both act on the bf16 route only. Structure:
+Both are off by default, and both act on the bf16 route only. With K10
+off, the mask heads' tail after the fused 3x3 (its bias, the ReLU, the
+1x1 convs) is one Triton pass each way on the bf16 route
+(`ops/mask_logits.py`), training and serving alike. Structure:
 
   taps (B, N, C) x4 -> 1x1 project -> resize (convT x4, convT x2, id,
   3x3 s2) -> 3x3 scratch convs -> refinenet4..1 (RCUs + 1x1 out_conv +
@@ -40,6 +43,7 @@ from s3od_torch.ops import conv as conv_ops
 from s3od_torch.ops.experimental import winograd
 from s3od_torch.ops.experimental.mask_tail import mask_tail
 from s3od_torch.ops.experimental.winograd import rcu_winograd
+from s3od_torch.ops.mask_logits import mask_logits_autograd
 from s3od_torch.ops.resize import resize_bilinear
 
 # The fused mask-head tail (K10) for the serving forward; off, as the JAX
@@ -212,7 +216,7 @@ class MaskHead(nn.Module):
         heads = self.mask_heads
         dt = feat.dtype
         # The branches' 3x3 convs run as ONE conv over the shared features
-        # and their 1x1 convs as one grouped (block-diagonal) conv.
+        # and their 1x1 convs as one block-diagonal product.
         k_fused = torch.cat([h[0].weight for h in heads])
         b_fused = torch.cat([h[0].bias for h in heads])
         hh, ww = feat.shape[-2:]
@@ -230,10 +234,12 @@ class MaskHead(nn.Module):
             return m.permute(0, 3, 1, 2)
         feat = F.relu(_conv(up[2], F.relu(feat)))
         feat = resize_bilinear(feat, target_hw, antialias=True)  # no-op at 16p
-        hidden = F.relu(conv_ops.conv2d(feat, k_fused, b_fused, padding=1))
-        return F.conv2d(hidden, torch.cat([h[2].weight for h in heads]).to(dt),
-                        torch.cat([h[2].bias for h in heads]).to(dt),
-                        groups=len(heads))
+        # The fused 3x3 without its bias; its bias, the ReLU and the 1x1s
+        # follow as one pass each way on the bf16 route (`ops/mask_logits`).
+        pre = conv_ops.conv2d(feat, k_fused, padding=1)
+        w1 = torch.cat([h[2].weight for h in heads]).reshape(len(heads), -1)
+        return mask_logits_autograd(pre, b_fused.to(dt), w1.to(dt),
+                                    torch.cat([h[2].bias for h in heads]).to(dt))
 
 
 class DPTHead(nn.Module):

@@ -63,7 +63,7 @@ def bundle16(tmp_path_factory):
 def _op_cases():
     """(op, plain function, args) of every `s3od::` op at small shapes."""
     from s3od_torch.ops import attn_epilogue, flash_attention, layernorm
-    from s3od_torch.ops import mlp_fused, qkv_project
+    from s3od_torch.ops import mask_logits, mlp_fused, qkv_project
     from s3od_torch.ops.experimental import mask_tail, winograd
 
     g = torch.Generator().manual_seed(0)
@@ -99,11 +99,13 @@ def _op_cases():
         "mask_tail": (ops.mask_tail, mask_tail.mask_tail_plain,
                       (nchw(64), r(3, 3, 64, 64), r(64), r(3, 3, 64, 96), r(96),
                        r(96, 3), r(3))),
+        "mask_logits": (ops.mask_logits, mask_logits.mask_logits_plain,
+                        (r(1, 96, 8, 8), r(96), r(3, 32), r(3))),
     }
 
 
 OPS = ["layer_norm", "qkv_project_rope", "flash_attention", "attn_epilogue",
-       "mlp_fused", "winograd_conv", "winograd_rcu", "mask_tail"]
+       "mlp_fused", "winograd_conv", "winograd_rcu", "mask_tail", "mask_logits"]
 
 
 @pytest.mark.parametrize("name", OPS)

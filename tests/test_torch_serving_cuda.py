@@ -418,7 +418,8 @@ def test_aot_on_cuda(cuda, tmp_path):
 
 def test_tools_on_cuda(cuda, tmp_path):
     """`test_efficiency` at ViT-B 840^2 (b1 and b16): the `s3od::` FLOPs
-    equal the ops' formulas over 2709 tokens padded to 2752; `mine_samples`
+    equal the ops' formulas over 2709 tokens padded to 2752 and the mask
+    heads' 1x1s (`s3od::mask_logits`) on the 832^2 canvas; `mine_samples`
     with the tiny 1024^2 checkpoint, bf16 scores against fp32 (MINE_TOL);
     `export_model --verify --aot-output` on it; the demo's HTTP server on
     the card answering as a direct call."""
@@ -432,12 +433,13 @@ def test_tools_on_cuda(cuda, tmp_path):
         model, image_size=840))
     n, c, f = 2752, cfg.hidden_size, cfg.intermediate_size
     per_block = 6 * n * c * c + 4 * n * n * c + 2 * n * c * c + 4 * n * c * f
+    tail = 2 * model.cfg.num_outputs * model.cfg.mask_inter_features * 832**2
     for batch in (1, B16):
         r = test_efficiency.run_benchmark(
             input_size=840, batch=batch, _predictor=sod,
             output_file=str(tmp_path / f"benchmark_results_b{batch}.txt"),
             trace_dir=str(tmp_path / f"trace_b{batch}"))
-        assert r["s3od_flops"] == batch * per_block * blocks
+        assert r["s3od_flops"] == batch * (per_block * blocks + tail)
         assert r["tokens"] == 2709 and r["params"] > 100e6
     del sod, model
 
